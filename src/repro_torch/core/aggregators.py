@@ -1,0 +1,125 @@
+"""Aggregator interface — SAFE and its baselines on one device.
+
+``SecureAggregator.aggregate`` takes the learner-major [n, V] matrix and
+returns the published [V] mean: the JAX package's ``aggregate_sharded``
+without the mesh, plus the per-round initiator ``rotate`` its per-rank
+``aggregate`` takes. It runs on ``device`` (the card by default); values
+given elsewhere are moved there first.
+
+Key provisioning (DESIGN.md §6): a ``provisioning_seed`` models the
+Round-0 out-of-band exchange (hop keys are KDF(provisioning, i, j)); each
+learner's private seed is KDF(learner_master, rank). Keys are derived on
+the host with the numpy mirror of the PRF.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.chain import chain_aggregate_sequential
+from repro_torch.core.insec import insec_aggregate
+from repro_torch.core.session import seed_words
+from repro_torch.core.types import ChainConfig, RoundKeys
+from repro_torch.crypto.np_impl import derive_key_np, threefry2x32_np
+
+
+def make_round_keys(provisioning_seed: int, learner_master: int,
+                    counter_base: int, num_learners: int) -> RoundKeys:
+    """RoundKeys of every rank: the reference's ``make_round_keys`` (domain
+    0) evaluated for ranks 0..n-1 at once."""
+    prov = derive_key_np(seed_words(provisioning_seed), 0)
+    master = derive_key_np(seed_words(learner_master), 0)
+    ranks = np.arange(num_learners, dtype=np.uint32)
+    y0, y1 = threefry2x32_np(master, ranks, np.uint32(0x9E3779B9))
+    return RoundKeys(provisioning_seed=prov,
+                     learner_seed=np.stack([y0, y1], axis=1),
+                     counter_base=int(counter_base) & 0xFFFFFFFF)
+
+
+_NOT_PORTED = {
+    "bon": "mode='bon' (the Bonawitz baseline) is not ported yet "
+           "(ROADMAP: bon_mask and BON)",
+    "pipelined": "pipelined=True is not ported yet "
+                 "(ROADMAP: the pipelined schedule)",
+    "pod_axis": "pod_axis is not ported yet "
+                "(ROADMAP: hierarchy.py and the pod axis)",
+}
+
+
+@dataclasses.dataclass
+class SecureAggregator:
+    """Secure mean over the learner dim of an [n, V] matrix.
+
+    mode is ``cfg.mode``: insec | saf | safe.
+    """
+
+    cfg: ChainConfig
+    provisioning_seed: int = 0xC0FFEE
+    learner_master: int = 0x5EED
+    device: str = "cuda"
+
+    def __post_init__(self) -> None:
+        if self.cfg.mode == "bon":
+            raise NotImplementedError(_NOT_PORTED["bon"])
+        if self.cfg.pipelined:
+            raise NotImplementedError(_NOT_PORTED["pipelined"])
+        if self.cfg.pod_axis is not None:
+            raise NotImplementedError(_NOT_PORTED["pod_axis"])
+
+    def aggregate(self, values, counter_base: int = 0, alive=None,
+                  weights=None, rotate: int = 0) -> torch.Tensor:
+        """Secure mean of f32[n, V] learner-major values -> f32[V].
+
+        ``alive`` is a 0/1 [n] bitmap, ``weights`` f32[n] (read when
+        ``cfg.weighted``), ``rotate`` the initiator rotation (§8)."""
+        values = torch.as_tensor(values, dtype=torch.float32).to(self.device)
+        if self.cfg.mode == "insec":
+            return insec_aggregate(values, self.cfg, alive, weights)
+        keys = make_round_keys(self.provisioning_seed, self.learner_master,
+                               counter_base, self.cfg.num_learners)
+        return chain_aggregate_sequential(values, keys, self.cfg, alive,
+                                          weights, rotate)
+
+    def aggregate_tree(self, tree: Dict[str, torch.Tensor], counter_base: int = 0,
+                       alive=None, weights=None) -> Dict[str, torch.Tensor]:
+        """Secure mean of a dict of [n, ...] tensors, flattened in sorted-key
+        order (as ``ravel_pytree`` flattens a dict) into one f32 round."""
+        names = sorted(tree)
+        n = self.cfg.num_learners
+        leaves = [torch.as_tensor(tree[k]) for k in names]
+        flat = torch.cat([t.to(self.device, torch.float32).reshape(n, -1)
+                          for t in leaves], dim=1)
+        avg = self.aggregate(flat, counter_base, alive, weights)
+        out, off = {}, 0
+        for name, t in zip(names, leaves):
+            size = math.prod(t.shape[1:])
+            out[name] = avg[off:off + size].reshape(t.shape[1:]).to(t.dtype)
+            off += size
+        return out
+
+
+def make_aggregator(
+    mode: str,
+    num_learners: int,
+    axis: str = "data",
+    *,
+    pipelined: bool = False,
+    subgroups: int = 1,
+    weighted: bool = False,
+    pod_axis=None,
+    scale_bits: int = 16,
+    unroll: bool = True,
+    provisioning_seed: int = 0xC0FFEE,
+    learner_master: int = 0x5EED,
+    device: str = "cuda",
+) -> SecureAggregator:
+    """Factory with the reference's arguments, plus the device to run on."""
+    cfg = ChainConfig(axis=axis, num_learners=num_learners,
+                      scale_bits=scale_bits, mode=mode, pipelined=pipelined,
+                      subgroups=subgroups, weighted=weighted,
+                      pod_axis=pod_axis, unroll=unroll)
+    return SecureAggregator(cfg, provisioning_seed, learner_master, device)

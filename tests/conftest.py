@@ -13,5 +13,12 @@ except ModuleNotFoundError:
     sys.modules["hypothesis"] = _hypothesis_fallback
     sys.modules["hypothesis.strategies"] = _hypothesis_fallback.strategies
 
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")
+
+
 # Do NOT set XLA device-count flags here: the main test process must see
 # exactly one device (multi-device tests spawn subprocesses — helpers.py).
