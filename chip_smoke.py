@@ -10,20 +10,27 @@ no CPU fallback):
 2. the build of every kernel from ``src/repro_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, exactly
    (``torch.equal``), at V in {1, 5, 129, 100_001, 2^24}, counter bases 0
-   and 2^32 - 5, aligned and misaligned rows, and S in {1, 8} sessions;
-4. the main path — one SAFE round, ``make_aggregator("safe", 36)
-   .aggregate(values)`` on f32[36, 2^24], and the multi-session engine at
-   n = 36, S = 8, V = 2^20 — with every kernel's launch count reset just
-   before and read just after;
-5. the round's answers: clean, failover (dead ranks including the elected
-   initiator), weighted and rotated, each within the fixed-point bound of
-   a float64 mean of the survivors and bit-identical to the port's CPU path
-   on [36, 2^16]; every engine session-round bit-identical to a
-   single-session round on the card;
-6. timings at the main path's shapes: each kernel (CUDA events) beside its
+   and 2^32 - 5, aligned and misaligned rows, pads that start at odd and
+   even stream words, S in {1, 8, 36} rows, and m in {1, 2, 36, 300} BON
+   keys with mixed signs;
+4. the main paths, through the entry points a user calls, each with every
+   kernel's launch count reset just before and read just after: one SAFE
+   round (``make_aggregator("safe", 36).aggregate``) on f32[36, 2^24]; the
+   multi-session engine at n = 36, S = 8, V = 2^20; the BON round
+   (``make_aggregator("bon", 36)``) and the pipelined round
+   (``pipelined=True``) on the same values; a hierarchical round
+   (``pod_axis="pod"``) on f32[2, 36, 2^24];
+5. the answers: sequential clean, failover (dead ranks including the
+   elected initiator, NaN in their rows), weighted and rotated; BON clean
+   and failover; pipelined clean, failover, weighted and two subgroups;
+   hierarchical — each within the fixed-point bound of a float64 mean of
+   the survivors and bit-identical to the port's CPU path on [36, 2^16];
+   every engine session-round bit-identical to a single-session round;
+6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
-   wall time per round and per engine step, and the device's busy time in
-   one of each under torch.profiler.
+   wall time per round of every path and per engine step, the device's
+   busy time in the SAFE, BON and pipelined rounds and an engine step
+   under torch.profiler, and the BON/SAFE ratio of the round.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -46,6 +53,8 @@ V_MAIN = 1 << 24            # words per learner in the round (64 MiB f32)
 S_ENGINE, V_ENGINE = 8, 1 << 20
 V_CPU = 1 << 16             # the CPU-path cross-check's width
 STEP = 2.0 ** -16           # one fixed-point step at scale_bits = 16
+PODS = 2                    # pods of the hierarchical round
+DEAD = [0, 13, 35]          # failover: rank 0 is the elected initiator at rotate 0
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM3, and 67
 # TFLOP/s of FP32 = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz. An SM issues
@@ -58,9 +67,12 @@ ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 # Operations per output word: a 20-round Threefry-2x32 evaluation is 72
 # (20 x add/rotate/xor + 12 key-injection adds) and yields 2 words; the
 # encode is a multiply and a conversion. mask_add adds one ring add; a hop
-# evaluates two pads and does three ring adds.
-OPS = {"mask_add": 36 + 2 + 1, "chain_combine": 72 + 2 + 3,
-       "chain_combine_batched": 72 + 2 + 3}
+# evaluates two pads and does three ring adds; bon_mask evaluates m pads
+# and adds or subtracts each.
+OPS = {"mask_add": lambda m: 36 + 2 + 1, "chain_combine": lambda m: 72 + 2 + 3,
+       "chain_combine_batched": lambda m: 72 + 2 + 3,
+       "bon_mask": lambda m: 36 * m + m + 2}
+M_BON = N                   # keys per BON masking launch: n - 1 pairs + the self-mask
 REPLACES = {
     "mask_add": ("src/repro_torch/csrc/mask_add.cu",
                  "src/repro/kernels/threefry_mask_add.py:93"),
@@ -68,7 +80,14 @@ REPLACES = {
                       "src/repro/kernels/chain_combine.py:49"),
     "chain_combine_batched": ("src/repro_torch/csrc/chain_combine.cu",
                               "src/repro/kernels/chain_combine.py:110"),
+    "bon_mask": ("src/repro_torch/csrc/bon_mask.cu", "src/repro/kernels/bon_mask.py:49"),
 }
+# The kernels each main path must launch.
+PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
+                "engine": {"mask_add", "chain_combine_batched"},
+                "bon": {"bon_mask"},
+                "pipelined": {"mask_add", "chain_combine_batched"},
+                "hierarchical": {"mask_add", "chain_combine"}}
 
 
 def say(*parts):
@@ -124,8 +143,9 @@ def wall_ms(fn, iters, warmup=1):
 # ---- phase 3: kernels vs plain versions ---------------------------------------
 
 def check_kernels(dev, ops_cuda, ref):
-    tma, cc = ops_cuda
+    tma, cc, bm = ops_cuda
     g = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
     err = {k: 0 for k in OPS}
     checks = 0
     for V in (1, 5, 129, 100_001, V_MAIN):
@@ -136,31 +156,59 @@ def check_kernels(dev, ops_cuda, ref):
             key, kin, kout = [V, 0xDEADBEEF], [3, base], [base, 7]
             # an 8-byte aligned vector, then views that start on an odd word
             for xs, cs in ((x[:V], c[:V]), (x[1:], c[1:])):
-                got, want = tma.mask_add(xs, key, base), ref.mask_add_ref(xs, key, base)
-                err["mask_add"] = max(err["mask_add"], u32_diff(got, want))
+                # pads from stream word 0, then mid-block and on a block
+                for offset in (0, 1, 466_034, 466_035):
+                    got = tma.mask_add(xs, key, base, offset=offset)
+                    want = ref.mask_add_ref(xs, key, base, offset=offset)
+                    err["mask_add"] = max(err["mask_add"], u32_diff(got, want))
                 got = cc.chain_combine(cs, xs, kin, kout, base)
                 want = ref.chain_combine_ref(cs, xs, kin, kout, base)
                 err["chain_combine"] = max(err["chain_combine"], u32_diff(got, want))
-                checks += 2
-    rng = np.random.RandomState(SEED)
-    for S in (1, 8):
+                for m in (1, 2, 36, 300):
+                    keys = rng.randint(0, 2**32, (m, 2), dtype=np.uint64).astype(np.uint32)
+                    signs = rng.choice([-1, 1], m)
+                    got = bm.bon_mask(xs, keys, signs, base)
+                    want = ref.bon_mask_ref(xs, keys, signs, base)
+                    err["bon_mask"] = max(err["bon_mask"], u32_diff(got, want))
+                checks += 6 + 4
+    for S in (1, 8, N):
         for V in (1, 5, 129, 100_001, V_MAIN):
+            if S == N and V == V_MAIN:
+                continue  # 36 rows are checked below at the pipelined step's width
             cipher = torch.randint(-2**31, 2**31, (S, V), generator=g, device=dev,
                                    dtype=torch.int32).view(torch.uint32)
             x = torch.rand((S, V), generator=g, device=dev) * 100 - 50
             kin = rng.randint(0, 2**32, (S, 2), dtype=np.uint64).astype(np.uint32)
             kout = rng.randint(0, 2**32, (S, 2), dtype=np.uint64).astype(np.uint32)
-            for bases in (np.zeros(S, np.uint32),
-                          np.full(S, 2**32 - 5, np.uint32) - np.arange(S, dtype=np.uint32)):
-                got = cc.chain_combine_batched(cipher, x, kin, kout, bases)
-                want = ref.chain_combine_batched_ref(cipher, x, kin, kout, bases)
+            # start words s * (2V + 1): every other row starts mid-block
+            for bases, starts in (
+                    (np.zeros(S, np.uint32), None),
+                    (np.full(S, 2**32 - 5, np.uint32) - np.arange(S, dtype=np.uint32), None),
+                    (np.full(S, 2**32 - 5, np.uint32), np.arange(S) * (2 * V + 1))):
+                got = cc.chain_combine_batched(cipher, x, kin, kout, bases, starts=starts)
+                want = ref.chain_combine_batched_ref(cipher, x, kin, kout, bases,
+                                                     starts=starts)
                 e = u32_diff(got, want)
-                for s in range(S):  # row s is a standalone hop
-                    e = max(e, u32_diff(got[s], cc.chain_combine(
-                        cipher[s].contiguous(), x[s].contiguous(), kin[s], kout[s],
-                        int(bases[s]))))
+                if starts is None:
+                    for s in range(S):  # row s is a standalone hop
+                        e = max(e, u32_diff(got[s], cc.chain_combine(
+                            cipher[s].contiguous(), x[s].contiguous(), kin[s], kout[s],
+                            int(bases[s]))))
                 err["chain_combine_batched"] = max(err["chain_combine_batched"], e)
                 checks += 1
+    # the pipelined step at the main path's shape: 36 rows of seg words,
+    # row s's pads from word s * seg (seg odd)
+    seg = -(-V_MAIN // N)
+    cipher = torch.randint(-2**31, 2**31, (N, seg), generator=g, device=dev,
+                           dtype=torch.int32).view(torch.uint32)
+    x = torch.rand((N, seg), generator=g, device=dev) * 100 - 50
+    kin = rng.randint(0, 2**32, (N, 2), dtype=np.uint64).astype(np.uint32)
+    kout = rng.randint(0, 2**32, (N, 2), dtype=np.uint64).astype(np.uint32)
+    bases, starts = np.full(N, 2**32 - 5, np.uint32), np.arange(N) * seg
+    got = cc.chain_combine_batched(cipher, x, kin, kout, bases, starts=starts)
+    want = ref.chain_combine_batched_ref(cipher, x, kin, kout, bases, starts=starts)
+    err["chain_combine_batched"] = max(err["chain_combine_batched"], u32_diff(got, want))
+    checks += 1
     sync()
     if any(err.values()):
         fail(f"kernel differs from its plain version: {err}")
@@ -169,54 +217,81 @@ def check_kernels(dev, ops_cuda, ref):
 
 # ---- phase 5: answers ---------------------------------------------------------
 
-def survivor_mean64(values, alive, weights=None):
-    acc = torch.zeros(values.shape[1], dtype=torch.float64, device=values.device)
-    den = 0.0
-    for r in range(values.shape[0]):
-        if alive[r] > 0:
-            w = 1.0 if weights is None else float(weights[r])
-            acc += values[r].double() * w
-            den += w
-    return acc / den
+def survivor_mean64(values, alive, weights=None, subgroups=1):
+    """float64 mean of the survivors' rows of [n, V], per subgroup ring and
+    then over the rings; of [P, n, V], the mean over pods of each pod's."""
+    if values.dim() == 3:
+        return sum(survivor_mean64(v, alive, weights, subgroups)
+                   for v in values) / values.shape[0]
+    m = values.shape[0] // subgroups
+    means = []
+    for grp in range(subgroups):
+        acc = torch.zeros(values.shape[1], dtype=torch.float64, device=values.device)
+        den = 0.0
+        for r in range(grp * m, (grp + 1) * m):
+            if alive[r] > 0:
+                w = 1.0 if weights is None else float(weights[r])
+                acc += values[r].double() * w
+                den += w
+        means.append(acc / den)
+    return sum(means) / subgroups
 
 
 def round_cases(rng):
+    """name -> (mode, aggregator kwargs, aggregate kwargs)."""
     alive = np.ones(N, np.float32)
-    alive[[0, 13, 35]] = 0.0          # rank 0 is the elected initiator at rotate 0
+    alive[DEAD] = 0.0
     w = rng.uniform(1, 10, N).astype(np.float32)
+    pipe = dict(pipelined=True)
     return {
-        "clean": (dict(), dict()),
-        "failover": (dict(), dict(alive=alive)),
-        "weighted": (dict(weighted=True), dict(weights=w)),
-        "rotate7": (dict(), dict(rotate=7)),
-        "rotate7-failover": (dict(), dict(rotate=7, alive=np.where(
+        "clean": ("safe", dict(), dict()),
+        "failover": ("safe", dict(), dict(alive=alive)),
+        "weighted": ("safe", dict(weighted=True), dict(weights=w)),
+        "rotate7": ("safe", dict(), dict(rotate=7)),
+        "rotate7-failover": ("safe", dict(), dict(rotate=7, alive=np.where(
             np.arange(N) == 7, 0.0, 1.0).astype(np.float32))),
+        "bon": ("bon", dict(), dict()),
+        "bon-failover": ("bon", dict(), dict(alive=alive)),
+        "pipelined": ("safe", pipe, dict()),
+        "pipelined-failover": ("safe", pipe, dict(alive=alive)),
+        "pipelined-weighted": ("safe", dict(pipe, weighted=True), dict(weights=w)),
+        "pipelined-subgroups2": ("safe", dict(pipe, subgroups=2), dict()),
+        "hierarchical": ("safe", dict(pod_axis="pod"), dict()),
     }
 
 
-def check_rounds(values, make_aggregator, clean_out):
+def check_rounds(values, hvalues, make_aggregator, outs):
+    """Each case on the card against a float64 mean of the survivors, and
+    bit-identical to the port's CPU path at width V_CPU. ``outs`` holds
+    the main paths' outputs of the clean cases."""
     rng = np.random.RandomState(SEED + 1)
     xmax = float(values.abs().max())
     lines = []
-    for name, (akw, kw) in round_cases(rng).items():
-        out = clean_out if name == "clean" else make_aggregator("safe", N, **akw).aggregate(values, **kw)
+    for name, (mode, akw, kw) in round_cases(rng).items():
+        vals = hvalues if "pod_axis" in akw else values
+        if "alive" in kw:  # a dead rank's NaN must never reach the sum
+            vals = vals.clone()
+            vals[..., np.flatnonzero(kw["alive"] == 0).tolist(), :] = float("nan")
+        out = outs.get(name)
+        if out is None:
+            out = make_aggregator(mode, N, **akw).aggregate(vals, **kw)
         if out.shape != (V_MAIN,) or out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
             fail(f"round {name}: bad output {out.shape} {out.dtype}")
         alive = kw.get("alive", np.ones(N, np.float32))
-        want = survivor_mean64(values, alive, kw.get("weights"))
+        weights = kw.get("weights") if akw.get("weighted") else None
+        want = survivor_mean64(vals, alive, weights, akw.get("subgroups", 1))
         err = float((out.double() - want).abs().max())
-        if "weights" in kw:  # N encode roundings (plus the f32 product) over sum(w)
-            w = kw["weights"]
-            tol = N * (0.5 * STEP + 2.0 ** -20) * (1 + xmax) / float(w[alive > 0].sum()) + STEP
-        else:                # the mean of encode roundings, plus the f32 result's
+        if weights is not None:  # N encode roundings (plus the f32 product) over sum(w)
+            tol = N * (0.5 * STEP + 2.0 ** -20) * (1 + xmax) / float(weights[alive > 0].sum()) + STEP
+        else:                    # the mean of encode roundings, plus the f32 result's
             tol = STEP
         if err > tol:
             fail(f"round {name}: max |err| {err} > {tol}")
-        cpu_agg = make_aggregator("safe", N, device="cpu", **akw)
-        narrow = values[:, :V_CPU]
-        got = make_aggregator("safe", N, **akw).aggregate(narrow.contiguous(), **kw)
-        if not torch.equal(got.cpu(), cpu_agg.aggregate(narrow.cpu(), **kw)):
-            fail(f"round {name}: card and CPU path differ at [36, {V_CPU}]")
+        narrow = vals[..., :V_CPU].contiguous()
+        got = make_aggregator(mode, N, **akw).aggregate(narrow, **kw)
+        cpu = make_aggregator(mode, N, device="cpu", **akw).aggregate(narrow.cpu(), **kw)
+        if not torch.equal(got.cpu(), cpu):
+            fail(f"round {name}: card and CPU path differ at [{N}, {V_CPU}]")
         lines.append(f"{name} err={err:.3e} tol={tol:.3e}")
     return lines
 
@@ -257,7 +332,7 @@ def check_engine(sessions, make_aggregator):
 
 # ---- phase 6: timings -----------------------------------------------------------
 
-def time_kernels(dev, values, tma, cc, ref):
+def time_kernels(dev, values, tma, cc, bm, ref):
     rng = np.random.RandomState(SEED + 3)
     x = values[1]
     cipher = tma.mask_add(values[0], [1, 2], 0)
@@ -266,29 +341,34 @@ def time_kernels(dev, values, tma, cc, ref):
     kin = rng.randint(0, 2**32, (S_ENGINE, 2), dtype=np.uint64).astype(np.uint32)
     kout = rng.randint(0, 2**32, (S_ENGINE, 2), dtype=np.uint64).astype(np.uint32)
     bases = np.arange(S_ENGINE, dtype=np.uint32) * V_ENGINE
+    bkeys = rng.randint(0, 2**32, (M_BON, 2), dtype=np.uint64).astype(np.uint32)
+    bsigns = np.where(np.arange(M_BON) < M_BON // 2, -1, 1)  # learner 18's signs
     runs = {
         "mask_add": (lambda: tma.mask_add(x, [5, 6], 0),
-                     lambda: ref.mask_add_ref(x, [5, 6], 0), V_MAIN, 8 * V_MAIN),
+                     lambda: ref.mask_add_ref(x, [5, 6], 0), V_MAIN, 8 * V_MAIN, 1),
         "chain_combine": (lambda: cc.chain_combine(cipher, x, [3, 4], [5, 6], 0),
                           lambda: ref.chain_combine_ref(cipher, x, [3, 4], [5, 6], 0),
-                          V_MAIN, 12 * V_MAIN),
+                          V_MAIN, 12 * V_MAIN, 1),
         "chain_combine_batched": (
             lambda: cc.chain_combine_batched(cb, xb, kin, kout, bases),
             lambda: ref.chain_combine_batched_ref(cb, xb, kin, kout, bases),
-            S_ENGINE * V_ENGINE, 12 * S_ENGINE * V_ENGINE + 20 * S_ENGINE),
+            S_ENGINE * V_ENGINE, 12 * S_ENGINE * V_ENGINE + 24 * S_ENGINE, 1),
+        "bon_mask": (lambda: bm.bon_mask(x, bkeys, bsigns, 0),
+                     lambda: ref.bon_mask_ref(x, bkeys, bsigns, 0),
+                     V_MAIN, 8 * V_MAIN + 12 * M_BON, M_BON),
     }
     out = {}
-    for name, (kern, plain, words, nbytes) in runs.items():
-        ms = cuda_ms(kern, iters=50)
-        issue_ms = cuda_ms(kern, iters=50, queued=False)
+    for name, (kern, plain, words, nbytes, m) in runs.items():
+        ms = cuda_ms(kern, iters=50 if name != "bon_mask" else 20)
+        issue_ms = cuda_ms(kern, iters=50 if name != "bon_mask" else 20, queued=False)
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS[name] * words / ISSUE_OPS_PER_S * 1e3
+        ops_ms = OPS[name](m) * words / ISSUE_OPS_PER_S * 1e3
         out[name] = dict(ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
                          bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                          bytes_ms=bytes_ms, ops_ms=ops_ms,
-                         gbytes_per_s=nbytes / ms / 1e6, words=words)
+                         gbytes_per_s=nbytes / ms / 1e6, words=words, m=m)
     return out
 
 
@@ -319,6 +399,7 @@ def main():
     dev = torch.device("cuda")
 
     from repro_torch.core import make_aggregator
+    from repro_torch.kernels import bon_mask as bm
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import chain_combine as cc
     from repro_torch.kernels import threefry_mask_add as tma
@@ -340,41 +421,63 @@ def main():
                 say(f"  ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    err, checks = check_kernels(dev, (tma, cc), ref)
+    err, checks = check_kernels(dev, (tma, cc, bm), ref)
     say(f"phase 3 kernels == plain: {checks} comparisons, max |err| {err} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     values = torch.rand((N, V_MAIN), generator=g, device=dev) * 4 - 2
+    hvalues = torch.rand((PODS, N, V_MAIN), generator=g, device=dev) * 4 - 2
     specs = engine_sessions(dev)
     agg = make_aggregator("safe", N)
+    bon = make_aggregator("bon", N)
+    pipe = make_aggregator("safe", N, pipelined=True)
+    hier = make_aggregator("safe", N, pod_axis="pod")
     engine = AggregationEngine(agg.cfg, slots=S_ENGINE, payload_words=V_ENGINE)
-    sync()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    clean = agg.aggregate(values)
-    sessions = [(spec, engine.submit(**spec)) for spec in specs]
-    engine.run_until_done()
-    sync()
-    launches = dict(build.launches)
-    say(f"phase 4 main path: round [{N}, {V_MAIN}] + engine {len(specs)} sessions "
-        f"({engine.rounds_completed} session-rounds, {engine.steps} steps) in "
-        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+    outs, launches = {}, {k: 0 for k in build.launches}
 
-    for line in check_rounds(values, make_aggregator, clean):
+    def run_engine():
+        sessions = [(spec, engine.submit(**spec)) for spec in specs]
+        engine.run_until_done()
+        return sessions
+
+    paths = {"round": ("clean", lambda: agg.aggregate(values)),
+             "engine": ("sessions", run_engine),
+             "bon": ("bon", lambda: bon.aggregate(values)),
+             "pipelined": ("pipelined", lambda: pipe.aggregate(values)),
+             "hierarchical": ("hierarchical", lambda: hier.aggregate(hvalues))}
+    for path, (key, fn) in paths.items():
+        sync()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        outs[key] = fn()
+        sync()
+        counts = dict(build.launches)
+        say(f"phase 4 main path {path}: {time.perf_counter() - t0:.2f} s; launches {counts}")
+        missing = sorted(k for k in PATH_KERNELS[path] if counts[k] <= 0)
+        if missing:
+            fail(f"path {path} never launched {missing}: {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+    sessions = outs.pop("sessions")
+    say(f"phase 4 engine: {len(specs)} sessions, {engine.rounds_completed} session-rounds "
+        f"in {engine.steps} steps; launches over all paths {launches}")
+
+    for line in check_rounds(values, hvalues, make_aggregator, outs):
         say(f"phase 5 round {line}")
     check_engine(sessions, make_aggregator)
     say(f"phase 5 engine: {engine.rounds_completed} session-rounds bit-identical to single runs")
 
-    times = time_kernels(dev, values, tma, cc, ref)
+    times = time_kernels(dev, values, tma, cc, bm, ref)
     for name, t in times.items():
         say(f"phase 6 {name}: {t['ms']:.4f} ms on the device ({t['gbytes_per_s']:.0f} GB/s), "
             f"{t['issue_ms']:.4f} ms a call back to back from the host, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
-            f"(bytes {t['bytes_ms']:.4f} ms, ops {t['ops_ms']:.4f} ms)")
-    round_ms = wall_ms(lambda: agg.aggregate(values), iters=5)
+            f"(bytes {t['bytes_ms']:.4f} ms, ops {t['ops_ms']:.4f} ms; V={t['words']}, m={t['m']})")
+    walls = {"round": wall_ms(lambda: agg.aggregate(values), iters=5),
+             "bon": wall_ms(lambda: bon.aggregate(values), iters=3),
+             "pipelined": wall_ms(lambda: pipe.aggregate(values), iters=5),
+             "hierarchical": wall_ms(lambda: hier.aggregate(hvalues), iters=3)}
     wengine = AggregationEngine(agg.cfg, slots=S_ENGINE, payload_words=V_ENGINE)
 
     def engine_step():
@@ -382,15 +485,27 @@ def main():
             wengine.submit(spec["values"], alive=spec["alive"], rotate0=spec["rotate0"])
         wengine.step()
     step_ms = wall_ms(engine_step, iters=3)
-    say(f"phase 6 wall: round [{N}, {V_MAIN}] {round_ms:.2f} ms "
+    say(f"phase 6 wall: round [{N}, {V_MAIN}] {walls['round']:.2f} ms "
         f"({3 + N - 1} launches: 3 mask_add + {N - 1} chain_combine); engine step "
         f"S={S_ENGINE} [{N}, {V_ENGINE}] {step_ms:.2f} ms ({3 * S_ENGINE} mask_add + "
         f"{N - 1} chain_combine_batched)")
-    for label, fn in (("round", lambda: agg.aggregate(values)), ("engine step", engine_step)):
-        wall, busy, top = profile_ms(fn)
-        seen = (f"device busy {busy:.2f} ms (idle {1 - busy / wall:.0%}); top: {top}"
-                if busy > 0 else "device time not measured (the profiler saw none)")
+    say(f"phase 6 wall: bon [{N}, {V_MAIN}] {walls['bon']:.2f} ms ({2 * N} bon_mask); "
+        f"pipelined {walls['pipelined']:.2f} ms ({3 * N} mask_add + {N - 1} "
+        f"chain_combine_batched); hierarchical [{PODS}, {N}, {V_MAIN}] "
+        f"{walls['hierarchical']:.2f} ms ({PODS} sequential rounds)")
+    busy = {}
+    for label, fn in (("round", lambda: agg.aggregate(values)),
+                      ("bon", lambda: bon.aggregate(values)),
+                      ("pipelined", lambda: pipe.aggregate(values)),
+                      ("engine step", engine_step)):
+        wall, busy[label], top = profile_ms(fn)
+        seen = (f"device busy {busy[label]:.2f} ms (idle {1 - busy[label] / wall:.0%}); top: {top}"
+                if busy[label] > 0 else "device time not measured (the profiler saw none)")
         say(f"phase 6 profile {label}: wall {wall:.2f} ms under the profiler, {seen}")
+    ratio_busy = (f"{busy['bon'] / busy['round']:.2f}" if busy["round"] > 0
+                  else "not measured")
+    say(f"phase 6 BON/SAFE at n={N}, V={V_MAIN}: wall {walls['bon'] / walls['round']:.2f}x, "
+        f"device busy {ratio_busy}x (information, not a claim)")
     say(f"launches {json.dumps(launches)}")
 
     kernels = []

@@ -40,7 +40,7 @@ def round_keys(provisioning_seed, learner_seed, counter_base) -> RoundKeys:
                      & 0xFFFFFFFF)
 
 
-def agg_session(fields: dict, device="cpu") -> AggSession:
+def agg_session(fields: dict, device="cuda") -> AggSession:
     """An AggSession from the reference's fields, with its values on
     ``device``. Optional ``rounds_done`` and ``counter_next`` carry a
     session that has already run rounds (its results are not carried)."""

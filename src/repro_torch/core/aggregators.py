@@ -1,10 +1,12 @@
 """Aggregator interface — SAFE and its baselines on one device.
 
-``SecureAggregator.aggregate`` takes the learner-major [n, V] matrix and
-returns the published [V] mean: the JAX package's ``aggregate_sharded``
-without the mesh, plus the per-round initiator ``rotate`` its per-rank
-``aggregate`` takes. It runs on ``device`` (the card by default); values
-given elsewhere are moved there first.
+``SecureAggregator.aggregate`` takes the learner-major [n, V] matrix
+(pod-major [P, n, V] with a pod axis) and returns the published [V] mean:
+the JAX package's ``aggregate_sharded`` without the mesh, plus the
+per-round initiator ``rotate`` its per-rank ``aggregate`` takes. Every
+mode of the reference runs: insec, saf, safe (sequential or pipelined)
+and bon, each with or without ``pod_axis``. It runs on ``device`` (the
+card by default); values given elsewhere are moved there first.
 
 Key provisioning (DESIGN.md §6): a ``provisioning_seed`` models the
 Round-0 out-of-band exchange (hop keys are KDF(provisioning, i, j)); each
@@ -20,7 +22,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core.chain import chain_aggregate_sequential
+from repro_torch.core.bon import bon_aggregate
+from repro_torch.core.chain import (chain_aggregate_pipelined,
+                                    chain_aggregate_sequential)
 from repro_torch.core.insec import insec_aggregate
 from repro_torch.core.session import seed_words
 from repro_torch.core.types import ChainConfig, RoundKeys
@@ -40,21 +44,12 @@ def make_round_keys(provisioning_seed: int, learner_master: int,
                      counter_base=int(counter_base) & 0xFFFFFFFF)
 
 
-_NOT_PORTED = {
-    "bon": "mode='bon' (the Bonawitz baseline) is not ported yet "
-           "(ROADMAP: bon_mask and BON)",
-    "pipelined": "pipelined=True is not ported yet "
-                 "(ROADMAP: the pipelined schedule)",
-    "pod_axis": "pod_axis is not ported yet "
-                "(ROADMAP: hierarchy.py and the pod axis)",
-}
-
-
 @dataclasses.dataclass
 class SecureAggregator:
     """Secure mean over the learner dim of an [n, V] matrix.
 
-    mode is ``cfg.mode``: insec | saf | safe.
+    mode is ``cfg.mode``: insec | saf | safe | bon; ``cfg.pipelined``
+    selects the segment pipeline for saf/safe.
     """
 
     cfg: ChainConfig
@@ -62,42 +57,44 @@ class SecureAggregator:
     learner_master: int = 0x5EED
     device: str = "cuda"
 
-    def __post_init__(self) -> None:
-        if self.cfg.mode == "bon":
-            raise NotImplementedError(_NOT_PORTED["bon"])
-        if self.cfg.pipelined:
-            raise NotImplementedError(_NOT_PORTED["pipelined"])
-        if self.cfg.pod_axis is not None:
-            raise NotImplementedError(_NOT_PORTED["pod_axis"])
-
     def aggregate(self, values, counter_base: int = 0, alive=None,
                   weights=None, rotate: int = 0) -> torch.Tensor:
         """Secure mean of f32[n, V] learner-major values -> f32[V].
 
-        ``alive`` is a 0/1 [n] bitmap, ``weights`` f32[n] (read when
-        ``cfg.weighted``), ``rotate`` the initiator rotation (§8)."""
-        values = torch.as_tensor(values, dtype=torch.float32).to(self.device)
-        if self.cfg.mode == "insec":
-            return insec_aggregate(values, self.cfg, alive, weights)
+        With ``cfg.pod_axis`` the values are f32[P, n, V], one [n, V]
+        matrix per pod, and the result is the mean over pods. ``alive`` is
+        a 0/1 [n] bitmap (every pod's), ``weights`` f32[n] (with pods
+        f32[P, n], one per learner of each pod; read when ``cfg.weighted``,
+        ignored by BON as by the reference), ``rotate`` the initiator
+        rotation of the sequential schedule (§8; the pipelined one has no
+        initiator to rotate)."""
+        values = torch.as_tensor(values, dtype=torch.float32).to(self.device).contiguous()
+        cfg = self.cfg
+        if cfg.mode == "insec":
+            return insec_aggregate(values, cfg, alive, weights)
         keys = make_round_keys(self.provisioning_seed, self.learner_master,
-                               counter_base, self.cfg.num_learners)
-        return chain_aggregate_sequential(values, keys, self.cfg, alive,
-                                          weights, rotate)
+                               counter_base, cfg.num_learners)
+        if cfg.mode == "bon":
+            return bon_aggregate(values, keys, cfg, alive)
+        if cfg.pipelined:
+            return chain_aggregate_pipelined(values, keys, cfg, alive, weights)
+        return chain_aggregate_sequential(values, keys, cfg, alive, weights, rotate)
 
     def aggregate_tree(self, tree: Dict[str, torch.Tensor], counter_base: int = 0,
                        alive=None, weights=None) -> Dict[str, torch.Tensor]:
-        """Secure mean of a dict of [n, ...] tensors, flattened in sorted-key
-        order (as ``ravel_pytree`` flattens a dict) into one f32 round."""
+        """Secure mean of a dict of [n, ...] tensors ([P, n, ...] with a pod
+        axis), flattened in sorted-key order (as ``ravel_pytree`` flattens
+        a dict) into one f32 round."""
         names = sorted(tree)
-        n = self.cfg.num_learners
+        lead = 1 if self.cfg.pod_axis is None else 2
         leaves = [torch.as_tensor(tree[k]) for k in names]
-        flat = torch.cat([t.to(self.device, torch.float32).reshape(n, -1)
-                          for t in leaves], dim=1)
+        flat = torch.cat([t.to(self.device, torch.float32).reshape(*t.shape[:lead], -1)
+                          for t in leaves], dim=-1)
         avg = self.aggregate(flat, counter_base, alive, weights)
         out, off = {}, 0
         for name, t in zip(names, leaves):
-            size = math.prod(t.shape[1:])
-            out[name] = avg[off:off + size].reshape(t.shape[1:]).to(t.dtype)
+            size = math.prod(t.shape[lead:])
+            out[name] = avg[off:off + size].reshape(t.shape[lead:]).to(t.dtype)
             off += size
         return out
 

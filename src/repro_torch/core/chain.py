@@ -22,14 +22,26 @@ A dead rank keeps its place on the ring, forwarding and re-padding with a
 zero row in place of its vector (the reference multiplies its *encoded*
 words by 0, so a NaN in a dead row never reaches the sum).
 
+``chain_aggregate_pipelined`` is the rotated-initiator segment pipeline:
+the vector is cut into m segments, segment s is initiated and unmasked by
+local rank s, and at step t it sits at local rank (s + t) mod m, so one
+step is m hops over disjoint segments — one ``chain_combine_batched``
+launch whose rows start their pads at word s·seg of each edge's stream.
+
 ``chain_aggregate_batched`` runs S sessions — each with its own keys,
 counter, alive bitmap, weights and rotation — with one
 ``chain_combine_batched`` launch per hop: the multi-session engine's
 substrate.
+
+With ``cfg.pod_axis`` set (hierarchical federation, §5.10) the values are
+pod-major [P, n, V]: every pod runs the round on the same keys and alive
+bitmap (the reference derives keys from the learner-axis rank) and the
+published value is the mean over pods (``pod_mean``).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -125,6 +137,43 @@ def _group_count(cfg: ChainConfig, alive: np.ndarray, group: int) -> np.float32:
     return np.sum(cfg.topology.group_alive(alive, group), dtype=np.float32)
 
 
+def pod_mean(pod_avgs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Cross-pod publication (§5.10): the reference's ``pmean`` over the
+    pod axis, a psum of the pods' results in pod order divided by the
+    constant P — which XLA compiles, as for ``_publish``'s g, to a
+    multiply by f32(1/P)."""
+    avg = pod_avgs[0]
+    for a in pod_avgs[1:]:
+        avg = avg + a
+    return avg * device_scalar(np.float32(1.0) / np.float32(len(pod_avgs)), avg)
+
+
+def _pod_weights(weights, pods: int, n: int) -> list:
+    """Per-pod rows of [P, n] weights, one per global rank in pod-major
+    order as the reference shards them (None: every pod's None)."""
+    if weights is None:
+        return [None] * pods
+    if not isinstance(weights, torch.Tensor):
+        weights = torch.as_tensor(np.asarray(weights, np.float32))
+    if weights.numel() != pods * n:
+        raise ValueError(f"weights: expected {pods}x{n} entries, got {weights.numel()}")
+    return list(weights.reshape(pods, n))
+
+
+def pod_rounds(round_fn: Callable, values: torch.Tensor, cfg: ChainConfig,
+               weights=None) -> torch.Tensor:
+    """Run ``round_fn(values[p], flat_cfg, weights_p)`` for each pod p of
+    pod-major f32[P, n, V] values (``flat_cfg`` is ``cfg`` without the pod
+    axis) and publish the mean over pods."""
+    n = cfg.num_learners
+    if values.dim() != 3 or values.shape[1] != n:
+        raise ValueError(f"values: with pod_axis={cfg.pod_axis!r} expected "
+                         f"[P, {n}, V], got {tuple(values.shape)}")
+    flat = dataclasses.replace(cfg, pod_axis=None)
+    w = _pod_weights(weights, values.shape[0], n)
+    return pod_mean([round_fn(values[p], flat, w[p]) for p in range(values.shape[0])])
+
+
 def chain_aggregate_sequential(
     values: torch.Tensor,
     keys: RoundKeys,
@@ -149,6 +198,9 @@ def chain_aggregate_sequential(
     """
     if cfg.mode not in ("safe", "saf"):
         raise ValueError(f"chain modes are 'safe'/'saf', got {cfg.mode!r}")
+    if cfg.pod_axis is not None:
+        return pod_rounds(lambda v, c, w: chain_aggregate_sequential(
+            v, keys, c, alive, w, rotate), values, cfg, weights)
     n, sb = cfg.num_learners, cfg.scale_bits
     if values.dim() != 2 or values.shape[0] != n:
         raise ValueError(f"values: expected [{n}, V], got {tuple(values.shape)}")
@@ -180,6 +232,109 @@ def chain_aggregate_sequential(
             total = ring_sub(c, R)
         group_avgs.append(_group_mean(codec, total, _group_count(cfg, alive, grp),
                                       cfg.weighted))
+    return _publish(group_avgs, cfg.subgroups)
+
+
+def chain_aggregate_pipelined(
+    values: torch.Tensor,
+    keys: RoundKeys,
+    cfg: ChainConfig,
+    alive=None,
+    weights=None,
+) -> torch.Tensor:
+    """Rotated-initiator segment pipeline (the reference's DESIGN.md §8).
+
+    Each (sub)group's payload is padded to m·seg words (m = group size,
+    seg = ceil(W / m)) and cut into m segments. Segment s of a group is
+    initiated, masked with the private R of local rank s (words [0, seg)
+    of its stream) and finally unmasked by local rank s; its hop pads are
+    words [s·seg, (s+1)·seg) of each edge's stream. At step t segment s
+    sits at local rank (s + t) mod m, so a step is one
+    ``chain_combine_batched`` launch over every group's m segments. There
+    is no election: a dead rank still forwards, re-pads, and masks and
+    unmasks its own segment; only its encoded words are zero. No
+    ``rotate``, as in the reference.
+
+    Args:
+      values: f32[n, V] learner-major (f32[P, n, V] with ``cfg.pod_axis``).
+      keys: RoundKeys (host numpy).
+      cfg: ChainConfig; ``cfg.mode`` must be 'safe' or 'saf'.
+      alive: optional 0/1 [n] liveness bitmap (host data).
+      weights: optional f32[n] per-learner weights (read when weighted).
+
+    Returns:
+      f32[V] — the (weighted) mean over alive learners.
+    """
+    if cfg.mode not in ("safe", "saf"):
+        raise ValueError(f"chain modes are 'safe'/'saf', got {cfg.mode!r}")
+    if cfg.pod_axis is not None:
+        return pod_rounds(lambda v, c, w: chain_aggregate_pipelined(
+            v, keys, c, alive, w), values, cfg, weights)
+    n, m, sb = cfg.num_learners, cfg.group_size, cfg.scale_bits
+    if values.dim() != 2 or values.shape[0] != n:
+        raise ValueError(f"values: expected [{n}, V], got {tuple(values.shape)}")
+    alive = host_alive(alive, n)
+    codec = FixedPointCodec(sb)
+    dev = values.device
+    payload = _payload(values, cfg, weights)
+    W = payload.shape[1]
+    seg = -(-W // m)
+    # [n, m, seg]: rank r's payload zero-padded to m·seg words, a dead
+    # rank's row all zero (the reference multiplies its encoded words by
+    # 0, so a NaN there never reaches the sum)
+    x = payload.new_zeros((n, m * seg))
+    x[:, :W] = payload
+    dead = np.flatnonzero(alive == 0)
+    if dead.size:
+        x.index_fill_(0, upload(dead, dev), 0.0)
+    x = x.view(n, m, seg)
+    base = int(keys.counter_base) & 0xFFFFFFFF
+
+    # Row q of every [n, seg] tensor below is segment local[q] of group
+    # first[q]: the segment rank q initiates. At step t it is held by
+    # rank holder[t, q] = first[q] + (local[q] + t) mod m.
+    local = np.arange(n) % m
+    first = np.arange(n) - local
+    holder = first + (local + np.arange(m)[:, None]) % m          # [m, n]
+    starts = local * seg
+    holder_d, local_d = upload(holder, dev), upload(local, dev)
+
+    def rows_at(t: int) -> torch.Tensor:
+        """[n, seg]: each segment's words of the rank holding it at step t."""
+        return x[holder_d[t], local_d]
+
+    zero = torch.zeros(seg, dtype=torch.float32, device=dev)
+    R = torch.stack([_initiator_mask(keys.learner_seed[q], zero, base, sb)
+                     for q in range(n)])
+    if cfg.mode == "safe":
+        k_out, k_in = _hop_keys(keys.provisioning_seed, cfg)
+        c = ring_add(torch.stack([
+            ops.mask_add(x[q, local[q]], k_out[q], base, offset=int(starts[q]),
+                         scale_bits=sb)
+            for q in range(n)]), R)
+        bases = np.full(n, base, np.uint32)
+        for t in range(1, m):
+            c = ops.chain_combine_batched(c, rows_at(t), k_in[holder[t]],
+                                          k_out[holder[t]], bases, starts=starts,
+                                          scale_bits=sb)
+        pad_in = torch.stack([
+            ops.mask_add(zero, k_in[q], base, offset=int(starts[q]), scale_bits=sb)
+            for q in range(n)])
+        total = ring_sub(ring_sub(c, pad_in), R)
+    else:  # SAF: the initiator masks alone, no hop pads
+        c = ring_add(codec.encode(rows_at(0)), R)
+        for t in range(1, m):
+            c = ring_add(c, codec.encode(rows_at(t)))
+        total = ring_sub(c, R)
+
+    # Each group's m unmasked segments, concatenated (the reference's
+    # all_gather), are its ring sum.
+    group_avgs = [
+        _group_mean(codec, total[grp * m:(grp + 1) * m].reshape(-1)[:W],
+                    _group_count(cfg, alive, grp), cfg.weighted)
+        for grp in range(cfg.subgroups)]
+    if cfg.subgroups == 1:  # every member already holds it: no psum
+        return group_avgs[0]
     return _publish(group_avgs, cfg.subgroups)
 
 
@@ -215,6 +370,8 @@ def chain_aggregate_batched(
     """
     if cfg.mode not in ("safe", "saf"):
         raise ValueError(f"chain modes are 'safe'/'saf', got {cfg.mode!r}")
+    if cfg.pod_axis is not None:
+        raise ValueError("batched sessions run one pod each: cfg.pod_axis must be None")
     n, sb = cfg.num_learners, cfg.scale_bits
     if values.dim() != 3 or values.shape[1] != n:
         raise ValueError(f"values: expected [S, {n}, V], got {tuple(values.shape)}")

@@ -25,13 +25,17 @@ class ChainConfig:
       mode: 'safe'  — chain with hop pads + initiator mask (paper SAFE);
             'saf'   — chain with initiator mask only (paper SAF);
             'insec' — plain mean of raw values (paper INSEC baseline);
-            'bon'   — pairwise-mask baseline (not ported yet).
-      pipelined: the rotated-initiator segment pipeline (not ported yet).
+            'bon'   — pairwise-mask baseline (Bonawitz et al. CCS'17).
+      pipelined: False — the paper's sequential whole-vector chain;
+            True — the rotated-initiator segment pipeline (saf/safe).
       subgroups: number of parallel chains g (paper §5.5). Must divide
         num_learners; each subgroup needs >= 3 members.
       weighted: carry a per-learner weight through the aggregate so the
         published value is the weighted mean (paper §5.6).
-      pod_axis: hierarchical federation axis (not ported yet).
+      pod_axis: hierarchical federation (§5.10): when set, the values are
+        pod-major [P, n, V] and the published value is the mean over pods
+        of each pod's. Its name is kept for the reference; there is no
+        mesh axis.
       unroll: hop-loop unrolling in the JAX package's HLO; the port runs
         its hops eagerly and ignores it.
     """

@@ -84,13 +84,21 @@ def keystream(key, n: int, counter_base=0, device="cpu") -> torch.Tensor:
     return y0.to(torch.uint32)
 
 
-def keystream_pair_lanes(key, n: int, counter_base=0, device="cpu") -> torch.Tensor:
+def keystream_pair_lanes(key, n: int, counter_base=0, device="cpu",
+                         offset: int = 0) -> torch.Tensor:
     """uint32[n] keystream using both Threefry lanes: block ``b`` yields
-    words ``(2b, 2b+1)`` — the schedule the CUDA kernels implement."""
+    words ``(2b, 2b+1)`` — the schedule the CUDA kernels implement.
+
+    ``offset`` starts the pad at word ``offset`` of that stream: word i is
+    lane ``(offset + i) & 1`` of counter ``base + (offset + i) // 2``, so
+    an odd offset begins on lane 1 of a block (``np_impl.
+    keystream_slice_np`` on the host). Offset 0 is the stream itself."""
     k0, k1 = key_pair(key)
-    ctr = _counters((n + 1) // 2, counter_base, device)
+    lead = int(offset) & 1
+    base = int(counter_base) + (int(offset) >> 1)
+    ctr = _counters((n + lead + 1) // 2, base, device)
     y0, y1 = _threefry_lanes(k0, k1, ctr, torch.zeros_like(ctr))
-    return torch.stack([y0, y1], dim=-1).reshape(-1)[:n].to(torch.uint32)
+    return torch.stack([y0, y1], dim=-1).reshape(-1)[lead:lead + n].to(torch.uint32)
 
 
 def derive_key(master, *tags: int) -> torch.Tensor:

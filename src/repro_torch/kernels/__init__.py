@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels for the SAFE masking hot spots (Hopper, sm_90a).
 
 threefry_mask_add — fused keystream + fixed-point encode + masked add
-chain_combine     — fused SAFE non-initiator hop, single and S-session batched
+chain_combine     — fused SAFE non-initiator hop, single and batched rows
+bon_mask          — fused BON pairwise masking over m keys
 
 Sources live in ``repro_torch/csrc``; ``build`` compiles them with nvcc on
 first use. Each kernel has a plain PyTorch version in ``ref.py``;
 ``ops.py`` sends CUDA tensors to the kernels and CPU tensors to the plain
 versions. Callers import the entry points from ``ops`` (the submodule
-names ``chain_combine`` and ``threefry_mask_add`` are the wrappers' own).
+names ``bon_mask``, ``chain_combine`` and ``threefry_mask_add`` are the
+wrappers' own).
 """

@@ -41,21 +41,26 @@ _P, _I64, _U32, _F32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
 #: exports ``safe_error_string(err)``.
 LIBRARIES = {
     "mask_add": {
-        # x, out, n, k0, k1, base, scale, device, stream
-        "safe_mask_add": (_P, _P, _I64, _U32, _U32, _U32, _F32, _INT, _P),
+        # x, out, n, k0, k1, base, start word, scale, device, stream
+        "safe_mask_add": (_P, _P, _I64, _U32, _U32, _U32, _I64, _F32, _INT, _P),
     },
     "chain_combine": {
         # cipher, x, out, n, kin0, kin1, kout0, kout1, base, scale, device, stream
         "safe_chain_combine": (_P, _P, _P, _I64, _U32, _U32, _U32, _U32, _U32,
                                _F32, _INT, _P),
-        # cipher, x, out, rows, n, host table[rows, 5], scale, device, stream
+        # cipher, x, out, rows, n, host table[rows, 6], scale, device, stream
         "safe_chain_combine_batched": (_P, _P, _P, _I64, _I64, _P, _F32, _INT,
                                        _P),
+    },
+    "bon_mask": {
+        # x, out, n, device table[m, 3], m, base, scale, device, stream
+        "safe_bon_mask": (_P, _P, _I64, _P, _I64, _U32, _F32, _INT, _P),
     },
 }
 
 #: kernel launches by kernel name; see ``reset_launches``.
-launches = {"mask_add": 0, "chain_combine": 0, "chain_combine_batched": 0}
+launches = {"mask_add": 0, "chain_combine": 0, "chain_combine_batched": 0,
+            "bon_mask": 0}
 
 
 def reset_launches() -> None:

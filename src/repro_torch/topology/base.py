@@ -1,9 +1,10 @@
 """Ring topologies — the shape of a SAFE chain.
 
-The port's copy of the JAX package's ``topology/base.py`` for one flat
-ring or g subgroup rings over n learners. All of it is host arithmetic on
-Python ints and numpy: the alive bitmap and the rotation are host data,
-so initiator election runs on the host before any kernel launches.
+The port's copy of the JAX package's ``topology/base.py``: one flat ring
+or g subgroup rings over n learners (pods: ``hierarchy.py``). All of it
+is host arithmetic on Python ints and numpy: the alive bitmap and the
+rotation are host data, so initiator election runs on the host before
+any kernel launches.
 
 Ranks are 0-based and contiguous: group g owns ranks [g·m, (g+1)·m) where
 m = group_size.
@@ -154,11 +155,13 @@ class RingTopology:
 
 
 def make_topology(num_learners: int, subgroups: int = 1,
-                  pods: int = 1) -> RingTopology:
-    """Factory: flat chain or subgroup rings. Hierarchical pods are not
-    ported yet (ROADMAP, "hierarchy.py and the pod axis")."""
-    if pods > 1:
-        raise NotImplementedError(
-            "pods > 1 needs HierarchicalTopology, not ported yet "
-            "(ROADMAP: hierarchy.py and the pod axis)")
-    return RingTopology(num_learners, subgroups)
+                  pods: int = 1) -> "RingTopology":
+    """Factory: flat chain, subgroup rings, or hierarchical pods.
+
+    Returns a RingTopology for pods == 1, else a HierarchicalTopology
+    (``num_learners`` per pod; imported here, as hierarchy imports base).
+    """
+    if pods <= 1:
+        return RingTopology(num_learners, subgroups)
+    from repro_torch.topology.hierarchy import HierarchicalTopology
+    return HierarchicalTopology(pods, RingTopology(num_learners, subgroups))

@@ -66,6 +66,22 @@ def test_keystream_words(V, base):
                                   np.asarray(want2))
 
 
+@pytest.mark.parametrize("offset", [1, 2, 5, 36, 4097])
+@pytest.mark.parametrize("V", [1, 2, 37, 1000])
+@pytest.mark.parametrize("base", [0, 2**32 - 5])
+def test_keystream_pair_lanes_at_a_word_offset(offset, V, base):
+    """A pad that starts at word ``offset`` of the two-lane stream, odd
+    (mid-block) or even, is that slice of the stream: the reference's
+    seekable slab ``keystream_slice_np``, and the slice of its jnp stream."""
+    key = _key(offset + V)
+    got = prf.keystream_pair_lanes(key, V, base, offset=offset)
+    assert got.dtype == torch.uint32 and got.shape == (V,)
+    np.testing.assert_array_equal(got.numpy(),
+                                  jnp_impl.keystream_slice_np(key, V, offset, base))
+    whole = jprf.keystream_pair_lanes(jnp.asarray(key), offset + V, base)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(whole)[offset:])
+
+
 def test_derived_keys():
     master = np.array([0xC0FFEE, 0], np.uint32)
     for tags in [(0,), (0, 5), (0x50,), (0x52, 7, 2**32 - 1)]:

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bon_mask as bm
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import chain_combine as cc
 from repro_torch.kernels import threefry_mask_add as tma
@@ -52,3 +53,50 @@ def test_cuda_batched_equal_plain(cuda, S, V):
     got = cc.chain_combine_batched(cipher, x, kin, kout, bases)
     assert build.launches["chain_combine_batched"] == before + -(-S // cc.MAX_ROWS)
     assert torch.equal(got, ref.chain_combine_batched_ref(cipher, x, kin, kout, bases))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1, 2, 5, 129, 100_001])
+@pytest.mark.parametrize("offset", [1, 2, 5, 466_035])
+def test_cuda_mask_add_at_a_word_offset(cuda, V, offset):
+    """Pads that start mid-block (odd offset) or on a block, on aligned and
+    odd-word views."""
+    g = torch.Generator(device=cuda).manual_seed(V + offset)
+    x = torch.rand(V + 1, generator=g, device=cuda) * 200 - 100
+    for xs in (x[:V], x[1:]):
+        for base in (0, 2**32 - 5):
+            assert torch.equal(tma.mask_add(xs, [5, 6], base, offset=offset),
+                               ref.mask_add_ref(xs, [5, 6], base, offset=offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,V,seg", [(8, 5, 5), (36, 129, 129), (36, 100_001, 100_001),
+                                     (130, 7, 3)])
+def test_cuda_batched_rows_at_start_words(cuda, S, V, seg):
+    """The pipelined step: row s's pads start at word s·seg."""
+    rng = np.random.RandomState(S + V)
+    cipher = torch.from_numpy(_u32(rng, (S, V))).to(cuda)
+    x = torch.from_numpy(rng.uniform(-50, 50, (S, V)).astype(np.float32)).to(cuda)
+    kin, kout = _u32(rng, (S, 2)), _u32(rng, (S, 2))
+    bases, starts = np.full(S, 2**32 - 5, np.uint32), np.arange(S) * seg
+    got = cc.chain_combine_batched(cipher, x, kin, kout, bases, starts=starts)
+    assert torch.equal(got, ref.chain_combine_batched_ref(cipher, x, kin, kout, bases,
+                                                          starts=starts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1, 5, 129, 100_001])
+@pytest.mark.parametrize("m", [0, 1, 2, 36, 1100])
+def test_cuda_bon_mask_equal_plain(cuda, V, m):
+    """Any m: 1100 keys take two passes through the kernel's shared-memory
+    key tile."""
+    rng = np.random.RandomState(V + m)
+    keys, signs = _u32(rng, (m, 2)), rng.choice([-1, 1], m)
+    g = torch.Generator(device=cuda).manual_seed(V)
+    x = torch.rand(V + 1, generator=g, device=cuda) * 200 - 100
+    before = build.launches["bon_mask"]
+    for xs in (x[:V], x[1:]):
+        for base in (0, 2**32 - 5):
+            assert torch.equal(bm.bon_mask(xs, keys, signs, base),
+                               ref.bon_mask_ref(xs, keys, signs, base))
+    assert build.launches["bon_mask"] == before + 4

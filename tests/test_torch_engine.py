@@ -185,7 +185,7 @@ def test_sessions_match_reference_bookkeeping():
     jsess.record_result(np.zeros(V, np.float32))
     fields = {f.name: getattr(jsess, f.name) for f in dataclasses.fields(jsess)}
     fields.update(rounds_done=jsess.rounds_done, counter_next=V)
-    sess = convert.agg_session(fields)
+    sess = convert.agg_session(fields, device="cpu")
     assert isinstance(sess, AggSession) and sess.values.dtype == torch.float32
     assert sess.rotate == jsess.rotate == 3
     assert sess.reserve_counter(V) == jsess.reserve_counter(V) == V
