@@ -1,22 +1,48 @@
 """Carry state from the JAX package into the port.
 
-SAFE has no weights: its state is configuration and key material. These
-functions take the JAX package's objects as plain data — a
+These functions take the JAX package's objects as plain data — a
 ``ChainConfig``'s fields as a dict (``dataclasses.asdict``), its uint32 key
-arrays and an ``AggSession``'s fields, all numpy — and build the port's
-objects from them.
+arrays, an ``AggSession``'s fields and a model's parameter tree, all numpy
+— and build the port's objects from them.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import numpy as np
 import torch
 
 from repro_torch.core.session import AggSession
 from repro_torch.core.types import ChainConfig, RoundKeys
+from repro_torch.train.flatten import leaves_with_paths
 
 _SESSION_FIELDS = tuple(f.name for f in dataclasses.fields(AggSession))
+
+
+def model_params(cfg, tree) -> Dict[str, torch.Tensor]:
+    """The port's ``Model`` state (``load_state_dict``) from the reference's
+    parameter tree, as ``jax.tree.map(np.asarray, params)`` gives it.
+
+    Each leaf takes the dtype the port's model stores it in for ``cfg``.
+    bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays or as their uint16
+    bit patterns (an ``.npz`` holds them so) and are carried bit for bit,
+    never through f32. The leaves stay on the CPU; ``load_state_dict``
+    copies them to the model's device."""
+    bf16 = cfg.dtype == "bfloat16"
+    state = {}
+    for path, leaf in leaves_with_paths(tree):
+        a = np.asarray(leaf)
+        if bf16 and a.ndim >= 2:
+            if a.dtype.itemsize != 2 or a.dtype.name not in ("bfloat16", "uint16"):
+                raise ValueError(f"{path}: expected bf16 or its uint16 bits, got {a.dtype}")
+            t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+        else:
+            if a.dtype != np.float32:
+                raise ValueError(f"{path}: expected float32, got {a.dtype}")
+            t = torch.from_numpy(np.array(a))
+        state[path.replace("/", ".")] = t
+    return state
 
 
 def chain_config(fields: dict) -> ChainConfig:

@@ -105,7 +105,14 @@ def _payload(values: torch.Tensor, cfg: ChainConfig, weights) -> torch.Tensor:
         if not isinstance(weights, torch.Tensor):
             weights = upload(np.asarray(weights, np.float32), values.device)
         w = weights.to(values.device, torch.float32).reshape(values.shape[:-1])
-    return torch.cat([values * w[..., None], w[..., None]], dim=-1)
+    # values·w straight into the payload: one [..., n, V+1] tensor at the
+    # peak, not a product and its concatenation
+    V = values.shape[-1]
+    out = torch.empty(values.shape[:-1] + (V + 1,), dtype=torch.float32,
+                      device=values.device)
+    torch.mul(values, w[..., None], out=out[..., :V])
+    out[..., V] = w
+    return out
 
 
 def _group_mean(codec: FixedPointCodec, total: torch.Tensor, count,

@@ -75,7 +75,7 @@ def _counters(n: int, counter_base, device) -> torch.Tensor:
     return (torch.arange(n, dtype=torch.int64, device=device) + base) & _MASK
 
 
-def keystream(key, n: int, counter_base=0, device="cpu") -> torch.Tensor:
+def keystream(key, n: int, counter_base=0, device="cuda") -> torch.Tensor:
     """uint32[n] keystream, one word per counter: word i is lane 0 of
     Threefry(key, (base + i, 0))."""
     k0, k1 = key_pair(key)
@@ -84,7 +84,7 @@ def keystream(key, n: int, counter_base=0, device="cpu") -> torch.Tensor:
     return y0.to(torch.uint32)
 
 
-def keystream_pair_lanes(key, n: int, counter_base=0, device="cpu",
+def keystream_pair_lanes(key, n: int, counter_base=0, device="cuda",
                          offset: int = 0) -> torch.Tensor:
     """uint32[n] keystream using both Threefry lanes: block ``b`` yields
     words ``(2b, 2b+1)`` — the schedule the CUDA kernels implement.

@@ -49,7 +49,7 @@ def test_threefry2x32_words():
 def test_keystream_pair_lanes_words(V, base):
     key = _key(V)
     want = jprf.keystream_pair_lanes(jnp.asarray(key), V, base)
-    got = prf.keystream_pair_lanes(key, V, base)
+    got = prf.keystream_pair_lanes(key, V, base, device="cpu")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -59,10 +59,10 @@ def test_keystream_words(V, base):
     key = np.array([11, 13], np.uint32)
     # the jitted reference takes a uint32 base, not a Python int >= 2**31
     want = jprf.keystream(jnp.asarray(key), V, np.uint32(base))
-    np.testing.assert_array_equal(prf.keystream(key, V, base).numpy(),
+    np.testing.assert_array_equal(prf.keystream(key, V, base, device="cpu").numpy(),
                                   np.asarray(want))
     want2 = jprf.keystream_pair_lanes(jnp.asarray(key), V, base)
-    np.testing.assert_array_equal(prf.keystream_pair_lanes(key, V, base).numpy(),
+    np.testing.assert_array_equal(prf.keystream_pair_lanes(key, V, base, device="cpu").numpy(),
                                   np.asarray(want2))
 
 
@@ -74,7 +74,7 @@ def test_keystream_pair_lanes_at_a_word_offset(offset, V, base):
     (mid-block) or even, is that slice of the stream: the reference's
     seekable slab ``keystream_slice_np``, and the slice of its jnp stream."""
     key = _key(offset + V)
-    got = prf.keystream_pair_lanes(key, V, base, offset=offset)
+    got = prf.keystream_pair_lanes(key, V, base, device="cpu", offset=offset)
     assert got.dtype == torch.uint32 and got.shape == (V,)
     np.testing.assert_array_equal(got.numpy(),
                                   jnp_impl.keystream_slice_np(key, V, offset, base))

@@ -100,3 +100,77 @@ def test_cuda_bon_mask_equal_plain(cuda, V, m):
             assert torch.equal(bm.bon_mask(xs, keys, signs, base),
                                ref.bon_mask_ref(xs, keys, signs, base))
     assert build.launches["bon_mask"] == before + 4
+
+
+def _smoke_models(cuda, dtype="float32"):
+    """The f32 smoke model on the CPU and the same weights on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), dtype=dtype)
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.cuda
+def test_cuda_local_update_matches_cpu(cuda):
+    """The FedAvg local update (2 AdamW steps) at the smoke size on the
+    card against the CPU, f32 (TF32 off): relative L2 of the delta within
+    1e-4, the bound the CPU tests hold the port to against the JAX
+    package; the mean loss within 1e-5 relative."""
+    from repro_torch.train import make_local_update
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, card = _smoke_models(cuda)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab, (2, 2, 32)))
+    d_cpu, l_cpu = make_local_update(cpu, local_steps=2)(cpu.tree(), toks)
+    d_card, l_card = make_local_update(card, local_steps=2)(card.tree(), toks.to(cuda))
+    assert d_card.is_cuda and d_card.dtype == torch.float32
+    d_card = d_card.cpu().double()
+    assert float((d_card - d_cpu.double()).norm() / d_cpu.double().norm()) <= 1e-4
+    np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alive", [[1, 1, 1, 1], [1, 0, 1, 1], [0, 1, 1, 1]])
+def test_cuda_fedavg_aggregation_equal_cpu(cuda, alive):
+    """The weighted round of four learners' deltas at the smoke model's
+    size (P + 1 words, odd, so rows 1 and 3 of the payload start on an odd
+    word) launches the kernels and is torch.equal to the CPU path."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import tree_size
+    _, cpu, _ = _smoke_models(cuda)
+    P = tree_size(cpu.tree())
+    deltas = torch.from_numpy(np.random.RandomState(1).normal(0, 1e-3, (4, P)).astype(np.float32))
+    w = np.array([1000, 1500, 2000, 2500], np.float32)
+    before = dict(build.launches)
+    got = make_aggregator("safe", 4, weighted=True).aggregate(
+        deltas.to(cuda), 3 * (P + 1), alive=alive, weights=w)
+    assert build.launches["mask_add"] == before["mask_add"] + 3
+    # a dead learner keeps its place on the ring: n - 1 hops whatever dies
+    assert build.launches["chain_combine"] == before["chain_combine"] + 3
+    want = make_aggregator("safe", 4, weighted=True, device="cpu").aggregate(
+        deltas, 3 * (P + 1), alive=alive, weights=w)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_federated_round_matches_cpu(cuda):
+    """One whole weighted FedAvg round on the card against the CPU, f32:
+    the published delta within 1e-4 relative L2, new parameters finite."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_federated_round, tree_to_flat
+    cfg, cpu, card = _smoke_models(cuda)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, cfg.vocab, (4, 2, 2, 32)))
+    w = np.array([1000, 1500, 2000, 2500], np.float32)
+    out = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        bundle = make_federated_round(model, make_aggregator("safe", 4, weighted=True,
+                                                             device=dev),
+                                      local_steps=2, return_delta=True)
+        params, m = bundle.round_fn(model.tree(), toks, weights=w, counter=0)
+        assert bool(torch.isfinite(tree_to_flat(params)).all())
+        out.append(m["avg_delta"].cpu().double())
+    assert float((out[1] - out[0]).norm() / out[0].norm()) <= 1e-4

@@ -170,7 +170,7 @@ def test_four_hop_roundtrip_matches_reference_chain():
     rkey = np.array([77, 88], np.uint32)
 
     keys = [derive_pair_key(seed, i, (i + 1) % n) for i in range(n)]
-    R = keystream_pair_lanes(rkey, V, 0)
+    R = keystream_pair_lanes(rkey, V, 0, device="cpu")
     cipher = ring_add(ops.mask_add(torch.from_numpy(vals[0]), keys[0], 0), R)
     for i in range(1, n):
         cipher = ops.chain_combine(cipher, torch.from_numpy(vals[i]), keys[i - 1],
@@ -184,7 +184,7 @@ def test_four_hop_roundtrip_matches_reference_chain():
     _same(cipher, jc)
 
     total = FixedPointCodec(16).decode(
-        ring_sub(ring_sub(cipher, keystream_pair_lanes(keys[n - 1], V, 0)), R))
+        ring_sub(ring_sub(cipher, keystream_pair_lanes(keys[n - 1], V, 0, device="cpu")), R))
     np.testing.assert_allclose(total.numpy(), sum(vals), atol=n / 2**16 + 1e-4)
 
 
