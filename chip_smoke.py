@@ -19,8 +19,15 @@ no CPU fallback):
    multi-session engine at n = 36, S = 8, V = 2^20; the BON round
    (``make_aggregator("bon", 36)``) and the pipelined round
    (``pipelined=True``) on the same values; a hierarchical round
-   (``pod_axis="pod"``) on f32[2, 36, 2^24]; and, after those paths' tensors
-   are freed, the FedAvg path: three rounds of
+   (``pod_axis="pod"``) on f32[2, 36, 2^24]; after those paths' tensors are
+   freed, the wire paths: ``wire engine``, the port's ``net.SafeBroker`` in
+   this process's event loop in front of an ``AggregationEngine`` on the
+   card (n = 36, S = 8, V = 2^20), with ten ``WireClient`` tenants that
+   upload the engine path's ten sessions (144 MiB each) with
+   ``submit_session_chunked`` and collect them with ``wait_session``; and
+   ``wire round``, host only: ``run_safe_round_net`` at n = 36, V = 10,000
+   clean and with ranks {13} and {0} dead, and ``run_bon_round_net`` clean;
+   then the FedAvg path: three rounds of
    ``make_federated_round`` on internlm2-1.8b at full width (12 of its 24
    layers), n = 4 learners of 4 local AdamW steps on 2 x 256 tokens each,
    the deltas (P = 944,556,032 words) averaged by weighted SAFE;
@@ -30,6 +37,9 @@ no CPU fallback):
    hierarchical — each within the fixed-point bound of a float64 mean of
    the survivors and bit-identical to the port's CPU path on [36, 2^16];
    every engine session-round bit-identical to a single-session round;
+   every wire-engine result bit-identical to the in-process engine path's,
+   no engine step failed and no wait timed out; each wire round's average
+   bit-identical to the port's simulation, its messages at the closed form;
    FedAvg: the loss falls over the three rounds; each round's published
    delta, as ``round_fn`` returns it, and that of a failover round (one
    learner dead, its row NaN) are within the weighted fixed-point bound of
@@ -42,7 +52,10 @@ no CPU fallback):
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
    busy time in the SAFE, BON and pipelined rounds and an engine step
-   under torch.profiler, and the BON/SAFE ratio of the round; the last
+   under torch.profiler, and the BON/SAFE ratio of the round; the wire
+   engine path's wall split into upload, engine steps and download, its
+   socket rates and, in a second run under torch.profiler, its device busy
+   time; the wire rounds' walls; the host's numpy keystream rate; the last
    FedAvg round's wall time split into local steps, aggregation and apply
    by CUDA events inside that ``round_fn`` call, one local step's tokens
    per second and model-FLOPs share, and the aggregation against its
@@ -51,6 +64,7 @@ no CPU fallback):
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
 """
+import asyncio
 import json
 import os
 import subprocess
@@ -104,6 +118,7 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "bon": {"bon_mask"},
                 "pipelined": {"mask_add", "chain_combine_batched"},
                 "hierarchical": {"mask_add", "chain_combine"},
+                "wire_engine": {"mask_add", "chain_combine_batched"},
                 "fedavg": {"mask_add", "chain_combine"}}
 
 # The FedAvg path: internlm2-1.8b at full width, cut to 12 of its 24 layers
@@ -116,6 +131,18 @@ FED_N, FED_B, FED_S, FED_K, FED_LR, FED_ROUNDS = 4, 2, 256, 4, 1e-3, 3
 FED_DEAD = 1                # the failover check's dead learner
 CHUNK = 1 << 26             # words per pass of the float64 reference mean
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet)
+
+# The wire paths. The engine's tenants upload over 127.0.0.1 in chunks of
+# the codec's default width (a session is 144 MiB, over one 64 MiB frame).
+# The wire rounds run at the paper's largest feature count
+# (benchmarks/feature_scalability.py:16); learner ids on the wire are
+# rank + 1, so the dead sets are ranks {13} and {0}, the elected initiator.
+WIRE_CHUNK = 1 << 20
+WIRE_WAIT_S = 300.0         # a tenant's wait_session timeout
+WIRE_V = 10_000
+WIRE_DEAD = {"clean": (), "rank 13 dead": (14,), "rank 0 dead": (1,)}
+WIRE_AGG_TIMEOUT = 3.0      # the §5.4 re-election timeout of the wire rounds
+KEYSTREAM_WORDS = 1 << 22   # the host keystream rate's pad
 
 
 def say(*parts):
@@ -666,7 +693,9 @@ def say_profile(label, fn):
 
 def aggregation_paths(dev):
     """Phases 4-6 of the aggregation paths; returns the launches over
-    them and the kernels' timings. Their tensors are freed on return."""
+    them, the kernels' timings and, on the host, what the engine path
+    published for each of ``engine_sessions``. Their tensors are freed on
+    return."""
     from repro_torch.core import make_aggregator
     from repro_torch.kernels import bon_mask as bm
     from repro_torch.kernels import build, ref
@@ -716,6 +745,7 @@ def aggregation_paths(dev):
         say(f"phase 5 round {line}")
     check_engine(sessions, make_aggregator)
     say(f"phase 5 engine: {engine.rounds_completed} session-rounds bit-identical to single runs")
+    published = [[r.cpu().numpy() for r in sess.results] for _, sess in sessions]
 
     times = time_kernels(dev, values, tma, cc, bm, ref)
     for name, t in times.items():
@@ -751,7 +781,189 @@ def aggregation_paths(dev):
                   else "not measured")
     say(f"phase 6 BON/SAFE at n={N}, V={V_MAIN}: wall {walls['bon'] / walls['round']:.2f}x, "
         f"device busy {ratio_busy}x (information, not a claim)")
-    return launches, times
+    return launches, times, published
+
+
+# ---- the wire paths: phases 4, 5 and 6 ---------------------------------------------
+
+async def serve_engine_tenants(engine, specs):
+    """One broker in this event loop in front of ``engine``; one client per
+    spec uploads it chunked (all at once), then all wait for their results.
+    Returns the responses, the clock at start, at the last upload's ack and
+    at the last result, the bytes the clients sent, and the broker."""
+    from repro_torch.net import SafeBroker, WireClient
+
+    broker = SafeBroker(engine=engine)
+    addr = await broker.start()
+    try:
+        clients = [await WireClient(*addr, node=t).connect() for t in range(len(specs))]
+        t0 = time.perf_counter()
+        subs = await asyncio.gather(*(
+            c.submit_session_chunked(spec, chunk_words=WIRE_CHUNK)
+            for c, spec in zip(clients, specs)))
+        t_up = time.perf_counter()
+        sent = sum(c.bytes_sent for c in clients)
+        res = await asyncio.gather(*(
+            c.request("wait_session", {"sid": sub["sid"], "timeout": WIRE_WAIT_S})
+            for c, sub in zip(clients, subs)))
+        t_end = time.perf_counter()
+        for c in clients:
+            await c.close()
+        return res, (t0, t_up, t_end), sent, broker
+    finally:
+        await broker.stop()
+
+
+def overlap(spans, lo, hi):
+    return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in spans)
+
+
+async def wire_round(run, values, **kw):
+    from repro_torch.net import SafeBroker
+
+    broker = SafeBroker(progress_timeout=1.0, monitor_interval=0.25,
+                        aggregation_timeout=WIRE_AGG_TIMEOUT)
+    addr = await broker.start()
+    try:
+        return await run(values, addr, **kw)
+    finally:
+        await broker.stop()
+
+
+def wire_paths(dev, launches, published, smi):
+    """Phases 4-6 of the wire plane. ``wire engine``: the port's broker in
+    front of the port's engine on the card, ten networked tenants (the
+    engine path's sessions, values copied to the host) uploading chunked
+    and collecting their results; each must equal what the in-process
+    engine path ``published``. ``wire round``: SAFE and BON rounds over
+    127.0.0.1 at n = 36, V = 10,000, held to the port's simulation and the
+    closed forms; host only. Launches of the engine path go into
+    ``launches``."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.core.bon_protocol import bon_expected_messages, run_bon_round
+    from repro_torch.core.protocol import run_safe_round
+    from repro_torch.crypto.np_impl import keystream_pair_lanes_np
+    from repro_torch.kernels import build
+    from repro_torch.net import run_bon_round_net, run_safe_round_net
+    from repro_torch.serve import AggregationEngine
+
+    class TimedEngine(AggregationEngine):
+        """Each step timed on the host clock up to a synchronise, so the
+        path's wall splits into its parts."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.step_spans = []
+
+        def step(self):
+            t0 = time.perf_counter()
+            done = super().step()
+            sync()
+            self.step_spans.append((t0, time.perf_counter()))
+            return done
+
+    specs = [dict(spec, values=spec["values"].cpu().numpy()) for spec in engine_sessions(dev)]
+    torch.cuda.empty_cache()
+    cfg = make_aggregator("safe", N).cfg
+
+    sync()
+    build.reset_launches()
+    engine = TimedEngine(cfg, slots=S_ENGINE, payload_words=V_ENGINE)
+    res, (t0, t_up, t_end), sent, broker = asyncio.run(serve_engine_tenants(engine, specs))
+    counts = dict(build.launches)
+    say(f"phase 4 main path wire engine: {t_end - t0:.2f} s; launches {counts}")
+    missing = sorted(k for k in PATH_KERNELS["wire_engine"] if counts[k] <= 0)
+    if missing:
+        fail(f"path wire engine never launched {missing}: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+    say(f"phase 4 wire engine: {len(specs)} tenants, {engine.rounds_completed} session-rounds "
+        f"in {engine.steps} steps, {broker.engine_chunk_frames_in} upload chunks")
+
+    if broker.engine_errors:
+        fail(f"wire engine: {broker.engine_errors} engine steps raised")
+    down = 0
+    for i, (spec, r) in enumerate(zip(specs, res)):
+        if r.get("status") != "done" or r["rounds"] != spec["rounds"]:
+            fail(f"wire engine tenant {i}: {r.get('status')} after "
+                 f"{r.get('rounds')} of {spec['rounds']} rounds")
+        for k, (got, want) in enumerate(zip(r["results"], published[i])):
+            if not (got.dtype == np.float32 and np.array_equal(got.view(np.uint32),
+                                                               want.view(np.uint32))):
+                fail(f"wire engine tenant {i} round {k} differs from the in-process engine")
+            down += got.nbytes
+    say(f"phase 5 wire engine: {engine.rounds_completed} session-rounds bit-identical to the "
+        f"in-process engine path, engine_errors 0, no wait timed out")
+
+    spans = engine.step_spans
+    steps = sum(b - a for a, b in spans)
+    up = (t_up - t0) - overlap(spans, t0, t_up)
+    dl = (t_end - t_up) - overlap(spans, t_up, t_end)
+    say(f"phase 6 wire engine ({smi}): wall {t_end - t0:.3f} s = upload {up:.3f} s "
+        f"({sent / up / 1e9:.3f} GB/s of {sent / 1e9:.3f} GB sent) + engine steps "
+        f"{steps:.3f} s ({len(spans)} steps, each to a synchronise) + download {dl:.3f} s "
+        f"({down / dl / 1e9:.3f} GB/s of {down / 1e6:.1f} MB of results)")
+    del engine, broker, res
+
+    def profiled():
+        return asyncio.run(serve_engine_tenants(
+            TimedEngine(cfg, slots=S_ENGINE, payload_words=V_ENGINE), specs))
+    say_profile("wire engine", profiled)
+    torch.cuda.empty_cache()
+
+    sync()
+    build.reset_launches()
+    rng = np.random.RandomState(SEED + 5)
+    values = rng.uniform(-1, 1, (N, WIRE_V)).astype(np.float32)
+    walls, rounds = {}, {}
+    for name, dead in WIRE_DEAD.items():
+        t = time.perf_counter()
+        rounds[name] = asyncio.run(wire_round(run_safe_round_net, values, failed_nodes=dead,
+                                              aggregation_timeout=WIRE_AGG_TIMEOUT))
+        walls[name] = time.perf_counter() - t
+    t = time.perf_counter()
+    bon = asyncio.run(wire_round(run_bon_round_net, values))
+    walls["bon"] = time.perf_counter() - t
+    counts = dict(build.launches)
+    say(f"phase 4 main path wire round: {sum(walls.values()):.2f} s; launches {counts}")
+    if any(counts.values()):
+        fail(f"the wire rounds are host code but launched kernels: {counts}")
+
+    for name, dead in WIRE_DEAD.items():
+        got = rounds[name]
+        sim = run_safe_round(values, failed_nodes=list(dead),
+                             aggregation_timeout=WIRE_AGG_TIMEOUT)
+        f = len(dead)
+        # §5.3: 4(n - f) + 2f; a dead initiator adds one should_initiate
+        # per survivor before the §5.4 election
+        closed = 4 * (N - f) + 2 * f + (N - f if 1 in dead else 0)
+        ops = ("post_aggregate", "check_aggregate", "get_aggregate", "post_average",
+               "get_average", "should_initiate")
+        if not np.array_equal(got.average.view(np.uint32), sim.average.view(np.uint32)):
+            fail(f"wire round {name}: average differs from the simulation")
+        if (got.stats["aggregation_total"] != closed or sim.stats.aggregation_total != closed
+                or any(got.stats[op] != getattr(sim.stats, op) for op in ops)):
+            fail(f"wire round {name}: messages {got.stats} against the closed form {closed} "
+                 f"and the simulation's {sim.stats}")
+        say(f"phase 5 wire round {name}: average bit-identical to the simulation, "
+            f"{closed} messages (closed form), reposts {got.monitor_reposts}, "
+            f"elections {got.initiator_elections}")
+    sim = run_bon_round(values)
+    if not np.array_equal(bon.average.view(np.uint32), sim.average.view(np.uint32)):
+        fail("wire round bon: average differs from the simulation")
+    if not bon.messages == bon.expected_messages == sim.messages == bon_expected_messages(N):
+        fail(f"wire round bon: {bon.messages} messages, closed form {bon_expected_messages(N)}")
+    say(f"phase 5 wire round bon: average bit-identical to the simulation, "
+        f"{bon.messages} messages (closed form)")
+    say(f"phase 6 wire rounds ({smi}): n={N}, V={WIRE_V}: " + ", ".join(
+        f"{name} {w:.3f} s" for name, w in walls.items()))
+
+    key = np.array([0x9E3779B9, 0x7F4A7C15], np.uint32)
+    best = min(wall_ms(lambda: keystream_pair_lanes_np(key, KEYSTREAM_WORDS), iters=1)
+               for _ in range(3))
+    say(f"phase 6 host keystream ({smi}): keystream_pair_lanes_np on {KEYSTREAM_WORDS} words "
+        f"{best:.1f} ms, {KEYSTREAM_WORDS / best / 1e3:.2f} M words/s on one host core "
+        f"(os.cpu_count() {os.cpu_count()})")
 
 
 def main():
@@ -784,7 +996,9 @@ def main():
     say(f"phase 3 kernels == plain: {checks} comparisons, max |err| {err} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    launches, times = aggregation_paths(dev)
+    launches, times, published = aggregation_paths(dev)
+    torch.cuda.empty_cache()
+    wire_paths(dev, launches, published, smi)
     torch.cuda.empty_cache()
     fedavg_paths(dev, launches, err, smi)
     say(f"launches {json.dumps(launches)}")

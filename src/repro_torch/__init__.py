@@ -7,7 +7,15 @@ on one card, and the masking arithmetic runs in hand-written CUDA
 kernels (``kernels``, sources in ``csrc``) whose plain PyTorch versions
 serve CPU tensors.
 
-Entry points: ``core.make_aggregator`` / ``core.SecureAggregator`` (one
-round) and ``serve.AggregationEngine`` (many sessions per step). Both run
-on the card unless given ``device="cpu"``.
+Entry points:
+
+- ``core.make_aggregator`` / ``core.SecureAggregator`` (one round on the
+  device data plane) and ``serve.AggregationEngine`` (many sessions per
+  step); both run on the card unless given ``device="cpu"``.
+- ``core.protocol.run_safe_round`` (and ``core.bon_protocol.run_bon_round``):
+  the message-level protocol as a discrete-event simulation on the host.
+- ``net.SafeBroker`` and ``net.run_safe_round_net``: the same protocol
+  over TCP, with the reference's wire codec byte for byte. A broker given
+  an ``AggregationEngine`` serves networked tenants through that engine,
+  on the engine's device.
 """
