@@ -30,7 +30,15 @@ no CPU fallback):
    then the FedAvg path: three rounds of
    ``make_federated_round`` on internlm2-1.8b at full width (12 of its 24
    layers), n = 4 learners of 4 local AdamW steps on 2 x 256 tokens each,
-   the deltas (P = 944,556,032 words) averaged by weighted SAFE;
+   the deltas (P = 944,556,032 words) averaged by weighted SAFE; then the
+   train-step path: three steps of ``make_train_step`` on the same model
+   (n = 4, 2 x 256 tokens a learner, one repeated batch), each learner's
+   gradient a row of f32[4, padded_size] averaged by SAFE, then FlatAdamW
+   on the f32 master vector, counters from ``reserve_round``; then
+   ``python -m repro_torch.launch.train --smoke`` as subprocesses on the
+   card (two uninterrupted runs, one resumed from its checkpoint,
+   ``--federated``); then ``net.run_engine_load`` against the port's broker
+   in front of an engine on the card (n = 36, V = 2^20, 4 tenants);
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -47,7 +55,19 @@ no CPU fallback):
    aggregated, and bit-identical to the CPU path on [4, 2^16]; mask_add
    and chain_combine at the path's own V = P + 1, on an aligned and an
    odd-word row of the real weighted payload, ``torch.equal`` to their
-   plain versions (compared 2^26 words at a time);
+   plain versions (compared 2^26 words at a time); the train step: the
+   loss falls over three steps; each step's published gradient mean, as
+   the aggregator handed it back to ``step_fn``, within the fixed-point
+   bound of a float64 mean of the rows it aggregated, with the step's
+   counter and rotation; the card against the CPU path on [4, 2^16];
+   mask_add and chain_combine at V = padded_size against their plain
+   versions; a step with learner 1 dead (its row NaN), then
+   ``reserve_round`` refusing the fifth step of the key set and a step
+   with rank 0 dead on rotated keys; a SAFE and an INSEC step from one
+   state at 2 layers; the launcher's losses finite (falling for the
+   train step), its resumed run against an uninterrupted one beside two
+   uninterrupted runs; every ``run_engine_load`` session bit-identical to
+   a single round;
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -59,7 +79,12 @@ no CPU fallback):
    FedAvg round's wall time split into local steps, aggregation and apply
    by CUDA events inside that ``round_fn`` call, one local step's tokens
    per second and model-FLOPs share, and the aggregation against its
-   bytes bound.
+   bytes bound; the last train step's wall split by CUDA events inside
+   ``step_fn`` into the learners' forward and backward, flatten and pad,
+   SAFE aggregation, FlatAdamW and rebuild, each against its bytes bound,
+   the SAFE share, tokens per second, peak memory and, under
+   torch.profiler, the device's idle share; ``run_engine_load``'s
+   ``LoadReport``.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -119,7 +144,9 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "pipelined": {"mask_add", "chain_combine_batched"},
                 "hierarchical": {"mask_add", "chain_combine"},
                 "wire_engine": {"mask_add", "chain_combine_batched"},
-                "fedavg": {"mask_add", "chain_combine"}}
+                "fedavg": {"mask_add", "chain_combine"},
+                "train_step": {"mask_add", "chain_combine"},
+                "engine_load": {"mask_add", "chain_combine_batched"}}
 
 # The FedAvg path: internlm2-1.8b at full width, cut to 12 of its 24 layers
 # (at 24 the learners' f32 deltas, the weighted payload and the chain's
@@ -131,6 +158,17 @@ FED_N, FED_B, FED_S, FED_K, FED_LR, FED_ROUNDS = 4, 2, 256, 4, 1e-3, 3
 FED_DEAD = 1                # the failover check's dead learner
 CHUNK = 1 << 26             # words per pass of the float64 reference mean
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet)
+
+# The train-step path: the same model and cut as FedAvg's, with the reference
+# launcher's train-step traffic (src/repro/launch/train.py: 4 learners, batch 2
+# of 256 tokens, lr 1e-3) on one repeated batch, as tests/test_train.py trains;
+# the SAFE-against-INSEC comparison runs at TS_CMP_LAYERS layers, so that its
+# two states fit beside each other.
+TS_ARCH, TS_LAYERS, TS_CMP_LAYERS = FED_ARCH, FED_LAYERS, 2
+TS_N, TS_B, TS_S, TS_LR, TS_STEPS = 4, 2, 256, 1e-3, 3
+# The launcher at the smoke size (subprocesses), and run_engine_load.
+LAUNCH_STEPS, LAUNCH_TIMEOUT_S = 4, 300
+LOAD_TENANTS, LOAD_ROUNDS = 4, 2
 
 # The wire paths. The engine's tenants upload over 127.0.0.1 in chunks of
 # the codec's default width (a session is 144 MiB, over one 64 MiB frame).
@@ -461,12 +499,13 @@ def profile_ms(fn):
 # ---- the FedAvg path: phases 4, 5 and 6 ------------------------------------------
 
 class WatchedAggregator:
-    """The FedAvg round's aggregator, watched from outside: each call of
-    ``aggregate`` keeps what ``round_fn`` handed it (``seen``) so that the
-    round's own published delta can be checked against the deltas it
-    aggregated, and CUDA events mark the call's start and end so that the
-    round that is checked is the round that is timed. ``nan_rows`` are set
-    to NaN on the way in: a dead learner's row must never reach the sum."""
+    """The FedAvg round's or the train step's aggregator, watched from
+    outside: each call of ``aggregate`` keeps what the caller handed it and
+    what it published (``seen``) so that the round's own published mean can
+    be checked against the rows it aggregated, and CUDA events mark the
+    call's start and end so that the round that is checked is the round
+    that is timed. ``nan_rows`` are set to NaN on the way in: a dead
+    learner's row must never reach the sum."""
 
     def __init__(self, agg):
         self.agg, self.cfg = agg, agg.cfg
@@ -474,13 +513,18 @@ class WatchedAggregator:
         self.start = torch.cuda.Event(enable_timing=True)
         self.end = torch.cuda.Event(enable_timing=True)
 
-    def aggregate(self, values, counter_base=0, alive=None, weights=None):
+    def reserve_round(self, nwords):
+        return self.agg.reserve_round(nwords)
+
+    def aggregate(self, values, counter_base=0, alive=None, weights=None, domain=0, rotate=0):
         self.seen = None  # the last call's values may go before this call's peak
         values[self.nan_rows] = float("nan")
         self.start.record()
-        out = self.agg.aggregate(values, counter_base, alive=alive, weights=weights)
+        out = self.agg.aggregate(values, counter_base, alive=alive, weights=weights,
+                                 domain=domain, rotate=rotate)
         self.end.record()
-        self.seen = dict(values=values, counter=counter_base, alive=alive, weights=weights)
+        self.seen = dict(values=values, counter=counter_base, alive=alive, weights=weights,
+                         rotate=rotate, out=out)
         return out
 
 
@@ -531,22 +575,25 @@ def check_published(name, m, agg, weights, alive, counter):
     return f"{name}: round_fn's avg_delta err={err:.3e} tol={tol:.3e} (float64 weighted mean)"
 
 
-def check_cpu_path(name, agg, alive, weights, counter):
-    """The aggregation of the seen deltas' first V_CPU words on the card is
-    bit-identical to the port's CPU path."""
-    from repro_torch.core import make_aggregator
-    cpu = make_aggregator("safe", FED_N, weighted=True, device="cpu")
+def check_cpu_path(name, agg, alive, weights, counter, rotate=0, path="fedavg"):
+    """The aggregation of the seen rows' first V_CPU words on the card is
+    bit-identical to the port's CPU path (the same mode, keys, counter,
+    alive, weights and rotation)."""
+    from repro_torch.core import SecureAggregator
+    inner = agg.agg
+    cpu = SecureAggregator(inner.cfg, inner.provisioning_seed, inner.learner_master, "cpu")
     narrow = agg.seen["values"][:, :V_CPU].contiguous()
-    got = agg.agg.aggregate(narrow, counter, alive=alive, weights=weights)
+    got = inner.aggregate(narrow, counter, alive=alive, weights=weights, rotate=rotate)
     if not torch.equal(got.cpu(), cpu.aggregate(narrow.cpu(), counter, alive=alive,
-                                               weights=weights)):
-        fail(f"fedavg {name}: card and CPU path differ at [{FED_N}, {V_CPU}]")
+                                               weights=weights, rotate=rotate)):
+        fail(f"{path} {name}: card and CPU path differ at [{narrow.shape[0]}, {V_CPU}]")
 
 
 def check_full_length(agg, weights, base, err):
-    """mask_add and chain_combine at the FedAvg path's own length, V = P + 1
-    words, on rows of the real weighted payload built from the seen deltas:
-    row 0 starts on an aligned word, row 1 on an odd one (P + 1 is odd).
+    """mask_add and chain_combine at a path's own length — FedAvg's V = P + 1
+    words, the train step's V = padded_size — on rows of the real payload
+    built from the seen rows: row 0 starts on an aligned word, row 1 on an
+    odd one when V is odd (P + 1 is).
     Each output is held ``torch.equal`` to the plain version, CHUNK words
     at a time (the plain pads start at the chunk's word). Folds the
     differences into ``err``; the seen deltas are freed."""
@@ -574,10 +621,10 @@ def check_full_length(agg, weights, base, err):
     for k, v in full.items():
         err[k] = max(err[k], v)
     if any(full.values()):
-        fail(f"fedavg: a kernel differs from its plain version at V = {V}: {full}")
+        fail(f"a kernel differs from its plain version at V = {V}: {full}")
     return (f"kernels at V = {V}: mask_add and chain_combine on payload rows 0 (aligned) "
-            f"and 1 (odd word), counter base {base}, == plain in "
-            f"{-(-V // CHUNK)} chunks a row: max |err| {full}")
+            f"and 1 ({'aligned' if V % 2 == 0 else 'odd word'}), counter base {base}, "
+            f"== plain in {-(-V // CHUNK)} chunks a row: max |err| {full}")
 
 
 def fedavg_paths(dev, launches, err, smi):
@@ -680,6 +727,438 @@ def fedavg_paths(dev, launches, err, smi):
     agg.seen = None
     deltas, _ = bundle.deltas_fn(params, tokens)  # only now: 15 GB beside a round's peak
     say_profile("fedavg aggregation", lambda: agg.aggregate(deltas, 0, weights=weights))
+
+
+# ---- the train-step path: phases 4, 5 and 6 ---------------------------------------
+
+class StepMarks:
+    """``step_fn``'s ``mark``: a CUDA event at the end of each part of a step,
+    so the step's device time splits into its parts."""
+
+    def __init__(self):
+        self.begin = torch.cuda.Event(enable_timing=True)
+        self.events = []
+
+    def start(self):
+        self.events = []
+        self.begin.record()
+
+    def __call__(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+
+    def parts(self, done):
+        """ms per part name (summed over learners), to the ``done`` event."""
+        out, prev = {}, self.begin
+        for name, ev in self.events + [("metrics", done)]:
+            out[name] = out.get(name, 0.0) + prev.elapsed_time(ev)
+            prev = ev
+        return out
+
+
+def check_step_mean(name, agg, alive, counter):
+    """The step's own published gradient mean (what the aggregator handed
+    back to ``step_fn``) against a float64 mean of the survivors' rows of
+    the [n, padded_size] matrix it aggregated, CHUNK words at a time,
+    within the fixed-point bound STEP; and the counter and rotation the
+    step passed. Returns a report line."""
+    seen = agg.seen
+    vals, out = seen["values"], seen["out"]
+    n = vals.shape[0]
+    if int(seen["counter"]) != counter or int(seen["rotate"]) != counter % (2 * n + 1):
+        fail(f"train step {name}: step_fn passed counter {seen['counter']} and rotate "
+             f"{seen['rotate']}, not {counter} and {counter % (2 * n + 1)}")
+    if out.shape != (vals.shape[1],) or not bool(torch.isfinite(out).all()):
+        fail(f"train step {name}: bad published mean {out.shape} {out.dtype}")
+    live = [r for r in range(n) if alive[r] > 0]
+    err = 0.0
+    for s in range(0, vals.shape[1], CHUNK):
+        e = min(vals.shape[1], s + CHUNK)
+        acc = torch.zeros(e - s, dtype=torch.float64, device=vals.device)
+        for r in live:
+            acc += vals[r, s:e].double()
+        err = max(err, float((out[s:e].double() - acc / len(live)).abs().max()))
+    if err > STEP:
+        fail(f"train step {name}: max |err| {err} > {STEP}")
+    return (f"{name}: step_fn's published mean err={err:.3e} tol={STEP:.3e} (float64 mean "
+            f"of survivors {live}), counter {counter}, rotate {counter % (2 * n + 1)}")
+
+
+def train_step_setup(dev, cfg):
+    """(model, watched SAFE aggregator, bundle, tokens [n, B, S] on dev) of
+    the train-step path: the reference launcher's first global batch,
+    repeated every step as the reference's training test does."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    from repro_torch.train import make_train_step
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    stream = make_federated_batches(cfg, TS_N, TS_B, TS_S, seed=SEED)
+    tokens = torch.from_numpy(stream.global_batch(0)["tokens"]).to(dev)
+    agg = WatchedAggregator(make_aggregator("safe", TS_N, device=dev))
+    return model, agg, make_train_step(model, agg, lr=TS_LR), tokens
+
+
+def train_step_paths(dev, launches, err, smi):
+    """Phases 4-6 of the train-step path; adds its launches to ``launches``
+    and its full-length kernel checks to ``err``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_aggregator
+    from repro_torch.kernels import build
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=TS_LAYERS)
+    model, agg, bundle, tokens = train_step_setup(dev, cfg)
+    W = bundle.padded_size + 2  # counter words of one step
+    state = bundle.init_state_fn(model.tree())
+    everyone = np.ones(TS_N, np.float32)
+    marks, done = StepMarks(), torch.cuda.Event(enable_timing=True)
+
+    sync()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, scales, walls, checks, counters = [], [], [], [], []
+    for i in range(TS_STEPS):
+        counters.append(agg.reserve_round(W))
+        t0 = time.perf_counter()
+        marks.start()
+        state, m = bundle.step_fn(state, tokens, counter=counters[-1], mark=marks)
+        done.record()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        parts = marks.parts(done)
+        losses.append(float(m["loss"]))
+        scales.append(float(m["grad_scale"]))
+        checks.append(check_step_mean(f"step {i + 1}", agg, everyone, counters[-1]))
+        if i + 1 < TS_STEPS:
+            agg.seen = None
+        del m
+    counts = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase 4 main path train step: {sum(walls) / 1e3:.2f} s for {TS_STEPS} steps of "
+        f"step_fn; {TS_ARCH} at full width, {TS_LAYERS} of 24 layers, sec_size "
+        f"{bundle.sec_size}, padded_size {bundle.padded_size}, n={TS_N}, tokens [{TS_B}, "
+        f"{TS_S}] a learner, counters {counters} (reserve_round({W})); peak memory "
+        f"{peak / 1e9:.2f} GB; loss {[round(x, 4) for x in losses]}; launches {counts}")
+    missing = sorted(k for k in PATH_KERNELS["train_step"] if counts[k] <= 0)
+    if missing:
+        fail(f"path train step never launched {missing}: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    if not losses[-1] < losses[0]:
+        fail(f"train step: the loss did not fall over {TS_STEPS} steps: {losses}")
+    say(f"phase 5 train step: loss step 1 {losses[0]:.4f} > step {TS_STEPS} {losses[-1]:.4f}; "
+        f"grad_scale {[round(x, 5) for x in scales]}")
+    for line in checks:
+        say(f"phase 5 train step {line}")
+    last = counters[-1]
+    check_cpu_path(f"step {TS_STEPS}", agg, everyone, None, last, rotate=last % (2 * TS_N + 1),
+                   path="train step")
+    say(f"phase 5 train step {check_full_length(agg, None, last, err)}")
+    torch.cuda.empty_cache()
+
+    # one key set's counter space holds 2^32 // W steps (4 at full width): the
+    # learner-1-dead step takes the next; once the set's ranges are spent,
+    # reserve_round refuses and the keys rotate
+    fit = 2**32 // W
+    failover = []
+    for name, dead, who in (("learner 1 dead", 1, agg), ("rank 0 dead", 0, None)):
+        if who is None:
+            for _ in range(fit - TS_STEPS - 1):  # none at full width
+                agg.reserve_round(W)
+            try:
+                agg.reserve_round(W)
+            except OverflowError as e:
+                refusal = str(e)
+            else:
+                fail(f"train step: reserve_round did not refuse step {fit + 1} of a key set")
+            # a Round-0 key rotation: fresh keys, fresh counter space
+            who = WatchedAggregator(make_aggregator("safe", TS_N, device=dev,
+                                                    provisioning_seed=0xC0FFEE + 1,
+                                                    learner_master=0x5EED + 1))
+            rekeyed = make_train_step(model, who, lr=TS_LR)
+            say(f"phase 5 train step: key set 1 refused step {fit + 1} ({refusal}); keys "
+                f"rotated")
+        alive = everyone.copy()
+        alive[dead] = 0.0
+        who.nan_rows = [dead]
+        counter = who.reserve_round(W)
+        step_fn = bundle.step_fn if who is agg else rekeyed.step_fn
+        state, m = step_fn(state, tokens, counter=counter, alive=alive)
+        who.nan_rows = []
+        if not np.isfinite(float(m["loss"])):
+            fail(f"train step {name}: loss {float(m['loss'])}")
+        failover.append(f"{check_step_mean(name, who, alive, counter)}; loss {float(m['loss']):.4f}")
+        check_cpu_path(name, who, alive, None, counter, rotate=counter % (2 * TS_N + 1),
+                       path="train step")
+        who.seen = None
+        del m
+    for line in failover:
+        say(f"phase 5 train step {line}; card == CPU path on [{TS_N}, {V_CPU}]")
+
+    # phase 6: step TS_STEPS, split by its own CUDA events
+    P, V = bundle.sec_size, bundle.padded_size
+    step_ms = walls[-1]
+    dev_ms = sum(parts.values())
+    fb, flat, agg_ms = parts["forward_backward"], parts["flatten"], parts["aggregate"]
+    opt_ms, rebuild_ms = parts["optimizer"], parts["rebuild"]
+    tokens_per_step = TS_N * TS_B * TS_S
+    mfu = 6 * P * tokens_per_step / (fb / 1e3) / BF16_FLOPS_PER_S
+    opt_bound = 7 * 4 * V / HBM_BYTES_PER_S * 1e3      # read g, m, v, p; write m, v, p
+    agg_bound = (3 * 8 + 3 * 12) * V / HBM_BYTES_PER_S * 1e3  # 3 mask_add, 3 chain_combine
+    flat_bound = TS_N * (2 + 4) * P / HBM_BYTES_PER_S * 1e3   # bf16 grads in, f32 rows out
+    rebuild_bound = (4 + 2) * P / HBM_BYTES_PER_S * 1e3
+    say(f"phase 6 train step {TS_STEPS} ({smi}): {step_ms:.1f} ms wall, {dev_ms:.1f} ms from "
+        f"its CUDA events = learners' forward and backward {fb:.1f} + flatten and pad "
+        f"{flat:.2f} + SAFE aggregation {agg_ms:.2f} + FlatAdamW {opt_ms:.2f} + rebuild "
+        f"{rebuild_ms:.2f} + metrics {parts['metrics']:.2f} ms; SAFE share "
+        f"{agg_ms / dev_ms:.2%}; {tokens_per_step / step_ms * 1e3:.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    say(f"phase 6 train step bounds ({smi}): SAFE aggregation {agg_ms:.2f} ms against "
+        f"{agg_bound:.2f} ms for its 6 kernels' bytes ({agg_bound / agg_ms:.0%}); FlatAdamW "
+        f"{opt_ms:.2f} ms against a bytes bound of {opt_bound:.2f} ms ({opt_bound / opt_ms:.0%}) "
+        f"on {V} words; flatten {flat:.2f} ms against {flat_bound:.2f} ms; rebuild "
+        f"{rebuild_ms:.2f} ms against {rebuild_bound:.2f} ms; forward and backward "
+        f"{fb / TS_N:.1f} ms a learner, model-FLOPs share 6PT/t = {mfu:.2%} of 989 TFLOP/s "
+        f"(information)")
+
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = rekeyed.step_fn(holder["state"], tokens,
+                                              counter=who.reserve_round(W))
+        who.seen = None
+    busy = say_profile("train step", one_step)
+    if busy > 0:
+        say(f"phase 6 train step idle share ({smi}): device busy {busy:.2f} ms of the "
+            f"unprofiled step {TS_STEPS}'s {step_ms:.1f} ms wall: idle {1 - busy / step_ms:.0%}")
+    # the peak of a step whose aggregator is not watched (the watcher keeps
+    # the gradient matrix alive through the optimizer), part by part: the
+    # allocator's peak since the last mark (host-side counters, no sync);
+    # the key set's last range
+    plain = make_train_step(model, who.agg, lr=TS_LR)
+    peaks = {}
+
+    def peak_mark(name):
+        peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    holder["state"], _ = plain.step_fn(holder["state"], tokens, counter=who.reserve_round(W),
+                                       mark=peak_mark)
+    sync()
+    say(f"phase 6 train step peak memory ({smi}): {max(peaks.values()) / 1e9:.2f} GB in a step "
+        f"with its aggregator unwatched ({peak / 1e9:.2f} GB watched); peak by part: "
+        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in peaks.items()))
+    del holder, state, model, bundle, rekeyed, plain, agg, who, tokens
+    torch.cuda.empty_cache()
+    safe_vs_insec(dev, cfg)
+
+
+def safe_vs_insec(dev, cfg):
+    """A SAFE step and an INSEC step from one state, at TS_CMP_LAYERS
+    layers (full width): the same loss, published gradients within the
+    fixed-point bound, parameters within the first AdamW step's 2·lr of
+    each other, and the next forward's losses within 5e-3
+    (tests/test_train.py's bound)."""
+    import dataclasses
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(cfg, n_layers=TS_CMP_LAYERS)
+    model, safe, _, tokens = train_step_setup(dev, cfg)
+    insec = WatchedAggregator(make_aggregator("insec", TS_N, device=dev))
+    bs = make_train_step(model, safe, lr=TS_LR, donate=False)
+    bi = make_train_step(model, insec, lr=TS_LR, donate=False)
+    state = bs.init_state_fn(model.tree())
+    W = bs.padded_size + 2
+    s_safe, m_safe = bs.step_fn(state, tokens, counter=safe.reserve_round(W))
+    s_insec, m_insec = bi.step_fn(state, tokens, counter=insec.reserve_round(W))
+    gerr = float((safe.seen["out"] - insec.seen["out"]).abs().max())
+    dtheta = (s_safe["master"] - s_insec["master"]).abs()
+    dmax, moved = float(dtheta.max()), float((dtheta > 0).float().mean())
+    l_safe, l_insec = float(m_safe["loss"]), float(m_insec["loss"])
+    safe.seen = insec.seen = None
+    _, n_safe = bs.step_fn(s_safe, tokens, counter=safe.reserve_round(W))
+    _, n_insec = bi.step_fn(s_insec, tokens, counter=insec.reserve_round(W))
+    nxt = abs(float(n_safe["loss"]) - float(n_insec["loss"]))
+    bound = 2 * TS_LR + 1e-6
+    if abs(l_safe - l_insec) > 1e-6 * abs(l_insec) or gerr > STEP or dmax > bound or nxt > 5e-3:
+        fail(f"train step SAFE vs INSEC: loss {l_safe} vs {l_insec}, published gradients "
+             f"{gerr} apart (bound {STEP}), parameters {dmax} apart (bound {bound}), next "
+             f"losses {nxt} apart (bound 5e-3)")
+    say(f"phase 5 train step SAFE vs INSEC at {TS_CMP_LAYERS} layers (full width), one step "
+        f"from one state: loss {l_safe:.6f} and {l_insec:.6f}; published gradients max "
+        f"|diff| {gerr:.3e} <= {STEP:.3e}; parameters max |diff| {dmax:.3e} <= 2 lr "
+        f"({moved:.3%} of {bs.padded_size} words differ); next losses {nxt:.2e} apart "
+        f"(<= 5e-3)")
+    del model, state, s_safe, s_insec, tokens
+    torch.cuda.empty_cache()
+
+
+# ---- the launcher and the load harness, on the card ----------------------------------
+
+def launcher_paths(smi):
+    """``python -m repro_torch.launch.train`` at the smoke size on the card,
+    as subprocesses: two uninterrupted runs of LAUNCH_STEPS steps, a run
+    of half as many resumed from its checkpoint, and a FedAvg run. Reports
+    how far the resumed run's final state is from an uninterrupted run's
+    beside how far the two uninterrupted runs are from each other."""
+    import tempfile
+
+    from repro_torch.ckpt import latest_step, restore_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_aggregator
+    from repro_torch.models import Model
+    from repro_torch.train import make_train_step
+
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TS_ARCH, "--smoke",
+            "--learners", str(TS_N)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    half = str(LAUNCH_STEPS // 2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        def launch(name, *extra):
+            return subprocess.Popen(base + ["--metrics", f"{tmp}/{name}.jsonl", *extra],
+                                    env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+
+        def finish(procs):
+            out = {}
+            for name, p in procs.items():
+                try:
+                    stdout, stderr = p.communicate(timeout=LAUNCH_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.communicate()
+                    fail(f"launcher {name}: no end within {LAUNCH_TIMEOUT_S} s")
+                if p.returncode != 0:
+                    fail(f"launcher {name}: exit {p.returncode}: {stderr[-2000:]}")
+                out[name] = stdout.splitlines()
+            return out
+
+        def losses(name, key):
+            with open(f"{tmp}/{name}.jsonl") as f:
+                return [json.loads(line)[key] for line in f if line.strip()]
+
+        steps = str(LAUNCH_STEPS)
+        t0 = time.perf_counter()
+        out = finish({
+            "whole_a": launch("whole_a", "--steps", steps, "--ckpt-dir", f"{tmp}/a",
+                              "--ckpt-every", steps),
+            "whole_b": launch("whole_b", "--steps", steps, "--ckpt-dir", f"{tmp}/b",
+                              "--ckpt-every", steps),
+            "half": launch("half", "--steps", half, "--ckpt-dir", f"{tmp}/r",
+                           "--ckpt-every", half)})
+        out.update(finish({
+            "resumed": launch("resumed", "--steps", steps, "--ckpt-dir", f"{tmp}/r",
+                              "--ckpt-every", half),
+            "federated": launch("federated", "--steps", steps, "--federated")}))
+        wall = time.perf_counter() - t0
+        for name, lines in out.items():
+            if "model axis is 1 on one card" not in lines[0] or "on cuda" not in lines[0]:
+                fail(f"launcher {name}: first line {lines[0]!r}")
+        if f"resumed from step {half}" not in out["resumed"]:
+            fail(f"launcher resumed: did not resume: {out['resumed']}")
+        run_losses = {k: losses(k, "loss") for k in ("whole_a", "whole_b", "half", "resumed")}
+        fed = losses("federated", "local_loss")
+        joined = run_losses["half"] + run_losses["resumed"]
+        # each step and round trains on the stream's next batch, so only the
+        # train step's losses (lr 1e-3 from random weights) must fall
+        for name, ls in (("whole_a", run_losses["whole_a"]), ("whole_b", run_losses["whole_b"]),
+                         ("resumed", joined), ("federated", fed)):
+            if len(ls) != LAUNCH_STEPS or not np.isfinite(ls).all() or (
+                    name != "federated" and not ls[-1] < ls[0]):
+                fail(f"launcher {name}: losses {ls}")
+
+        cfg = get_smoke_config(TS_ARCH)
+        model = Model(cfg, device="cpu")
+        skel = make_train_step(model, make_aggregator("safe", TS_N, device="cpu")
+                               ).init_state_fn(model.tree())
+        final = {}
+        for name in ("a", "b", "r"):
+            d = f"{tmp}/{name}"
+            if latest_step(d) != LAUNCH_STEPS:
+                fail(f"launcher: no checkpoint at step {LAUNCH_STEPS} in run {name}")
+            final[name], _ = restore_checkpoint(d, LAUNCH_STEPS, skel)
+
+    def apart(x, y):
+        a, b = x["master"], y["master"]
+        return float((a - b).abs().max()), int((a != b).sum())
+
+    ra, ab = apart(final["r"], final["a"]), apart(final["a"], final["b"])
+    la = max(abs(x - y) for x, y in zip(joined, run_losses["whole_a"]))
+    lb = max(abs(x - y) for x, y in zip(run_losses["whole_b"], run_losses["whole_a"]))
+    say(f"phase 4 launcher ({smi}): 5 runs of repro_torch.launch.train --smoke on the card "
+        f"in {wall:.1f} s; train-step losses {[round(x, 4) for x in run_losses['whole_a']]}, "
+        f"federated {[round(x, 4) for x in fed]}")
+    say(f"phase 5 launcher: resumed ({half} + {half} steps) against uninterrupted: losses "
+        f"max |diff| {la:.3e}, final master vector max |diff| {ra[0]:.3e} on {ra[1]} words; "
+        f"two uninterrupted runs: losses {lb:.3e}, master {ab[0]:.3e} on {ab[1]} words "
+        f"(of {final['a']['master'].numel()})")
+
+
+def engine_load_path(dev, launches, smi):
+    """``net.run_engine_load`` against the port's broker in front of an
+    ``AggregationEngine`` on the card, at the engine path's shape (n = 36,
+    V = 2^20, chunked uploads and downloads); every session's answer
+    bit-identical to a single round on the card."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.kernels import build
+    from repro_torch.net import SafeBroker, run_engine_load
+    from repro_torch.serve import AggregationEngine
+
+    sessions = []
+
+    class Recording(AggregationEngine):  # the broker owns the completion hook
+        def submit(self, values, **kw):
+            sessions.append(super().submit(values, **kw))
+            return sessions[-1]
+
+    engine = Recording(make_aggregator("safe", N).cfg, slots=S_ENGINE, payload_words=V_ENGINE)
+
+    async def go():
+        broker = SafeBroker(engine=engine)
+        addr = await broker.start()
+        try:
+            rep = await run_engine_load(addr, tenants=LOAD_TENANTS, rounds_per_tenant=LOAD_ROUNDS,
+                                        n=N, V=V_ENGINE, seed=SEED, timeout=WIRE_WAIT_S,
+                                        chunk_words=WIRE_CHUNK)
+            return rep, broker.engine_errors
+        finally:
+            await broker.stop()
+
+    sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rep, errors = asyncio.run(go())
+    wall = time.perf_counter() - t0
+    counts = dict(build.launches)
+    say(f"phase 4 main path engine load: {wall:.2f} s; launches {counts}")
+    missing = sorted(k for k in PATH_KERNELS["engine_load"] if counts[k] <= 0)
+    if missing:
+        fail(f"path engine load never launched {missing}: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+    if errors:
+        fail(f"engine load: {errors} engine steps raised")
+    if rep.rounds != LOAD_TENANTS * LOAD_ROUNDS or len(sessions) != rep.rounds + 1:
+        fail(f"engine load: {rep.rounds} rounds, {len(sessions)} sessions")
+    for sess in sessions:
+        want = make_aggregator("safe", N, provisioning_seed=sess.provisioning_seed,
+                               learner_master=sess.learner_master).aggregate(
+            sess.values, 0, rotate=sess.rotate0)
+        if not torch.equal(sess.results[0], want):
+            fail(f"engine load session {sess.sid} differs from a single round")
+    say(f"phase 5 engine load: {len(sessions)} sessions (the warm-up's too) bit-identical to "
+        f"single rounds on the card; every tenant's check inside run_engine_load passed")
+    say(f"phase 6 engine load ({smi}): LoadReport {json.dumps(rep.row())}")
+    del engine, sessions
+    torch.cuda.empty_cache()
 
 
 def say_profile(label, fn):
@@ -1001,6 +1480,10 @@ def main():
     wire_paths(dev, launches, published, smi)
     torch.cuda.empty_cache()
     fedavg_paths(dev, launches, err, smi)
+    torch.cuda.empty_cache()
+    train_step_paths(dev, launches, err, smi)
+    launcher_paths(smi)
+    engine_load_path(dev, launches, smi)
     say(f"launches {json.dumps(launches)}")
 
     kernels = []

@@ -17,5 +17,9 @@ Entry points:
 - ``net.SafeBroker`` and ``net.run_safe_round_net``: the same protocol
   over TCP, with the reference's wire codec byte for byte. A broker given
   an ``AggregationEngine`` serves networked tenants through that engine,
-  on the engine's device.
+  on the engine's device. ``net.loadgen`` drives many tenants at once.
+- ``train.make_federated_round`` (FedAvg) and ``train.make_train_step``
+  (each step's gradient averaged by SAFE, then FlatAdamW), on the card
+  unless the model is on the CPU; ``python -m repro_torch.launch.train``
+  runs either, with checkpoints (``ckpt``) in the reference's format.
 """

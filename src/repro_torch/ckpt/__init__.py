@@ -1,0 +1,5 @@
+"""Checkpointing in the JAX package's format (msgpack manifest + gzip),
+with no dependency beyond numpy and torch."""
+from repro_torch.ckpt.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]

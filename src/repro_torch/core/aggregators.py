@@ -29,14 +29,20 @@ from repro_torch.core.insec import insec_aggregate
 from repro_torch.core.session import seed_words
 from repro_torch.core.types import ChainConfig, RoundKeys
 from repro_torch.crypto.np_impl import derive_key_np, threefry2x32_np
+from repro_torch.crypto.prf import RoundCounter
 
 
 def make_round_keys(provisioning_seed: int, learner_master: int,
-                    counter_base: int, num_learners: int) -> RoundKeys:
-    """RoundKeys of every rank: the reference's ``make_round_keys`` (domain
-    0) evaluated for ranks 0..n-1 at once."""
-    prov = derive_key_np(seed_words(provisioning_seed), 0)
-    master = derive_key_np(seed_words(learner_master), 0)
+                    counter_base: int, num_learners: int,
+                    domain: int = 0) -> RoundKeys:
+    """RoundKeys of every rank: the reference's ``make_round_keys``
+    evaluated for ranks 0..n-1 at once.
+
+    ``domain`` separates keystreams when one round aggregates several
+    vectors (leaf-wise aggregation of a parameter tree): each domain gets
+    independent derived keys, so the 32-bit counter space is per leaf."""
+    prov = derive_key_np(seed_words(provisioning_seed), domain)
+    master = derive_key_np(seed_words(learner_master), domain)
     ranks = np.arange(num_learners, dtype=np.uint32)
     y0, y1 = threefry2x32_np(master, ranks, np.uint32(0x9E3779B9))
     return RoundKeys(provisioning_seed=prov,
@@ -56,9 +62,20 @@ class SecureAggregator:
     provisioning_seed: int = 0xC0FFEE
     learner_master: int = 0x5EED
     device: str = "cuda"
+    _counters: RoundCounter = dataclasses.field(default_factory=RoundCounter)
+
+    def reserve_round(self, nwords: int) -> int:
+        """Reserve fresh counter space for one aggregation round; returns
+        its first counter word.
+
+        SAFE uses one pad word per payload word per edge; BON uses one per
+        pair. A single monotone space sized by the worst case keeps the
+        no-reuse invariant simple. Raises ``OverflowError`` before any
+        range would wrap past 2^32 (a key rotation is then due)."""
+        return self._counters.reserve(int(nwords))
 
     def aggregate(self, values, counter_base: int = 0, alive=None,
-                  weights=None, rotate: int = 0) -> torch.Tensor:
+                  weights=None, domain: int = 0, rotate: int = 0) -> torch.Tensor:
         """Secure mean of f32[n, V] learner-major values -> f32[V].
 
         With ``cfg.pod_axis`` the values are f32[P, n, V], one [n, V]
@@ -67,13 +84,14 @@ class SecureAggregator:
         f32[P, n], one per learner of each pod; read when ``cfg.weighted``,
         ignored by BON as by the reference), ``rotate`` the initiator
         rotation of the sequential schedule (§8; the pipelined one has no
-        initiator to rotate)."""
+        initiator to rotate), ``domain`` the key domain (0 for one flat
+        vector; the train step's leafwise mode gives leaf i domain i + 1)."""
         values = torch.as_tensor(values, dtype=torch.float32).to(self.device).contiguous()
         cfg = self.cfg
         if cfg.mode == "insec":
             return insec_aggregate(values, cfg, alive, weights)
         keys = make_round_keys(self.provisioning_seed, self.learner_master,
-                               counter_base, cfg.num_learners)
+                               counter_base, cfg.num_learners, domain)
         if cfg.mode == "bon":
             return bon_aggregate(values, keys, cfg, alive)
         if cfg.pipelined:

@@ -9,7 +9,8 @@ reference's. `repro_torch.net` runs the *same* learner state machines
 over actual sockets: a binary wire codec (``wire``), an asyncio broker
 server with long-poll scheduling and the §5.3 progress monitor
 (``broker``), a learner runtime mapping generator yields onto awaits
-(``client``), and pluggable transport faults (``faults``). ``shard`` scales the broker
+(``client``), pluggable transport faults (``faults``), and a
+multi-tenant load harness (``loadgen``). ``shard`` scales the broker
 out: N worker processes behind one ``SO_REUSEPORT`` port, sessions
 consistently hashed to shards by session id (PROTOCOL.md §12).
 
@@ -17,8 +18,7 @@ Host code on numpy by design: these modules launch nothing on a device
 and import torch only through the package's ``core`` and ``crypto``, so a
 broker or learner runs on a host without a card. The engine plane takes an
 already-constructed ``serve.AggregationEngine`` by injection, and that
-engine's tensors live on its own device (the card by default). The
-reference's multi-tenant load harness (``loadgen``) is not ported yet.
+engine's tensors live on its own device (the card by default).
 """
 from repro_torch.net.broker import DEFAULT_CHUNK_BUDGET_BYTES, SafeBroker
 from repro_torch.net.client import (
@@ -51,6 +51,17 @@ from repro_torch.net.faults import (
     make_wan_interceptor,
 )
 from repro_torch.net.shard import ShardBroker, ShardedBroker, shard_of
+from repro_torch.net.loadgen import (
+    LoadReport,
+    SLOReport,
+    run_bon_scale,
+    run_engine_load,
+    run_hierarchical_scale,
+    run_paper_scale,
+    run_protocol_load,
+    run_shard_failover_load,
+    run_slo_load,
+)
 
 __all__ = [
     "SafeBroker",
@@ -83,4 +94,13 @@ __all__ = [
     "deep_edge_faults",
     "WAN_PROFILES",
     "make_wan_interceptor",
+    "LoadReport",
+    "SLOReport",
+    "run_engine_load",
+    "run_protocol_load",
+    "run_paper_scale",
+    "run_bon_scale",
+    "run_hierarchical_scale",
+    "run_shard_failover_load",
+    "run_slo_load",
 ]

@@ -14,8 +14,8 @@ path of the port is. A learner's copy of the parameters and its optimizer
 state are freed before the next learner starts. A dead learner still
 trains, as in the reference; the round ignores its row.
 
-``make_wire_federated`` (the wire runtime) waits for the port's wire
-plane (ROADMAP Queue 1 item 4).
+``make_wire_federated`` (the wire runtime) is not ported yet (ROADMAP
+Queue 1 item 5).
 """
 from __future__ import annotations
 

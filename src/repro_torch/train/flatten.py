@@ -58,8 +58,17 @@ def tree_map(fn, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(t[k] for t in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        return _sequence(tree, [tree_map(fn, *xs) for xs in zip(tree, *rest)])
+    if tree is None:  # an empty subtree, as in jax.tree
+        return None
     return fn(tree, *rest)
+
+
+def _sequence(like, items: list):
+    """A list, tuple or NamedTuple of ``like``'s type holding ``items``."""
+    if hasattr(like, "_fields"):
+        return type(like)(*items)
+    return type(like)(items)
 
 
 def tree_to_flat(tree: Any) -> torch.Tensor:
@@ -89,7 +98,10 @@ def tree_unflatten(template: Any, new_leaves) -> Any:
 def _rebuild(tree: Any, take) -> Any:
     """``tree_map`` that visits the leaves in the flat order."""
     if isinstance(tree, dict):
-        return {k: _rebuild(tree[k], take) for k in sorted(tree)}
+        out = {k: _rebuild(tree[k], take) for k in sorted(tree)}
+        return {k: out[k] for k in tree}  # the template's key order
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, take) for v in tree)
+        return _sequence(tree, [_rebuild(v, take) for v in tree])
+    if tree is None:
+        return None
     return take(tree)
