@@ -34,7 +34,15 @@ no CPU fallback):
    train-step path: three steps of ``make_train_step`` on the same model
    (n = 4, 2 x 256 tokens a learner, one repeated batch), each learner's
    gradient a row of f32[4, padded_size] averaged by SAFE, then FlatAdamW
-   on the f32 master vector, counters from ``reserve_round``; then
+   on the f32 master vector, counters from ``reserve_round``; then the
+   rest of the zoo through the same step, three steps each at full width:
+   qwen3-moe-235b-a22b (1 of 94 layers, vocabulary cut to 18,992) by expert
+   parallelism over the 4 learners (the experts' summed gradients updated
+   outside the SAFE chain), zamba2-2.7b (18 of 54 layers: Mamba2 and the
+   shared attention block) and rwkv6-1.6b (8 of 24 layers); then the wire
+   FedAvg path: ``make_wire_federated``'s callables at the smoke size of
+   internlm2-1.8b (n = 4, k = 2) on the card, their deltas through the
+   port's broker on 127.0.0.1, a clean round and one with node 3 failed; then
    ``python -m repro_torch.launch.train --smoke`` as subprocesses on the
    card (two uninterrupted runs, one resumed from its checkpoint,
    ``--federated``); then ``net.run_engine_load`` against the port's broker
@@ -62,9 +70,18 @@ no CPU fallback):
    counter and rotation; the card against the CPU path on [4, 2^16];
    mask_add and chain_combine at V = padded_size against their plain
    versions; a step with learner 1 dead (its row NaN), then
-   ``reserve_round`` refusing the fifth step of the key set and a step
+   ``reserve_round`` refusing the step after the last that fits the key
+   set (the tenth at full width: each counter pads two words) and a step
    with rank 0 dead on rotated keys; a SAFE and an INSEC step from one
-   state at 2 layers; the launcher's losses finite (falling for the
+   state at 2 layers; for each zoo path the same checks (falling loss,
+   each step's mean, card == CPU, the kernels at its V = padded_size) and
+   every parameter leaf moved (sampled words of the f32 master, and of the
+   expert leaves themselves), the leaves with a zero gradient by
+   construction named; FlatAdamW on the card equal to its CPU path word for
+   word (2^20 words, three steps); each wire FedAvg round's published delta
+   and applied parameters bit-identical to ``round_fn``'s on the card at
+   the same counter, weights and alive bitmap; the launcher's losses
+   finite (falling for the
    train step), its resumed run against an uninterrupted one beside two
    uninterrupted runs; every ``run_engine_load`` session bit-identical to
    a single round;
@@ -83,7 +100,10 @@ no CPU fallback):
    ``step_fn`` into the learners' forward and backward, flatten and pad,
    SAFE aggregation, FlatAdamW and rebuild, each against its bytes bound,
    the SAFE share, tokens per second, peak memory and, under
-   torch.profiler, the device's idle share; ``run_engine_load``'s
+   torch.profiler, the device's idle share; the same for each zoo path,
+   with the expert AdamW beside its bound and mask_add and chain_combine
+   timed at the path's V; each wire FedAvg round's wall split into the
+   learners' local steps and the wire round; ``run_engine_load``'s
    ``LoadReport``.
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -103,6 +123,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
+LIMIT_S = 1200              # the whole script's time limit, the kernels' build included
 N = 36                      # learners: the paper's headline size
 V_MAIN = 1 << 24            # words per learner in the round (64 MiB f32)
 S_ENGINE, V_ENGINE = 8, 1 << 20
@@ -146,6 +167,9 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "wire_engine": {"mask_add", "chain_combine_batched"},
                 "fedavg": {"mask_add", "chain_combine"},
                 "train_step": {"mask_add", "chain_combine"},
+                "moe": {"mask_add", "chain_combine"},
+                "zamba2": {"mask_add", "chain_combine"},
+                "rwkv6": {"mask_add", "chain_combine"},
                 "engine_load": {"mask_add", "chain_combine_batched"}}
 
 # The FedAvg path: internlm2-1.8b at full width, cut to 12 of its 24 layers
@@ -166,6 +190,23 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet)
 # two states fit beside each other.
 TS_ARCH, TS_LAYERS, TS_CMP_LAYERS = FED_ARCH, FED_LAYERS, 2
 TS_N, TS_B, TS_S, TS_LR, TS_STEPS = 4, 2, 256, 1e-3, 3
+# The rest of the zoo through the same train step, with the same traffic, each
+# at the published widths of its configuration and cut in depth (or in
+# vocabulary) to fit one card: qwen3-moe-235b-a22b at one of its 94 layers by
+# expert parallelism over the 4 learners, its vocabulary an eighth (the
+# embedding and head one of 8 vocabulary-parallel cards would hold); zamba2-2.7b
+# at 18 of 54 layers (3 units of 5 Mamba2 blocks and the shared attention
+# block); rwkv6-1.6b at 8 of 24 layers.
+ZOO_PATHS = {
+    "moe": ("qwen3-moe-235b-a22b", dict(n_layers=1, vocab=18_992, ep_axis="data",
+                                        ep_ranks=TS_N)),
+    "zamba2": ("zamba2-2.7b", dict(n_layers=18)),
+    "rwkv6": ("rwkv6-1.6b", dict(n_layers=8)),
+}
+ZOO_STEPS = 3
+# The wire FedAvg path: the smoke configuration (the learners mask with host
+# numpy Threefry, so a full-width pad would take seconds of one core).
+WIRE_FED_ARCH, WIRE_FED_K = "internlm2-1.8b", 2
 # The launcher at the smoke size (subprocesses), and run_engine_load.
 LAUNCH_STEPS, LAUNCH_TIMEOUT_S = 4, 300
 LOAD_TENANTS, LOAD_ROUNDS = 4, 2
@@ -785,6 +826,33 @@ def check_step_mean(name, agg, alive, counter):
             f"of survivors {live}), counter {counter}, rotate {counter % (2 * n + 1)}")
 
 
+def run_steps(name, bundle, agg, state, tokens, steps, marks, done):
+    """``steps`` steps of ``bundle.step_fn`` on one repeated batch, each with
+    fresh counters from ``reserve_round(padded_size + 2)``, timed by its
+    CUDA events, each step's published mean checked (``check_step_mean``).
+    Returns (state, losses, grad scales, walls ms, the last step's parts,
+    the checks' lines, counters)."""
+    W = bundle.padded_size + 2
+    everyone = np.ones(TS_N, np.float32)
+    losses, scales, walls, checks, counters = [], [], [], [], []
+    for i in range(steps):
+        counters.append(agg.reserve_round(W))
+        t0 = time.perf_counter()
+        marks.start()
+        state, m = bundle.step_fn(state, tokens, counter=counters[-1], mark=marks)
+        done.record()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        parts = marks.parts(done)
+        losses.append(float(m["loss"]))
+        scales.append(float(m["grad_scale"]))
+        checks.append(check_step_mean(f"{name}step {i + 1}", agg, everyone, counters[-1]))
+        if i + 1 < steps:
+            agg.seen = None
+        del m
+    return state, losses, scales, walls, parts, checks, counters
+
+
 def train_step_setup(dev, cfg):
     """(model, watched SAFE aggregator, bundle, tokens [n, B, S] on dev) of
     the train-step path: the reference launcher's first global batch,
@@ -812,7 +880,7 @@ def train_step_paths(dev, launches, err, smi):
 
     cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=TS_LAYERS)
     model, agg, bundle, tokens = train_step_setup(dev, cfg)
-    W = bundle.padded_size + 2  # counter words of one step
+    W = bundle.padded_size + 2  # the words one step pads (reserve_round takes words)
     state = bundle.init_state_fn(model.tree())
     everyone = np.ones(TS_N, np.float32)
     marks, done = StepMarks(), torch.cuda.Event(enable_timing=True)
@@ -820,22 +888,8 @@ def train_step_paths(dev, launches, err, smi):
     sync()
     build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    losses, scales, walls, checks, counters = [], [], [], [], []
-    for i in range(TS_STEPS):
-        counters.append(agg.reserve_round(W))
-        t0 = time.perf_counter()
-        marks.start()
-        state, m = bundle.step_fn(state, tokens, counter=counters[-1], mark=marks)
-        done.record()
-        sync()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        parts = marks.parts(done)
-        losses.append(float(m["loss"]))
-        scales.append(float(m["grad_scale"]))
-        checks.append(check_step_mean(f"step {i + 1}", agg, everyone, counters[-1]))
-        if i + 1 < TS_STEPS:
-            agg.seen = None
-        del m
+    state, losses, scales, walls, parts, checks, counters = run_steps(
+        "", bundle, agg, state, tokens, TS_STEPS, marks, done)
     counts = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
     say(f"phase 4 main path train step: {sum(walls) / 1e3:.2f} s for {TS_STEPS} steps of "
@@ -861,14 +915,15 @@ def train_step_paths(dev, launches, err, smi):
     say(f"phase 5 train step {check_full_length(agg, None, last, err)}")
     torch.cuda.empty_cache()
 
-    # one key set's counter space holds 2^32 // W steps (4 at full width): the
-    # learner-1-dead step takes the next; once the set's ranges are spent,
-    # reserve_round refuses and the keys rotate
-    fit = 2**32 // W
+    # one key set's 2^32 counters hold 2^32 // ceil(W / 2) steps (9 at full
+    # width: each counter pads two words): the learner-1-dead step takes the
+    # next; once the set's ranges are spent, reserve_round refuses and the
+    # keys rotate
+    fit = 2**32 // agg.agg.round_counters(W)
     failover = []
     for name, dead, who in (("learner 1 dead", 1, agg), ("rank 0 dead", 0, None)):
         if who is None:
-            for _ in range(fit - TS_STEPS - 1):  # none at full width
+            for _ in range(fit - TS_STEPS - 1):
                 agg.reserve_round(W)
             try:
                 agg.reserve_round(W)
@@ -998,6 +1053,267 @@ def safe_vs_insec(dev, cfg):
         f"({moved:.3%} of {bs.padded_size} words differ); next losses {nxt:.2e} apart "
         f"(<= 5e-3)")
     del model, state, s_safe, s_insec, tokens
+    torch.cuda.empty_cache()
+
+
+# ---- the rest of the zoo through the train step: phases 4, 5 and 6 -----------------
+
+def leaf_samples(params, dev):
+    """(path, word indices, initial values) of up to 4096 words of every
+    leaf, to tell afterwards whether a step moved the leaf."""
+    from repro_torch.train.flatten import leaves_with_paths
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    for path, leaf in leaves_with_paths(params):
+        n = leaf.numel()
+        idx = torch.randint(0, n, (min(n, 4096),), generator=g, device=dev)
+        out.append((path, idx, leaf.detach().reshape(-1)[idx].float().clone()))
+    return out
+
+
+def unmoved_leaves(state, samples):
+    """Paths of the leaves none of whose sampled words moved: a SAFE-partition
+    leaf's words read from the f32 master vector (a bf16 leaf can round a
+    step's change away), an expert leaf's from the leaf itself."""
+    from repro_torch.train.flatten import is_expert_path, leaves_with_paths
+    now = dict(leaves_with_paths(state["params"]))
+    out, off = [], 0
+    for path, idx, before in samples:
+        leaf = now[path]
+        if is_expert_path(path):
+            after = leaf.detach().reshape(-1)[idx].float()
+        else:
+            after = state["master"][off + idx]
+            off += leaf.numel()
+        if torch.equal(after, before):
+            out.append(path)
+    return out
+
+
+def zoo_path(dev, name, launches, err, smi):
+    """Phases 4-6 of one of ZOO_PATHS: the train step of its configuration at
+    full width, as the internlm2 train-step path runs it; adds its launches
+    to ``launches`` and its full-length kernel checks to ``err``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import chain_combine as cc
+    from repro_torch.kernels import threefry_mask_add as tma
+    from repro_torch.train import tree_size
+    from repro_torch.train.flatten import is_expert_path, leaves_with_paths
+
+    arch, cut = ZOO_PATHS[name]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    t0 = time.perf_counter()
+    model, agg, bundle, tokens = train_step_setup(dev, cfg)
+    state = bundle.init_state_fn(model.tree())
+    samples = leaf_samples(state["params"], dev)
+    P = tree_size(state["params"])
+    ep_words = sum(t.numel() for p, t in leaves_with_paths(state["params"]) if is_expert_path(p))
+    sync()
+    setup_s = time.perf_counter() - t0
+    marks, done = StepMarks(), torch.cuda.Event(enable_timing=True)
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, scales, walls, parts, checks, counters = run_steps(
+        f"{name} train step ", bundle, agg, state, tokens, ZOO_STEPS, marks, done)
+    counts = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    reduced = ", ".join(f"{k} {getattr(get_config(arch), k)} -> {v}" for k, v in cut.items()
+                        if k in ("n_layers", "vocab"))
+    say(f"phase 4 main path {name} train step: {sum(walls) / 1e3:.2f} s for {ZOO_STEPS} steps "
+        f"of step_fn; {arch} at full width (d_model {cfg.d_model}), reduced: {reduced}; "
+        f"{P} parameters, sec_size {bundle.sec_size}, padded_size {bundle.padded_size}, "
+        f"expert words {ep_words}, n={TS_N}, tokens [{TS_B}, {TS_S}] a learner, counters "
+        f"{counters}; setup {setup_s:.1f} s; peak memory {peak / 1e9:.2f} GB; loss "
+        f"{[round(x, 4) for x in losses]}; launches {counts}")
+    missing = sorted(k for k in PATH_KERNELS[name] if counts[k] <= 0)
+    if missing:
+        fail(f"path {name} never launched {missing}: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"{name} train step: the loss did not fall over {ZOO_STEPS} steps: {losses}")
+    say(f"phase 5 {name} train step: loss step 1 {losses[0]:.4f} > step {ZOO_STEPS} "
+        f"{losses[-1]:.4f}; grad_scale {[round(x, 5) for x in scales]}")
+    for line in checks:
+        say(f"phase 5 {line}")
+    last = counters[-1]
+    check_cpu_path(f"step {ZOO_STEPS}", agg, np.ones(TS_N, np.float32), None, last,
+                   rotate=last % (2 * TS_N + 1), path=f"{name} train step")
+    # a leaf whose gradient is zero by construction stays where it is: the
+    # shared block's placeholder, and the unused ln2 of recurrent blocks
+    # without an MLP (zamba2)
+    exempt = [p for p, _, _ in samples if p.endswith("_shared") or (
+        not cfg.recurrent_mlp and p.endswith("ln2/scale") and not p.startswith("shared_attn"))]
+    unmoved = [p for p in unmoved_leaves(state, samples) if p not in exempt]
+    if unmoved:
+        fail(f"{name} train step: leaves unchanged after {ZOO_STEPS} steps: {unmoved}")
+    experts = [p for p, _, _ in samples if is_expert_path(p)]
+    say(f"phase 5 {name} train step: card == CPU path on [{TS_N}, {V_CPU}]; all "
+        f"{len(samples) - len(exempt)} leaves moved ({len(experts)} expert leaves among them"
+        f"{': ' + ', '.join(experts) if experts else ''}); unmoved by construction: "
+        f"{exempt or 'none'}")
+    say(f"phase 5 {name} train step {check_full_length(agg, None, last, err)}")
+    torch.cuda.empty_cache()
+
+    # phase 6: the last step split by its own CUDA events
+    V, S_ = bundle.padded_size, bundle.sec_size
+    step_ms, dev_ms = walls[-1], sum(parts.values())
+    fb, flat, agg_ms = parts["forward_backward"], parts["flatten"], parts["aggregate"]
+    opt_ms, ep_ms = parts["optimizer"], parts.get("expert_optimizer", 0.0)
+    agg_bound = (3 * 8 + 3 * 12) * V / HBM_BYTES_PER_S * 1e3
+    opt_bound = 7 * 4 * V / HBM_BYTES_PER_S * 1e3
+    # the experts: read the f32 gradient sum, m, v and the bf16 parameter,
+    # write m, v and the parameter
+    ep_bound = (4 + 4 + 4 + 2 + 4 + 4 + 2) * ep_words / HBM_BYTES_PER_S * 1e3
+    tokens_per_step = TS_N * TS_B * TS_S
+    say(f"phase 6 {name} train step {ZOO_STEPS} ({smi}): {step_ms:.1f} ms wall, {dev_ms:.1f} "
+        f"ms from its CUDA events = learners' forward and backward {fb:.1f} + flatten and "
+        f"pad{' and the expert sum' if ep_words else ''} {flat:.2f} + SAFE aggregation "
+        f"{agg_ms:.2f} + FlatAdamW {opt_ms:.2f}"
+        f"{f' + expert AdamW {ep_ms:.2f}' if ep_words else ''} + rebuild "
+        f"{parts['rebuild']:.2f} + metrics {parts['metrics']:.2f} ms; SAFE share "
+        f"{agg_ms / dev_ms:.2%}; {tokens_per_step / step_ms * 1e3:.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    x = torch.rand(V, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    cipher = tma.mask_add(x, [1, 2], 0)
+    ma = cuda_ms(lambda: tma.mask_add(x, [5, 6], 0), iters=5, warmup=1)
+    ch = cuda_ms(lambda: cc.chain_combine(cipher, x, [3, 4], [5, 6], 0), iters=5, warmup=1)
+    del x, cipher
+    # at every V both kernels' operations bound is below their bytes bound
+    # (49% and 64% of it; phase 6's kernel lines print the two): bytes bound them
+    ma_bound = 8 * V / HBM_BYTES_PER_S * 1e3
+    ch_bound = 12 * V / HBM_BYTES_PER_S * 1e3
+    say(f"phase 6 {name} train step bounds ({smi}): SAFE aggregation {agg_ms:.2f} ms against "
+        f"{agg_bound:.2f} ms for its 6 kernels' bytes ({agg_bound / agg_ms:.0%}); kernels at "
+        f"V = {V}: mask_add {ma:.3f} ms against {ma_bound:.3f} ({ma_bound / ma:.0%}), "
+        f"chain_combine {ch:.3f} ms against {ch_bound:.3f} ({ch_bound / ch:.0%}); FlatAdamW "
+        f"{opt_ms:.2f} ms against {opt_bound:.2f} ms on {V} words"
+        + (f"; expert AdamW {ep_ms:.2f} ms against {ep_bound:.2f} ms on {ep_words} words "
+           f"({ep_bound / ep_ms:.0%})" if ep_words else "")
+        + f"; forward and backward {fb / TS_N:.1f} ms a learner, {S_} SAFE words")
+    if ep_words:
+        routed = TS_B * TS_S * cfg.moe.top_k / cfg.moe.num_experts
+        say(f"phase 6 {name} train step: about {routed:.0f} routed tokens an expert a learner "
+            f"(top-{cfg.moe.top_k} of {cfg.moe.num_experts} over {TS_B * TS_S} tokens), far "
+            f"below a deployment's batch")
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = bundle.step_fn(holder["state"], tokens,
+                                             counter=agg.reserve_round(bundle.padded_size + 2))
+        agg.seen = None
+    busy = say_profile(f"{name} train step", one_step)
+    if busy > 0:
+        say(f"phase 6 {name} train step idle share ({smi}): device busy {busy:.2f} ms of the "
+            f"unprofiled step {ZOO_STEPS}'s {step_ms:.1f} ms wall: idle {1 - busy / step_ms:.0%}")
+    del holder, state, model, bundle, agg, tokens, samples
+    torch.cuda.empty_cache()
+
+
+def flat_adamw_check(dev):
+    """Phase 5: FlatAdamW on the card against its CPU path (which equals the
+    JAX package's word for word), three steps on 2^20 random words whose
+    gradients span 1e-6 to 10, some exactly zero."""
+    from repro_torch.optim import FlatAdamW
+    rng = np.random.RandomState(SEED)
+    n = 1 << 20
+    param = rng.standard_normal(n).astype(np.float32)
+    opt = FlatAdamW(lr=TS_LR, weight_decay=0.1)
+    cs, cp = opt.init(n, device="cpu"), torch.from_numpy(param.copy())
+    gs, gp = opt.init(n, device=dev), torch.from_numpy(param).to(dev)
+    worst = 0
+    for i in range(3):
+        g = (rng.standard_normal(n) * 10.0 ** rng.uniform(-6, 1, n)).astype(np.float32)
+        if i == 1:
+            g[:100] = 0.0
+        cp, cs = opt.update(torch.from_numpy(g), cs, cp)
+        gp, gs = opt.update(torch.from_numpy(g).to(dev), gs, gp, inplace=True)
+        for a, b in ((gp, cp), (gs.m, cs.m), (gs.v, cs.v)):
+            ulps = (a.cpu().view(torch.int32).long() - b.view(torch.int32).long()).abs()
+            worst = max(worst, int(ulps.max()))
+    if worst:
+        fail(f"FlatAdamW on the card differs from the CPU path by {worst} ulps")
+    say(f"phase 5 FlatAdamW: the card (in place) == the CPU path word for word on {n} words, "
+        f"3 steps: parameters, m and v, max 0 ulps")
+
+
+def wire_fedavg_path(dev, smi):
+    """The wire FedAvg path: ``make_wire_federated``'s callables run their
+    local steps on the card; ``net.run_federated_round_net`` ships their
+    deltas through the port's broker on 127.0.0.1 (host numpy masking, as
+    the paper's learners); one clean round and one with node 3 failed. Each
+    published delta must equal the in-process ``round_fn``'s on the card,
+    bit for bit, at the same counter, weights and alive bitmap."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_aggregator
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    from repro_torch.net import SafeBroker, run_federated_round_net
+    from repro_torch.train import make_federated_round, make_wire_federated, tree_to_flat
+
+    cfg = get_smoke_config(WIRE_FED_ARCH)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    stream = make_federated_batches(cfg, FED_N, FED_B, FED_S, seed=SEED)
+    toks = np.stack([np.stack([stream.learner_batch(l, k)["tokens"] for k in range(WIRE_FED_K)])
+                     for l in range(FED_N)])
+    weights = stream.global_batch(0)["weights"]
+    agg = make_aggregator("safe", FED_N, weighted=True, device=dev)
+    bundle = make_federated_round(model, agg, local_steps=WIRE_FED_K, local_lr=FED_LR,
+                                  return_delta=True)
+    wf = make_wire_federated(model, {l + 1: toks[l] for l in range(FED_N)},
+                             local_steps=WIRE_FED_K, local_lr=FED_LR)
+    spent = {}
+
+    def timed(node, fn):
+        def run(params):
+            t0 = time.perf_counter()
+            out = fn(params)
+            spent[node] = (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+    local_fns = {node: timed(node, fn) for node, fn in wf.local_fns.items()}
+    params = model.tree()
+    W = wf.words_per_round(weighted=True)
+    for name, failed in (("clean", ()), ("node 3 failed", (3,))):
+        alive = np.array([0.0 if l + 1 in failed else 1.0 for l in range(FED_N)], np.float32)
+        counter = agg.reserve_round(W)
+        new, m = bundle.round_fn(params, torch.from_numpy(toks).to(dev), weights=weights,
+                                 counter=counter, alive=alive)
+        want = m["avg_delta"].cpu().numpy()
+        spent.clear()
+
+        async def go():
+            broker = SafeBroker(progress_timeout=0.4, monitor_interval=0.1)
+            addr = await broker.start()
+            try:
+                t0 = time.perf_counter()
+                out = await asyncio.wait_for(run_federated_round_net(
+                    params, local_fns, wf.apply_fn, addr, weights=weights, counter=counter,
+                    failed_nodes=failed), WIRE_WAIT_S)
+                return out, (time.perf_counter() - t0) * 1e3
+            finally:
+                await broker.stop()
+        (got, res), wall = asyncio.run(go())
+        sync()
+        if res.average is None or not np.array_equal(res.average.view(np.uint32),
+                                                     want.view(np.uint32)):
+            fail(f"wire fedavg {name}: the published delta differs from round_fn's")
+        if not torch.equal(tree_to_flat(got), tree_to_flat(new)):
+            fail(f"wire fedavg {name}: the applied parameters differ from round_fn's")
+        local_ms = sum(spent.values())
+        say(f"phase 5 wire fedavg {name}: published delta ({W - 1} words) == round_fn's on the "
+            f"card, bit for bit, and so are the applied parameters; counter {counter}; losses "
+            + ", ".join(f"node {k} {v:.4f}" for k, v in sorted(wf.last_losses.items())
+                        if k in spent))
+        say(f"phase 6 wire fedavg {name} ({smi}): {wall:.1f} ms wall = local steps "
+            f"{local_ms:.1f} ms ({len(spent)} learners one after another, {WIRE_FED_K} steps "
+            f"each, on the card) + the wire round {wall - local_ms:.1f} ms (host numpy masking, "
+            f"127.0.0.1)")
+    del model, bundle, params
     torch.cuda.empty_cache()
 
 
@@ -1449,6 +1765,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on a GPU")
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     from repro_torch.kernels import bon_mask as bm
     from repro_torch.kernels import build, ref
@@ -1475,15 +1792,29 @@ def main():
     say(f"phase 3 kernels == plain: {checks} comparisons, max |err| {err} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    launches, times, published = aggregation_paths(dev)
+    walls = {}
+
+    def timed(name, fn, *args):  # a path's wall-clock seconds, for the script's budget
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    launches, times, published = timed("aggregation", aggregation_paths, dev)
     torch.cuda.empty_cache()
-    wire_paths(dev, launches, published, smi)
+    timed("wire", wire_paths, dev, launches, published, smi)
     torch.cuda.empty_cache()
-    fedavg_paths(dev, launches, err, smi)
+    timed("fedavg", fedavg_paths, dev, launches, err, smi)
     torch.cuda.empty_cache()
-    train_step_paths(dev, launches, err, smi)
-    launcher_paths(smi)
-    engine_load_path(dev, launches, smi)
+    timed("train step", train_step_paths, dev, launches, err, smi)
+    for name in ZOO_PATHS:
+        timed(name, zoo_path, dev, name, launches, err, smi)
+    timed("flat adamw", flat_adamw_check, dev)
+    timed("wire fedavg", wire_fedavg_path, dev, smi)
+    timed("launcher", launcher_paths, smi)
+    timed("engine load", engine_load_path, dev, launches, smi)
+    say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
+        f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")
 
     kernels = []

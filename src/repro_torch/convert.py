@@ -24,7 +24,11 @@ def model_params(cfg, tree) -> Dict[str, torch.Tensor]:
     """The port's ``Model`` state (``load_state_dict``) from the reference's
     parameter tree, as ``jax.tree.map(np.asarray, params)`` gives it.
 
-    Each leaf takes the dtype the port's model stores it in for ``cfg``.
+    Each leaf takes the dtype the port's model stores it in for ``cfg``:
+    every kind's leaves alike (the MoE router, experts and shared experts,
+    the stacked SSM vectors, zamba2's ``_shared`` placeholder and its
+    unstacked ``shared_attn`` block), by the reference's rule that a bf16
+    model keeps leaves of two or more dims in bf16.
     bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays or as their uint16
     bit patterns (an ``.npz`` holds them so) and are carried bit for bit,
     never through f32. The leaves stay on the CPU; ``load_state_dict``

@@ -65,14 +65,35 @@ class SecureAggregator:
     _counters: RoundCounter = dataclasses.field(default_factory=RoundCounter)
 
     def reserve_round(self, nwords: int) -> int:
-        """Reserve fresh counter space for one aggregation round; returns
-        its first counter word.
+        """Reserve fresh counter space for one aggregation round of
+        ``nwords`` payload words; returns its first counter.
 
-        SAFE uses one pad word per payload word per edge; BON uses one per
-        pair. A single monotone space sized by the worst case keeps the
-        no-reuse invariant simple. Raises ``OverflowError`` before any
-        range would wrap past 2^32 (a key rotation is then due)."""
-        return self._counters.reserve(int(nwords))
+        Every pad is ``keystream_pair_lanes``: one Threefry counter yields
+        two words, so a round draws ``round_counters(nwords)`` counters per
+        key, and that is what is reserved. Callers keep passing words
+        (``padded_size + 2`` a train step, ``P + 1`` a weighted round).
+        Raises ``OverflowError`` before any range would pass 2^32 counters
+        (a key rotation is then due)."""
+        return self._counters.reserve(self.round_counters(nwords))
+
+    def reserve_counters(self, ncounters: int) -> int:
+        """Reserve ``ncounters`` counters outright (a resumed run skips the
+        counters its checkpoint says are spent); returns the first."""
+        return self._counters.reserve(int(ncounters))
+
+    def round_counters(self, nwords: int) -> int:
+        """Counters a round of ``nwords`` words draws from each key: half
+        the words it pads, rounded up. The pipelined schedule pads each
+        group's payload to m equal segments (m·⌈nwords/m⌉ words), so it
+        draws for those; the sequential schedule, BON and every pod draw
+        for ``nwords``."""
+        nwords = int(nwords)
+        if nwords < 0:
+            raise ValueError(f"nwords must be >= 0, got {nwords}")
+        if self.cfg.pipelined and self.cfg.mode in ("safe", "saf"):
+            m = self.cfg.group_size
+            nwords = m * -(-nwords // m)
+        return -(-nwords // 2)
 
     def aggregate(self, values, counter_base: int = 0, alive=None,
                   weights=None, domain: int = 0, rotate: int = 0) -> torch.Tensor:

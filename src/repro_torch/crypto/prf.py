@@ -122,15 +122,17 @@ class RoundCounter:
     """Host-side monotone counter allocator.
 
     Guarantees keystream non-reuse across aggregation rounds: each round
-    reserves ``nwords`` of counter space. The counter words are uint32, so
-    the usable space per key is exactly ``2**32`` words. ``reserve``
-    refuses — *before* mutating any state — any reservation whose range
-    would cross that boundary: a silent wrap would reuse one-time pads.
+    reserves its range of Threefry counters (``SecureAggregator.
+    reserve_round`` asks for the counters a round of so many words draws,
+    two words to a counter). Counters are uint32, so the usable space per
+    key is exactly ``2**32`` of them. ``reserve`` refuses — *before*
+    mutating any state — any reservation whose range would cross that
+    boundary: a silent wrap would reuse one-time pads.
     After a refusal the allocator is still valid for smaller reservations;
     the remedy is a Round-0 key rotation.
     """
 
-    #: usable counter words per (key, purpose): the full uint32 range.
+    #: usable counters per (key, purpose): the full uint32 range.
     LIMIT = 2**32
 
     def __init__(self) -> None:
@@ -138,7 +140,7 @@ class RoundCounter:
 
     @property
     def remaining(self) -> int:
-        """Counter words still available before a key rotation is due."""
+        """Counters still available before a key rotation is due."""
         return self.LIMIT - self._next
 
     def reserve(self, nwords: int) -> int:
@@ -147,7 +149,7 @@ class RoundCounter:
             raise ValueError(f"nwords must be >= 0, got {nwords}")
         if nwords > self.remaining:
             raise OverflowError(
-                f"counter space exhausted: {self._next} of 2**32 words used, "
+                f"counter space exhausted: {self._next} of 2**32 counters used, "
                 f"{nwords} requested; rotate pair keys (Round 0) before reuse"
             )
         base = self._next

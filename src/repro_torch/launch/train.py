@@ -14,17 +14,24 @@ Examples:
 The learners are dim 0 of one device, so the model axis is 1:
 ``--model-shards`` is accepted, so the reference's command lines run, and
 does nothing. Every aggregation round takes fresh counter space from
-``SecureAggregator.reserve_round``: ``padded_size + 2`` words a train step
-and ``P + 1`` a weighted FedAvg round, where the reference launcher gives
-``(step % 2000) * (padded_size + 2)`` and ``r * 2**20`` and so reuses pads.
-When the 2^32-word space of the keys runs out the launcher stops with the
-allocator's refusal (a key rotation is then due). A checkpoint records the
-next free counter word in its ``extra`` map, so a resumed run continues
-the counters of the run it resumes.
+``SecureAggregator.reserve_round``, given the round's words:
+``padded_size + 2`` a train step and ``P + 1`` a weighted FedAvg round
+(half as many Threefry counters: each counter pads two words), where the
+reference launcher gives ``(step % 2000) * (padded_size + 2)`` and
+``r * 2**20`` and so reuses pads. When the 2^32 counters of the keys run
+out the launcher stops with the allocator's refusal (a key rotation is
+then due). A checkpoint records the next free counter in its ``extra``
+map, so a resumed run continues the counters of the run it resumes.
+
+A configuration with expert leaves (MoE) trains its experts by expert
+parallelism over the learners (``ep_axis="data"``, ``ep_ranks`` the
+learner count), as the reference's dry run sets it for the giant MoEs;
+the train step refuses a MoE without it. FedAvg needs none.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -79,6 +86,8 @@ def run(args: argparse.Namespace) -> dict:
           f"{dev}; {args.learners} learners as dim 0 of one device, so the model axis "
           f"is 1 on one card (--model-shards {args.model_shards} not used)", flush=True)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.uses_moe and cfg.ep_axis is None and not args.federated:
+        cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=args.learners)
     model = Model(cfg, device=dev,
                   generator=torch.Generator(device=dev).manual_seed(args.seed))
     agg = make_aggregator(args.aggregator, args.learners, axis="data",
@@ -111,7 +120,7 @@ def run(args: argparse.Namespace) -> dict:
             bundle = make_federated_round(model, agg, local_steps=args.local_steps,
                                           local_lr=args.lr)
             params = model.tree()
-            words = tree_size(params) + 1  # counter words of a weighted round
+            words = tree_size(params) + 1  # the words a weighted round pads
             for r in range(args.steps):
                 toks = np.stack([
                     np.stack([stream.learner_batch(l, r * args.local_steps + k)
@@ -126,14 +135,15 @@ def run(args: argparse.Namespace) -> dict:
                 log.log(r, **{k: float(v) for k, v in m.items()})
         else:
             bundle = make_train_step(model, agg, lr=args.lr)
-            words = bundle.padded_size + 2  # counter words of one step
+            words = bundle.padded_size + 2  # the words a step pads
             state = bundle.init_state_fn(model.tree())
             start = 0
             if args.ckpt_dir and (s := latest_step(args.ckpt_dir)) is not None:
                 state, extra = restore_checkpoint(args.ckpt_dir, s, state)
                 start = int(extra.get("step", s))
                 # continue the counters of the run that wrote the checkpoint
-                reserve(int(extra.get("counter", start * words)))
+                agg.reserve_counters(int(extra.get("counter",
+                                                   start * agg.round_counters(words))))
                 print(f"resumed from step {start}", flush=True)
             for step in range(start, args.steps):
                 gb = stream.global_batch(step)
@@ -145,7 +155,8 @@ def run(args: argparse.Namespace) -> dict:
                 if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
                     save_checkpoint(args.ckpt_dir, step + 1, state,
                                     extra={"step": step + 1,
-                                           "counter": counters[-1] + words})
+                                           "counter": counters[-1]
+                                           + agg.round_counters(words)})
             params = state["params"]
     finally:
         log.close()

@@ -19,8 +19,8 @@ Products are ``torch.matmul``/``einsum``, as the reference leaves them to
 XLA; no library attention kernel is used. Constants enter as Python
 scalars, never as tensors made on the card: a host-to-card copy of a
 pageable value makes the host wait for the card's queue to drain. The
-blockwise attention for S > ``FLASH_THRESHOLD`` and the decode caches are
-not ported yet (ROADMAP Queue 1 item 6).
+blockwise attention for S > ``FLASH_THRESHOLD`` (ROADMAP Queue 1 item 2)
+and the decode caches (serving, item 1) are not ported yet.
 """
 from __future__ import annotations
 
@@ -142,12 +142,12 @@ def attention_apply(
     ``FLASH_THRESHOLD`` (the reference's blockwise path), raises."""
     if cache is not None:
         raise NotImplementedError(
-            "attention decode caches are not ported yet (ROADMAP Queue 1 item 6)")
+            "attention decode caches are not ported yet (serving: ROADMAP Queue 1 item 1)")
     B, S, D = x.shape
     if S > FLASH_THRESHOLD:
         raise NotImplementedError(
             f"S = {S} > {FLASH_THRESHOLD} needs the blockwise attention, not ported "
-            "yet (ROADMAP Queue 1 item 6)")
+            "yet (ROADMAP Queue 1 item 2)")
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     groups = nh // nkv

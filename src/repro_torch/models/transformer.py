@@ -1,19 +1,29 @@
 """Composable decoder: block dispatch and the stacked-unit model.
 
-The counterpart of the JAX package's ``models/transformer.py`` for the
-attention kinds ``global``, ``local`` and ``chunked``. Depth is
-``cfg.pattern`` repeated ``cfg.n_units`` times, and the parameters are
-stacked per pattern position, ``[n_units, ...]``, as the reference stores
-them, so the flat layout (``train/flatten.py``) and the weight conversion
-(``convert.model_params``) are leaf for leaf. The forward pass loops over
-the units and takes unit u's slice of each stacked leaf.
+The counterpart of the JAX package's ``models/transformer.py`` for every
+block kind (the train and prefill path): the attention kinds ``global``,
+``local`` and ``chunked``; ``moe``, ``local_moe`` and ``chunked_moe``
+(attention plus the MoE MLP, ``models/moe.py``); the recurrent ``mamba2``
+and ``rwkv6`` (``models/ssm.py``), with an MLP only when
+``cfg.recurrent_mlp``; and ``shared_attn``, zamba2's attention block with
+one set of weights shared by every unit. Depth is ``cfg.pattern``
+repeated ``cfg.n_units`` times, and the parameters are stacked per
+pattern position, ``[n_units, ...]``, as the reference stores them, so
+the flat layout (``train/flatten.py``) and the weight conversion
+(``convert.model_params``) are leaf for leaf. A ``shared_attn`` position
+holds the reference's placeholder ``{"_shared": f32[n_units]}`` in
+``blocks`` and the shared, unstacked block sits in ``shared_attn``. The
+forward pass loops over the units and takes unit u's slice of each
+stacked leaf, and sums the blocks' MoE aux losses.
 
 As in the reference's ``Model.init``, a bf16 model stores every leaf with
-two or more dims in bf16 — the stacked norm scales ``[n_units, d]``
-included — and only ``final_norm`` stays f32.
+two or more dims in bf16 — the stacked norm scales ``[n_units, d]`` and
+the stacked SSM vectors included — and only the unstacked vectors
+(``final_norm``, the shared block's norms, the placeholder) stay f32.
 
-MoE, Mamba2, RWKV6 and the shared attention block are not ported yet
-(ROADMAP Queue 1 item 6) and raise ``NotImplementedError``.
+The placeholder takes no part in the forward pass, so its gradient is
+zero; ``param_grads`` gives such leaves a zero gradient where autograd
+gives none.
 """
 from __future__ import annotations
 
@@ -26,34 +36,48 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_apply, attention_init, mlp_apply,
                                        mlp_init, rmsnorm, rmsnorm_init)
+from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.ssm import mamba2_apply, mamba2_init, rwkv6_apply, rwkv6_init
 from repro_torch.train.flatten import tree_map
 
-PORTED_KINDS = ("global", "local", "chunked")
 
-
-def _check_kinds(cfg: ModelConfig) -> None:
-    for kind in cfg.pattern:
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: block kind {kind!r} is not ported yet (MoE, Mamba2, "
-                "RWKV6 and shared attention: ROADMAP Queue 1 item 6)")
-
-
-def block_init(generator: torch.Generator, cfg: ModelConfig, device) -> dict:
-    return {"ln1": rmsnorm_init(cfg.d_model, device),
-            "ln2": rmsnorm_init(cfg.d_model, device),
-            "attn": attention_init(generator, cfg, device),
-            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, device)}
+def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device) -> dict:
+    p = {"ln1": rmsnorm_init(cfg.d_model, device),
+         "ln2": rmsnorm_init(cfg.d_model, device)}
+    if kind == "mamba2":
+        p["mamba"] = mamba2_init(generator, cfg, device)
+    elif kind == "rwkv6":
+        p["rwkv"] = rwkv6_init(generator, cfg, device)
+    else:  # the attention kinds, shared_attn and *_moe included
+        p["attn"] = attention_init(generator, cfg, device)
+    if "moe" in kind and cfg.moe is not None:
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.moe, device)
+    elif kind not in ("mamba2", "rwkv6") or cfg.recurrent_mlp:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, device)
+    return p  # zamba2's recurrent blocks have no channel-mix MLP
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Pre-norm residual block (attention kinds, dense MLP)."""
+                positions: torch.Tensor) -> tuple:
+    """Pre-norm residual block. Returns (x, aux loss), aux None for a block
+    without MoE (the reference adds a zero)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    mix, _ = attention_apply(params["attn"], h, cfg, kind, positions)
+    if kind == "mamba2":
+        mix, _ = mamba2_apply(params["mamba"], h, cfg)
+    elif kind == "rwkv6":
+        mix, _ = rwkv6_apply(params["rwkv"], h, cfg)
+    else:
+        mix, _ = attention_apply(params["attn"], h, cfg, kind, positions)
     x = x + mix
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(params["mlp"], h)
+    if "moe" in params:
+        h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+        ff, aux = moe_apply(params["moe"], h, cfg.moe, ep_axis=cfg.ep_axis,
+                            ep_ranks=cfg.ep_ranks)
+        return x + ff, aux
+    if "mlp" in params:
+        h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+        return x + mlp_apply(params["mlp"], h), None
+    return x, None  # a recurrent block without channel-mix (zamba2): x + 0
 
 
 def _stack(trees: list) -> dict:
@@ -72,7 +96,8 @@ class Model(nn.Module):
     """Decoder whose parameters are the reference's tree.
 
     ``tree()`` returns the parameters as the reference's nested dict
-    ({"blocks": [per pattern position], "embed", "final_norm"[, "lm_head"]});
+    ({"blocks": [per pattern position], "embed", "final_norm"[, "lm_head"]
+    [, "shared_attn"]});
     ``apply(params, tokens)`` runs the forward pass on any such tree (a
     learner's copy, for instance), and ``forward(tokens)`` on the model's
     own. Parameters are initialised on ``device`` (the card by default;
@@ -84,7 +109,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_kinds(cfg)
         self.cfg = cfg
         device = torch.device(device)
         if generator is None and device.type != "meta":  # meta: shapes only
@@ -96,9 +120,20 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             tree["lm_head"] = torch.randn(embed_shape, generator=generator,
                                           device=device) * 0.02
-        blocks = [_stack([block_init(generator, cfg, device) for _ in range(cfg.n_units)])
-                  for _ in cfg.pattern]
-        # weight matrices (and the stacked norms) in the compute dtype, as
+        blocks, shared = [], None
+        for kind in cfg.pattern:
+            if kind == "shared_attn":
+                if shared is None:
+                    shared = block_init(generator, cfg, kind, device)
+                # the reference's placeholder keeps the stacked structure uniform
+                blocks.append({"_shared": torch.zeros(cfg.n_units, dtype=torch.float32,
+                                                      device=device)})
+                continue
+            blocks.append(_stack([block_init(generator, cfg, kind, device)
+                                  for _ in range(cfg.n_units)]))
+        if shared is not None:
+            tree["shared_attn"] = shared
+        # weight matrices (and the stacked vectors) in the compute dtype, as
         # the reference casts every leaf with ndim >= 2
         if cfg.dtype == "bfloat16":
             cast = lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t  # noqa: E731
@@ -108,6 +143,8 @@ class Model(nn.Module):
         self.final_norm = _as_params(tree["final_norm"])
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(tree["lm_head"])
+        if shared is not None:
+            self.shared_attn = _as_params(tree["shared_attn"])
         self.blocks = nn.ModuleList([_as_params(b) for b in blocks])
 
     def tree(self) -> dict:
@@ -119,6 +156,8 @@ class Model(nn.Module):
                "final_norm": plain(self.final_norm)}
         if not self.cfg.tie_embeddings:
             out["lm_head"] = self.lm_head
+        if "shared_attn" in self.cfg.pattern:
+            out["shared_attn"] = plain(self.shared_attn)
         return out
 
     def forward(self, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None):
@@ -127,7 +166,8 @@ class Model(nn.Module):
     def apply(self, params: dict, tokens: torch.Tensor,
               prefix_embeds: Optional[torch.Tensor] = None):
         """tokens: int[B, S] (or [B, S, nc] multi-codebook); prefix_embeds:
-        optional f32[B, P, d]. Returns (logits f32, aux) with aux = 0."""
+        optional f32[B, P, d]. Returns (logits f32, aux), aux the f32 sum of
+        the MoE blocks' aux losses (0 without MoE)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         if prefix_embeds is not None:
@@ -136,18 +176,22 @@ class Model(nn.Module):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
         # one unbind per stacked leaf: its backward writes each unit's
         # gradient into one stacked tensor
-        units = [_unbind(b, cfg.n_units) for b in params["blocks"]]
+        units = [None if kind == "shared_attn" else _unbind(b, cfg.n_units)
+                 for kind, b in zip(cfg.pattern, params["blocks"])]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for u in range(cfg.n_units):
             for pos, kind in enumerate(cfg.pattern):
-                bp = units[pos][u]
+                bp = params["shared_attn"] if kind == "shared_attn" else units[pos][u]
                 if cfg.remat:
-                    x = checkpoint(_block_fn(cfg, kind), x, positions, bp,
-                                   use_reentrant=False)
+                    x, a = checkpoint(_block_fn(cfg, kind), x, positions, bp,
+                                      use_reentrant=False)
                 else:
-                    x = block_apply(bp, x, cfg, kind, positions)
+                    x, a = block_apply(bp, x, cfg, kind, positions)
+                if a is not None:
+                    aux = aux + a
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = self._logits(params, x)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -42,9 +42,9 @@ dropped frame never reached the broker), and crash/churn schedules.
 :func:`run_federated_round_net` is the training entry point: each
 learner runs a real local FedAvg step (an injected callable, so this
 module stays numpy-only) and ships its model delta through the broker.
-The port's counterpart of the JAX package's ``make_wire_federated``,
-which makes those callables, is still to be ported; until then a
-caller passes its own.
+``repro_torch.train.make_wire_federated`` makes those callables from a
+model: each runs the local steps on the model's device and hands back a
+numpy delta.
 
 The PyTorch port's copy of the JAX package's ``net/client.py``, with the same
 semantics.
@@ -1927,8 +1927,8 @@ async def run_federated_round_net(
 
     Each live learner runs its *real* local update — ``local_fns[node]``
     maps the shared model state to that node's f32[P] model delta (injected
-    as a callable so this module stays numpy-only; the port's function
-    that makes these callables is still to be ported) — then the deltas travel
+    as a callable so this module stays numpy-only;
+    ``train.make_wire_federated`` makes them) — then the deltas travel
     the SAFE chain through the broker at ``addr``, chunk-streamed when
     longer than ``chunk_words``. The published (weighted) mean delta is
     merged via ``apply_fn`` and the new state returned.

@@ -32,7 +32,7 @@ reuse node ids would interleave draws from the shared per-node streams
 in scheduler order — give each tenant its own instance (seeded per
 tenant) when reproducibility across tenants matters, e.g. via the
 factory form ``interceptor=lambda t: ...`` of the JAX package's load
-harness (``loadgen``, not ported yet).
+harness (``repro_torch.net.loadgen``).
 
 The PyTorch port's copy of the JAX package's ``net/faults.py``, with the same
 semantics.

@@ -22,8 +22,6 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.train.flatten import leaves, tree_map
-
 
 class AdamState(NamedTuple):
     step: int
@@ -50,34 +48,64 @@ class AdamW:
                                                device=p.device), params)
         return AdamState(0, zeros, tree_map(torch.clone, zeros))
 
-    @torch.no_grad()
     def update(self, grads, state: AdamState, params):
         """One step: returns (new_params, new_state); the inputs are not
-        modified. ``grads`` and ``params`` are trees of one structure."""
+        modified. ``grads`` and ``params`` are trees of one structure.
+        ``update_`` on copies of the moments and parameters."""
+        return self.update_(grads, AdamState(state.step, copied(state.m), copied(state.v)),
+                            copied(params))
+
+    @torch.no_grad()
+    def update_(self, grads, state: AdamState, params):
+        """One step in place: the new moments and parameters are written into
+        ``state.m``, ``state.v`` and ``params`` (contiguous tensors), leaf by
+        leaf and ``_CHUNK`` words at a time, so the temporaries are a
+        chunk's, not a tree's (the update is elementwise). Returns (params,
+        new state)."""
         step = state.step + 1
+        scale = None
         if self.grad_clip is not None:
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                    for g in leaves(grads)))
             scale = torch.clamp_max(self.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
-            grads = tree_map(lambda g: g.float() * scale, grads)
         b1, b2 = self.b1, self.b2
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(), state.m, grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g.float()),
-                     state.v, grads)
         # bias corrections in f32 on the host, as the reference computes
         # them from the f32 step count
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
         lr = self._lr(step)
+        for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v), leaves(params)):
+            g, m, v, p = g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)
+            for s in range(0, p.numel(), _CHUNK):
+                gc = g[s:s + _CHUNK].float()
+                if scale is not None:
+                    gc = gc * scale
+                mc, vc, pc = m[s:s + _CHUNK], v[s:s + _CHUNK], p[s:s + _CHUNK]
+                mc.mul_(b1).add_(gc * (1 - b1))                  # b1 * m + (1 - b1) * g
+                vc.mul_(b2).add_(torch.square(gc).mul_(1 - b2))  # b2 * v + (1 - b2) * g^2
+                u = _div(mc, bc1) / (torch.sqrt(_div(vc, bc2)) + self.eps)
+                if self.weight_decay:  # the reference adds 0 * p when it is 0
+                    u = u + self.weight_decay * pc.float()
+                pc.copy_(pc.float() - lr * u)  # cast back to the parameter's dtype
+        return params, AdamState(step, state.m, state.v)
 
-        def upd(p, m_, v_):
-            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + self.eps)
-            if self.weight_decay:  # the reference adds 0 * p when it is 0
-                u = u + self.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype)
 
-        new_params = tree_map(upd, params, m, v)
-        return new_params, AdamState(step, m, v)
+_CHUNK = 1 << 26  # words a pass of ``AdamW.update_``: 256 MiB of f32 temporaries
+
+
+def copied(tree):
+    """A contiguous copy of every tensor of a tree (``update_`` writes
+    through flat views)."""
+    return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format), tree)
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device. A CUDA tensor divided by a
+    Python number is multiplied by the number's rounded reciprocal instead
+    (PyTorch's scalar-divisor shortcut), which is one ulp off on some
+    words; a divisor that is a 0-d tensor on x's device (made by a fill,
+    no copy from the host) takes the true division."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -94,9 +122,10 @@ class FlatAdamW:
     """AdamW on a flat f32 vector (elementwise), in the reference's order
     of operations: every product, quotient and sum the reference writes is
     one rounded f32 operation here too, and none is fused (no ``alpha=``,
-    no ``addcmul``), and the square root is correctly rounded, so on the
-    CPU the result equals the reference's word for word
-    (``tests/test_torch_launch.py``).
+    no ``addcmul``), the quotients are true divisions (``_div``) and the
+    square root is correctly rounded, so the result equals the reference's
+    word for word: on the CPU (``tests/test_torch_launch.py``) and on the
+    card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 5).
     The state's ``step`` is a Python int; ``m`` and ``v`` are f32 tensors."""
 
     lr: Callable[[torch.Tensor], torch.Tensor] | float = 3e-4
@@ -132,10 +161,16 @@ class FlatAdamW:
         v.mul_(b2).add_(torch.square(g).mul_(1 - b2))  # b2 * v + (1 - b2) * g^2
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
-        u = m / bc1
-        u.div_(_sqrt(v / bc2).add_(self.eps))         # (m / bc1) / (sqrt(v / bc2) + eps)
+        u = _div(m, bc1)
+        u.div_(_sqrt(_div(v, bc2)).add_(self.eps))    # (m / bc1) / (sqrt(v / bc2) + eps)
         p = param.float()
         u.add_(self.weight_decay * p)                 # u + weight_decay * p
         u.mul_(self._lr(step))
         new = p.sub_(u) if inplace else p - u         # p - lr * u
         return new, AdamState(step, m, v)
+
+
+# Imported last: ``repro_torch.train``'s package imports this module's
+# classes, so ``import repro_torch.optim`` before ``repro_torch.train`` must
+# have defined them by the time the cycle comes back here.
+from repro_torch.train.flatten import leaves, tree_map  # noqa: E402

@@ -8,26 +8,37 @@ matrix; ``SecureAggregator.aggregate`` publishes the mean of the rows —
 weighted by the learners' sample counts when the aggregator is built with
 ``weighted=True`` (§5.6) — and the mean is applied to the parameters.
 
-Where the reference runs the learners side by side, one per mesh rank,
-the port runs them one after another on the card, learner-major as every
-path of the port is. A learner's copy of the parameters and its optimizer
-state are freed before the next learner starts. A dead learner still
-trains, as in the reference; the round ignores its row.
+Two runtimes consume the same local update (``make_local_update``):
 
-``make_wire_federated`` (the wire runtime) is not ported yet (ROADMAP
-Queue 1 item 5).
+* ``make_federated_round`` — the whole round in process. Where the
+  reference runs the learners side by side, one per mesh rank, the port
+  runs them one after another on the card, learner-major as every path of
+  the port is. A learner's copy of the parameters and its optimizer state
+  are freed before the next learner starts. A dead learner still trains,
+  as in the reference; the round ignores its row.
+* ``make_wire_federated`` — one callable per learner, the paper's own
+  deployment: ``net.client.run_federated_round_net`` (and
+  ``run_federated_rounds_net``) runs them and ships their deltas through
+  the SAFE chain over a real broker, the controller a mere message broker.
+  The callables run the local steps on the model's device and hand the
+  delta back as f32[P] numpy, so ``repro_torch.net`` stays numpy-only.
+
+The two share the local update and one fixed-point and PRF substrate, so
+a wire round's published delta is bit-identical to ``round_fn``'s for the
+same counter, weights and alive bitmap (``tests/test_torch_federated.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Any, Callable
+from typing import TYPE_CHECKING, Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.core.aggregators import SecureAggregator
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.flatten import leaves, tree_map, tree_size, tree_unflatten
-from repro_torch.train.loss import next_token_loss
+from repro_torch.train.loss import next_token_loss, param_grads
 
 if TYPE_CHECKING:  # the model package imports this package's flatten
     from repro_torch.models.transformer import Model
@@ -76,7 +87,7 @@ def make_local_update(
             with torch.enable_grad():
                 logits, aux = model.apply(p, batch)
                 loss = next_token_loss(logits, batch, cfg.prefix_embeds) + aux
-                grads = torch.autograd.grad(loss, leaves(p))
+                grads = param_grads(loss, leaves(p))
             del logits
             p, state = local_opt.update(tree_unflatten(p, grads), state, p)
             del grads
@@ -101,8 +112,9 @@ def make_local_update(
 def apply_delta(params: Any, avg_delta: torch.Tensor) -> Any:
     """Merge a published average delta back into the parameter tree: the
     reference's ``flat_to_tree(tree_to_flat(params) + avg_delta)``, leaf by
-    leaf (the same f32 add and cast back)."""
-    avg_delta = avg_delta.float()
+    leaf (the same f32 add and cast back). ``avg_delta`` is f32[P], a tensor
+    or a numpy array (as the wire round publishes it)."""
+    avg_delta = torch.as_tensor(avg_delta, dtype=torch.float32).to(leaves(params)[0].device)
     off = 0
 
     def add(leaf):
@@ -165,3 +177,59 @@ def make_federated_round(
 
     return FederatedBundle(round_fn=round_fn, init_state_fn=lambda p: p,
                            deltas_fn=deltas_fn)
+
+
+@dataclasses.dataclass
+class WireFederated:
+    """The model's half of wire-plane federated training.
+
+    ``local_fns[node]`` maps the shared parameter tree to that learner's
+    f32[P] numpy delta, and ``apply_fn`` (``apply_delta``) merges a
+    published average delta: what ``net.client.run_federated_round_net``
+    consumes. ``last_losses[node]`` is the mean loss of the node's last
+    local update."""
+
+    local_fns: Dict[int, Callable[[Any], np.ndarray]]
+    apply_fn: Callable[[Any, Any], Any]
+    payload_words: int
+    last_losses: Dict[int, float]
+
+    def words_per_round(self, weighted: bool = True) -> int:
+        """Words one aggregation round carries (the weighted payload appends
+        one weight word): what a persistent session's ``RoundCursor``
+        advances by, and the stride of the in-process round's ``counter``
+        for cross-plane bit parity."""
+        return self.payload_words + (1 if weighted else 0)
+
+
+def make_wire_federated(
+    model: Model,
+    tokens_by_learner: Dict[int, Any],
+    *,
+    local_steps: int = 4,
+    local_lr: float = 1e-3,
+) -> WireFederated:
+    """Per-learner local-update callables for the wire runtime.
+
+    ``tokens_by_learner`` maps 1-based node ids (the paper's numbering, the
+    ids the broker's chains carry) to that learner's private
+    int[local_steps, B, S] microbatches; they are copied to the model's
+    device once. Each callable runs ``make_local_update`` on the device of
+    the parameters it is given and returns the delta on the host."""
+    local_update = make_local_update(model, local_steps=local_steps, local_lr=local_lr)
+    dev = leaves(model.tree())[0].device
+    losses: Dict[int, float] = {}
+
+    def make_fn(node: int, toks):
+        toks = torch.as_tensor(np.asarray(toks)).to(dev)
+
+        def fn(params) -> np.ndarray:
+            delta, loss = local_update(params, toks)
+            losses[node] = float(loss)
+            return delta.cpu().numpy()
+
+        return fn
+
+    local_fns = {node: make_fn(node, toks) for node, toks in sorted(tokens_by_learner.items())}
+    return WireFederated(local_fns=local_fns, apply_fn=apply_delta,
+                         payload_words=tree_size(model.tree()), last_losses=losses)

@@ -13,11 +13,17 @@ row-major. For the dense decoder that order is::
 
 (the stacked units inside each leaf). ``nn.Module.named_parameters()``
 gives another order; ``leaf_paths`` gives this one.
+
+``partition_tree``, ``combine_trees`` and ``is_expert_path`` split a tree
+by leaf path, as the reference's do: the expert-parallel train step keeps
+the per-expert matrices out of the SAFE partition. A leaf that is not
+selected becomes ``None``, an empty subtree that every function here
+skips.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -50,6 +56,45 @@ def leaf_paths(tree: Any) -> List[str]:
 
 def tree_size(tree: Any) -> int:
     return int(sum(math.prod(leaf.shape) for leaf in leaves(tree)))
+
+
+def tree_map_with_path(fn, tree: Any, prefix: str = "") -> Any:
+    """``tree_map`` of one tree whose ``fn(path, leaf)`` also gets the
+    leaf's path (the reference's ``_path_str`` form, e.g.
+    ``blocks/0/moe/wi``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _sequence(tree, [tree_map_with_path(fn, v, f"{prefix}{i}/")
+                                for i, v in enumerate(tree)])
+    if tree is None:
+        return None
+    return fn(prefix[:-1], tree)
+
+
+def partition_tree(tree: Any, pred: Callable[[str], bool]) -> Tuple[Any, Any]:
+    """Split into (selected, rest) trees by leaf path; the leaves of the
+    other part become None."""
+    sel = tree_map_with_path(lambda p, x: x if pred(p) else None, tree)
+    rest = tree_map_with_path(lambda p, x: None if pred(p) else x, tree)
+    return sel, rest
+
+
+def combine_trees(a: Any, b: Any) -> Any:
+    """Merge two complementary partitions back into one tree."""
+    if a is None:
+        return b
+    if isinstance(a, dict):
+        return {k: combine_trees(v, b[k]) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return _sequence(a, [combine_trees(x, y) for x, y in zip(a, b)])
+    return a
+
+
+def is_expert_path(path: str) -> bool:
+    """Expert-parallel leaves: the per-expert matrices inside moe blocks
+    (the router and the shared experts stay in the SAFE partition)."""
+    return "moe/" in path and path.rsplit("/", 1)[-1] in ("wi", "wg", "wo")
 
 
 def tree_map(fn, tree: Any, *rest: Any) -> Any:

@@ -1,5 +1,5 @@
 """Next-token cross-entropy over the zoo's output conventions (the
-counterpart of the JAX package's ``train/loss.py``)."""
+counterpart of the JAX package's ``train/loss.py``), and the parameters' gradients."""
 from __future__ import annotations
 
 import torch
@@ -21,3 +21,10 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return torch.mean(nll)
+
+
+def param_grads(loss: torch.Tensor, params: list) -> list:
+    """d loss / d each of ``params``, a zero tensor for a leaf the loss does
+    not use (the shared block's placeholder), as ``jax.grad`` gives."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]

@@ -16,10 +16,24 @@ step's gradient goes through the SAFE chain instead of an all-reduce
   │    master vector with ``FlatAdamW`` and all-gathers the slices. The
   │    update is elementwise, so on one card it is one ``FlatAdamW`` update
   │    of the whole master vector: the same math on the same words
-  └─ the parameters rebuilt from ``master[:sec_size]`` in their dtypes
+  ├─ the parameters rebuilt from ``master[:sec_size]`` in their dtypes
+  └─ with expert parallelism (``cfg.ep_axis``), the experts' update
 
-``leafwise`` aggregates each parameter tensor in its own round (key domain
-leaf index + 1, the step's counter in every domain) and updates with the
+Expert parallelism. A MoE's per-expert matrices (``moe/…/{wi,wg,wo}``,
+``train/flatten.py::is_expert_path``) stay out of the SAFE partition, as
+in the reference: there the experts are sharded over the learners and
+their gradients summed by the all-to-all's transpose. On one card every
+expert is local, so the step sums the learners' expert gradients in f32
+(dead learners included: ``alive`` only touches SAFE), casts the sum once
+to the parameters' dtype and updates them with a tree ``AdamW`` without
+clipping, whose state is ``state["ep_opt"]``; ``sec_size`` counts the
+SAFE partition alone. The reference's step without ``ep_axis`` drops
+the expert leaves from the parameters it returns; this step refuses a
+model with expert leaves and no ``ep_axis`` (``ValueError``).
+
+``leafwise`` aggregates each parameter tensor of the SAFE partition in its
+own round (key domain leaf index + 1, the step's counter in every domain)
+and updates with the
 tree ``AdamW`` (with ``grad_clip``) instead of the flat master; it switches
 on by itself when the flat f32 vector would exceed 8 GB, as in the
 reference.
@@ -28,12 +42,10 @@ Options that shard over a model axis have no meaning on one card: the
 ``mesh`` and ``learner_axis``, ``chain_model_sharded`` (the reference's
 per-model-shard chains, whose published mean is the same) and the
 reference's Megatron output anchors (``models/sharding.py``) change no
-arithmetic, so they are accepted and do nothing. Expert parallelism
-(``cfg.ep_axis``) raises ``NotImplementedError`` until ``models/moe.py`` is
-ported. The reference's buffer donation becomes in-place updates: with
-``donate`` the step writes the new master vector, moments and parameters
-into the state it is given, so the caller keeps only the returned state
-(whose tensors are those same ones).
+arithmetic, so they are accepted and do nothing. The reference's buffer
+donation becomes in-place updates: with ``donate`` the step writes the new
+master vector, moments and parameters into the state it is given, so the
+caller keeps only the returned state (whose tensors are those same ones).
 """
 from __future__ import annotations
 
@@ -43,9 +55,11 @@ from typing import TYPE_CHECKING, Any, Callable, Optional
 import torch
 
 from repro_torch.core.aggregators import SecureAggregator
-from repro_torch.optim.adamw import AdamState, AdamW, FlatAdamW
-from repro_torch.train.flatten import leaves, tree_map, tree_size, tree_unflatten
-from repro_torch.train.loss import next_token_loss
+from repro_torch.optim.adamw import AdamState, AdamW, FlatAdamW, copied
+from repro_torch.train.flatten import (combine_trees, is_expert_path, leaf_paths, leaves,
+                                       partition_tree, tree_map, tree_size,
+                                       tree_unflatten)
+from repro_torch.train.loss import next_token_loss, param_grads
 
 if TYPE_CHECKING:  # the model package imports this package's flatten
     from repro_torch.models.transformer import Model
@@ -94,6 +108,27 @@ def _rebuild(params: Any, flat: torch.Tensor, inplace: bool) -> Any:
     return tree_unflatten(params, new)
 
 
+def _split(params: Any) -> tuple:
+    """(SAFE partition, expert partition) of a parameter tree."""
+    return partition_tree(params, lambda path: not is_expert_path(path))
+
+
+def _ep_update(opt: AdamW, ep_sum: list, state: AdamState, ep_params: Any,
+               inplace: bool) -> tuple:
+    """The expert update: the f32 sum of the learners' expert gradients,
+    cast once to each parameter's dtype, through the tree ``AdamW`` without
+    clipping (the reference's ``ep_opt``), leaf by leaf so that one leaf's
+    cast gradient is alive at a time; into the given state and parameters
+    when ``inplace``, else into copies. Returns (new expert partition, new
+    state with an int32 step)."""
+    step = int(state.step)
+    if not inplace:
+        ep_params, state = copied(ep_params), AdamState(step, copied(state.m), copied(state.v))
+    for g, p, m, v in zip(ep_sum, leaves(ep_params), leaves(state.m), leaves(state.v)):
+        opt.update_([g.to(p.dtype)], AdamState(step, [m], [v]), [p])
+    return ep_params, AdamState(torch.tensor(step + 1, dtype=torch.int32), state.m, state.v)
+
+
 def make_train_step(
     model: Model,
     aggregator: SecureAggregator,
@@ -116,27 +151,36 @@ def make_train_step(
     pod-major, with the aggregator's pod axis), ``prefix`` optional
     per-learner prefix embeddings, ``weights`` f32[n] (returned as the
     ``weight`` metric, not aggregated, as in the reference), ``counter``
-    the step's first counter word (reserve ``padded_size + 2`` words a step
-    with ``aggregator.reserve_round`` so no pad is reused), ``alive`` a 0/1
+    the step's first counter (``aggregator.reserve_round(padded_size + 2)``
+    reserves a step's counters, so no pad is reused), ``alive`` a 0/1
     [n] bitmap. ``mark(name)``, when given, is called after each part of
     the step ("forward_backward" and "flatten" once per learner, then
-    "aggregate", "optimizer", "rebuild") so a caller can time the parts.
+    "aggregate", "optimizer", with expert parallelism "expert_optimizer",
+    and "rebuild") so a caller can time the parts.
     Returns the new state and the metrics ``loss`` (mean over the
     learners), ``grad_scale`` (norm of the published gradient) and
     ``weight``, as 0-d tensors on the parameters' device."""
     cfg = model.cfg
-    if cfg.ep_axis is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: expert parallelism (ep_axis={cfg.ep_axis!r}) waits for "
-            "models/moe.py (ROADMAP Queue 1 item 6)")
+    use_ep = cfg.ep_axis is not None
+    if not use_ep and any(map(is_expert_path, leaf_paths(model.tree()))):
+        raise ValueError(
+            f"{cfg.arch_id}: the model has per-expert matrices (moe/wi, wg, wo) but "
+            "cfg.ep_axis is None. The JAX package's step keeps them out of the SAFE "
+            "partition and, without ep_axis, returns parameters without them "
+            "(src/repro/train/train_step.py:214), so its next step fails in "
+            "moe_apply; this port refuses instead. Set ep_axis='data' and ep_ranks to "
+            "the learner count (the experts' gradients are then summed over the "
+            "learners and updated outside the SAFE chain), or train by FedAvg, "
+            "whose payload carries every leaf.")
     agg_pods = aggregator.cfg.pod_axis
     if pod_axis is not None and pod_axis != agg_pods:
         raise ValueError(f"pod_axis={pod_axis!r} but the aggregator's is {agg_pods!r}")
     n = aggregator.cfg.num_learners
     flat_opt = FlatAdamW(lr=lr, weight_decay=weight_decay)
+    ep_opt = AdamW(lr=lr, weight_decay=weight_decay, grad_clip=None)
     sec_opt = AdamW(lr=lr, weight_decay=weight_decay, grad_clip=grad_clip)
 
-    sec_size = tree_size(model.tree())
+    sec_size = tree_size(_split(model.tree())[0])
     shard_len = -(-sec_size // n)
     padded_size = shard_len * n
     if leafwise is None:
@@ -147,55 +191,70 @@ def make_train_step(
         are the tree's tensors (detached), so a donating step updates them
         where they are."""
         params = tree_map(lambda t: t.detach(), params)
+        sec_p, ep_p = _split(params)
         dev = leaves(params)[0].device
-        sec_state = None
+        sec_state = ep_state = None
         if leafwise:
             flat = torch.zeros(n, dtype=torch.float32, device=dev)  # placeholder
-            s = sec_opt.init(params)
+            s = sec_opt.init(sec_p)
             sec_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
         else:
             flat = torch.zeros(padded_size, dtype=torch.float32, device=dev)
-            _write_flat(params, flat)
+            _write_flat(sec_p, flat)
+        if use_ep:
+            s = ep_opt.init(ep_p)
+            ep_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
         return {"params": params, "master": flat, "fm": torch.zeros_like(flat),
                 "fv": torch.zeros_like(flat), "fstep": torch.zeros((), dtype=torch.int32),
-                "ep_opt": None, "sec_opt": sec_state, "step": 0}
+                "ep_opt": ep_state, "sec_opt": sec_state, "step": 0}
 
     def learner_grads(params, tokens, prefix, mark):
-        """Each learner's loss and gradient, written into its row(s) of the
-        flat matrix (or of one matrix per leaf when leafwise)."""
+        """Each learner's loss; its SAFE-partition gradient written into its
+        row(s) of the flat matrix (or of one matrix per leaf when
+        leafwise); and the f32 sum over the learners of the expert
+        gradients."""
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         plist = leaves(p)
+        is_ep = [is_expert_path(path) for path in leaf_paths(p)]
         dev, rows = plist[0].device, tokens.shape[0]
         if leafwise:
             mats = [torch.empty((rows, t.numel()), dtype=torch.float32, device=dev)
-                    for t in plist]
+                    for t, e in zip(plist, is_ep) if not e]
         else:
             mat = torch.empty((rows, padded_size), dtype=torch.float32, device=dev)
             mat[:, sec_size:].zero_()
-        losses = []
+        losses, ep_sum = [], None
         for l in range(rows):
             batch = tokens[l]
             with torch.enable_grad():
                 logits, aux = model.apply(p, batch, None if prefix is None else prefix[l])
                 loss = next_token_loss(logits, batch, cfg.prefix_embeds) + aux
-                grads = torch.autograd.grad(loss, plist)
+                grads = param_grads(loss, plist)
             del logits
             losses.append(loss.detach())
             mark("forward_backward")
             with torch.no_grad():
+                sec_g = [g for g, e in zip(grads, is_ep) if not e]
                 if leafwise:
-                    for g, m in zip(grads, mats):
+                    for g, m in zip(sec_g, mats):
                         m[l].copy_(g.reshape(-1))
                 else:
-                    _write_flat(list(grads), mat[l])
-            del grads
+                    _write_flat(sec_g, mat[l])
+                ep_g = [g for g, e in zip(grads, is_ep) if e]
+                if ep_sum is None:  # the reference's all-to-all transpose sums them
+                    ep_sum = [g.float() if g.dtype != torch.float32 else g for g in ep_g]
+                else:
+                    for acc, g in zip(ep_sum, ep_g):
+                        acc.add_(g)
+            del grads, sec_g, ep_g
             mark("flatten")
-        return torch.stack(losses), (mats if leafwise else mat)
+        return torch.stack(losses), (mats if leafwise else mat), ep_sum
 
     def step_fn(state, tokens, prefix=None, weights=None, counter=0, alive=None,
                 mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
         params = state["params"]
+        sec_p, ep_p = _split(params)
         dev = leaves(params)[0].device
         tokens = torch.as_tensor(tokens).to(dev)
         if tokens.dim() < 2 or tokens.shape[0] % n or (agg_pods is None and tokens.shape[0] != n):
@@ -211,26 +270,20 @@ def make_train_step(
         def as_values(m):  # [P·n, V] -> [P, n, V] for the pod axis
             return m.view(pods, n, -1) if agg_pods else m
 
-        losses, grads = learner_grads(params, tokens, prefix, mark)
+        losses, grads, ep_sum = learner_grads(params, tokens, prefix, mark)
         if leafwise:
             avg = [aggregator.aggregate(as_values(m), counter, alive=alive, domain=idx + 1,
                                         rotate=rotate).view(leaf.shape)
-                   for idx, (m, leaf) in enumerate(zip(grads, leaves(params)))]
+                   for idx, (m, leaf) in enumerate(zip(grads, leaves(sec_p)))]
             del grads
             mark("aggregate")
             grad_norm = torch.sqrt(sum(torch.sum(torch.square(a)) for a in avg))
             s = state["sec_opt"]
-            new, s = sec_opt.update(tree_unflatten(params, avg), AdamState(int(s.step), s.m, s.v),
-                                    params)
+            update = sec_opt.update_ if donate else sec_opt.update
+            new_sec, s = update(tree_unflatten(sec_p, avg), AdamState(int(s.step), s.m, s.v),
+                                sec_p)
             sec_state = AdamState(torch.tensor(s.step, dtype=torch.int32), s.m, s.v)
             master, fm, fv, fstep = state["master"], state["fm"], state["fv"], state["fstep"]
-            mark("optimizer")
-            if donate:
-                with torch.no_grad():
-                    for old, t in zip(leaves(params), leaves(new)):
-                        old.copy_(t)
-                new = params
-            mark("rebuild")
         else:
             avg = aggregator.aggregate(as_values(grads), counter, alive=alive, rotate=rotate)
             del grads
@@ -241,14 +294,21 @@ def make_train_step(
             del avg
             fm, fv, fstep = fs.m, fs.v, torch.tensor(fs.step, dtype=torch.int32)
             sec_state = None
-            mark("optimizer")
-            new = _rebuild(params, master[:sec_size], inplace=donate)
-            mark("rebuild")
+        mark("optimizer")
+        ep_state = None
+        if use_ep:  # the experts' summed gradients, outside the SAFE boundary
+            new_ep, ep_state = _ep_update(ep_opt, ep_sum, state["ep_opt"], ep_p, donate)
+            del ep_sum
+            mark("expert_optimizer")
+        if not leafwise:
+            new_sec = _rebuild(sec_p, master[:sec_size], inplace=donate)
+        new = combine_trees(new_sec, new_ep) if use_ep else new_sec
+        mark("rebuild")
         metrics = {"loss": losses.view(pods, n).mean(dim=1).mean(),
                    "grad_scale": grad_norm,
                    "weight": weights.reshape(-1)[0].to(device=dev, dtype=torch.float32)}
         new_state = {"params": new, "master": master, "fm": fm, "fv": fv, "fstep": fstep,
-                     "ep_opt": None, "sec_opt": sec_state, "step": state["step"] + 1}
+                     "ep_opt": ep_state, "sec_opt": sec_state, "step": state["step"] + 1}
         return new_state, metrics
 
     return TrainStepBundle(step_fn=step_fn, init_state_fn=init_state_fn,

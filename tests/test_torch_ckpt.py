@@ -4,7 +4,8 @@
   byte, and reads what it writes.
 * A train state with bf16 and f32 leaves, an int32 step, a NamedTuple and
   empty subtrees, saved by the reference, restores in the port bit for
-  bit, and the reverse; so does the port's own train state.
+  bit, and the reverse; so does the port's own train state, the
+  expert-parallel one with its ``ep_opt`` included.
 * Blobs: gzip, raw and zstd-tagged ones, stale siblings, ``latest_step``.
 * A process in which ``jax``, ``repro``, ``msgpack``, ``ml_dtypes`` and
   ``zstandard`` cannot be imported still imports the train step, the
@@ -177,6 +178,37 @@ def test_train_state_round_trips_both_ways(tmp_path, dtype):
     assert back["step"] == 1 and isinstance(back["step"], int)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ep_train_state_round_trips_both_ways(tmp_path, dtype):
+    """The expert-parallel train state (smoke qwen3-moe after one step):
+    ``ep_opt`` is an AdamState of an int32 step and m, v trees that hold
+    the expert leaves and None elsewhere, as the reference's. Saved by the
+    port, it restores in the port and in the reference bit for bit, and the
+    reference's save of it restores in the port bit for bit."""
+    import jax
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"), dtype=dtype,
+                              ep_axis="data", ep_ranks=4)
+    model = Model(cfg, device="cpu")
+    agg = make_aggregator("safe", 4, device="cpu")
+    bundle = make_train_step(model, agg, lr=1e-3)
+    state = bundle.init_state_fn(model.tree())
+    toks = np.random.RandomState(0).randint(0, cfg.vocab, (4, 1, 16)).astype(np.int32)
+    state, _ = bundle.step_fn(state, toks, counter=agg.reserve_round(bundle.padded_size + 2))
+    ep = state["ep_opt"]
+    assert isinstance(ep, AdamState) and int(ep.step) == 1 and ep.step.dtype == torch.int32
+    assert len(leaves(ep.m)) == len(leaves(ep.v)) == 3  # wi, wg, wo
+    save_checkpoint(str(tmp_path / "port"), 1, state, extra={"step": 1})
+    mine, _ = restore_checkpoint(str(tmp_path / "port"), 1, bundle.init_state_fn(model.tree()))
+    want = [_bits(a) for a in leaves(state)]
+    assert [_bits(a) for a in leaves(mine)] == want
+    ref, _ = ref_ckpt.restore_checkpoint(str(tmp_path / "port"), 1, _as_jax(state))
+    assert isinstance(ref["ep_opt"], RefAdamState)
+    assert [_bits(a) for a in jax.tree.leaves(ref)][:-1] == want[:-1]
+    ref_ckpt.save_checkpoint(str(tmp_path / "ref"), 1, ref, extra={"step": 1})
+    back, _ = restore_checkpoint(str(tmp_path / "ref"), 1, bundle.init_state_fn(model.tree()))
+    assert [_bits(a) for a in leaves(back)][:-1] == want[:-1]
+
+
 def _as_jax(tree):
     """A jax skeleton of the port's state (the reference's own leaf types)."""
     if isinstance(tree, dict):
@@ -187,7 +219,7 @@ def _as_jax(tree):
         return [_as_jax(v) for v in tree]
     if isinstance(tree, torch.Tensor):
         return jnp.zeros(tuple(tree.shape), jnp.float32)
-    return tree
+    return tree  # a Python number, or None (an empty subtree in both)
 
 
 def test_blob_codecs(tmp_path):

@@ -1,4 +1,5 @@
-"""The PyTorch port's CUDA kernels against their plain versions, on the card.
+"""The PyTorch port on the card: its CUDA kernels against their plain
+versions, and FedAvg, FlatAdamW and the train step against the CPU path.
 
 Every test here is marked ``cuda`` and skips where torch sees no GPU. The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -174,3 +175,124 @@ def test_cuda_federated_round_matches_cpu(cuda):
         assert bool(torch.isfinite(tree_to_flat(params)).all())
         out.append(m["avg_delta"].cpu().double())
     assert float((out[1] - out[0]).norm() / out[0].norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_flat_adamw_equals_cpu(cuda):
+    """FlatAdamW on the card, three steps on 2^20 random words (gradients
+    from 1e-6 to 10, some exactly zero): the parameters and both moments
+    equal the CPU path's — which equals the JAX package's
+    (tests/test_torch_launch.py) — on every word, in place and not. This
+    rests on CUDA's f32 square root and division being correctly rounded,
+    as PyTorch builds them (no fast math)."""
+    from repro_torch.optim import FlatAdamW
+    rng = np.random.RandomState(0)
+    n = 1 << 20
+    param = rng.standard_normal(n).astype(np.float32)
+    grads = [rng.standard_normal(n).astype(np.float32)
+             * 10.0 ** rng.uniform(-6, 1, n).astype(np.float32) for _ in range(3)]
+    grads[1][:100] = 0.0
+    opt = FlatAdamW(lr=1e-3, weight_decay=0.1)
+    cs, cp = opt.init(n, device="cpu"), torch.from_numpy(param.copy())
+    gs, gp = opt.init(n, device=cuda), torch.from_numpy(param.copy()).to(cuda)
+    i_s, ip = opt.init(n, device=cuda), torch.from_numpy(param.copy()).to(cuda)
+    for g in grads:
+        cp, cs = opt.update(torch.from_numpy(g), cs, cp)
+        gp, gs = opt.update(torch.from_numpy(g).to(cuda), gs, gp)
+        ip, i_s = opt.update(torch.from_numpy(g).to(cuda), i_s, ip, inplace=True)
+        for a, b in ((gp, cp), (gs.m, cs.m), (gs.v, cs.v), (ip, cp), (i_s.m, cs.m)):
+            assert torch.equal(a.cpu(), b)
+
+
+class _Watched:
+    """An aggregator that keeps the gradient matrix it was handed and the
+    mean it published."""
+
+    def __init__(self, agg):
+        self.agg, self.cfg, self.seen = agg, agg.cfg, None
+
+    def aggregate(self, values, counter_base=0, alive=None, weights=None, domain=0, rotate=0):
+        out = self.agg.aggregate(values, counter_base, alive=alive, weights=weights,
+                                 domain=domain, rotate=rotate)
+        self.seen = (values.clone(), counter_base, alive, rotate, out)
+        return out
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.cpu().double(), want.cpu().double()
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+# Bounds of the card's f32 train step against the CPU's. Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W, worst of the four models: the loss 7.6e-8
+# relative, the gradient matrix 1.1e-5 relative L2 (rwkv6; 1.4e-6 to 2.0e-6
+# for the others), the published mean 5.7e-5 (a gradient word that differs
+# in rounding can land one fixed-point step away), the parameters' change
+# 1.8e-3 (a first AdamW step moves a word by about ±lr whatever the size of
+# its gradient, so a near-zero gradient that differs by an ulp moves its
+# word the other way), the MoE's ep_opt m and v 1.9e-6. The bounds sit 4x
+# to 13x above.
+CARD_LOSS_RTOL = 1e-6
+CARD_REL_GRADS = 5e-5     # the gradient matrix the SAFE call was handed
+CARD_REL_MEAN = 2.5e-4    # the published mean
+CARD_REL_DELTA = 1e-2     # the parameters' change
+CARD_REL_EP = 1e-5        # the MoE's ep_opt m and v (v tells a sum from a mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-235b-a22b", "zamba2-2.7b",
+                                  "rwkv6-1.6b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """One SAFE train step of the f32 smoke model on the card against the
+    same step on the CPU (the MoE by expert parallelism): the SAFE call on
+    the card's own gradient matrix, rerun on the CPU path, is bit-identical
+    to what the card published; the loss agrees within CARD_LOSS_RTOL; the
+    gradient matrix, the published mean and the parameters' change agree
+    within their relative-L2 bounds, and for the MoE so do the expert
+    update's moments, which a mean instead of the sum would move 16-fold
+    (v); every parameter within 2·lr besides."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_aggregator
+    from repro_torch.models import Model
+    from repro_torch.train import make_train_step, tree_to_flat
+    lr = 1e-3
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    if cfg.uses_moe:
+        cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=4)
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    init = tree_to_flat(cpu.tree()).clone()
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab, (4, 2, 64)))
+    out = {}
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        agg = _Watched(make_aggregator("safe", 4, device=dev))
+        bundle = make_train_step(model, agg, lr=lr)
+        state, m = bundle.step_fn(bundle.init_state_fn(model.tree()), toks, counter=12345)
+        ep = state["ep_opt"]
+        out["cpu" if dev == "cpu" else "card"] = dict(
+            loss=float(m["loss"]), params=tree_to_flat(state["params"]).cpu(), seen=agg.seen,
+            ep=None if ep is None else (tree_to_flat(ep.m).cpu(), tree_to_flat(ep.v).cpu()))
+    c, g = out["cpu"], out["card"]
+    values, counter, alive, rotate, published = g["seen"]
+    assert values.is_cuda and published.is_cuda
+    again = make_aggregator("safe", 4, device="cpu").aggregate(values.cpu(), counter,
+                                                              alive=alive, rotate=rotate)
+    assert torch.equal(again, published.cpu())
+    readings = {"loss": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+                "grads": _rel_l2(values, c["seen"][0]),
+                "mean": _rel_l2(published, c["seen"][4]),
+                "delta": _rel_l2(g["params"] - init, c["params"] - init)}
+    if cfg.uses_moe:
+        readings["ep_m"] = _rel_l2(g["ep"][0], c["ep"][0])
+        readings["ep_v"] = _rel_l2(g["ep"][1], c["ep"][1])
+    print(f"card vs cpu, {arch}: {readings}")
+    assert readings["loss"] <= CARD_LOSS_RTOL
+    assert readings["grads"] <= CARD_REL_GRADS
+    assert readings["mean"] <= CARD_REL_MEAN
+    assert readings["delta"] <= CARD_REL_DELTA
+    if cfg.uses_moe:
+        assert max(readings["ep_m"], readings["ep_v"]) <= CARD_REL_EP
+    assert float((g["params"] - c["params"]).abs().max()) <= 2 * lr

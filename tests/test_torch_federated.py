@@ -13,11 +13,14 @@ rounds to bf16 after every operation, as PyTorch does, so that run is
 what the port's bf16 float math is held against.
 
 What must be equal bit for bit: the aggregate-and-apply step fed the
-reference's own deltas (the ring is exact), ``apply_delta``, and the token
-batches. What is held to a tolerance: the float math of the local update
+reference's own deltas (the ring is exact), ``apply_delta``, the token
+batches, and the wire round (``make_wire_federated``'s callables through
+the port's broker, and their deltas through the reference's) against the
+in-process ``round_fn``. What is held to a tolerance: the float math of the local update
 and of the whole round (relative L2 over the flat vector; each test
 states its measured margin).
 """
+import asyncio
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
@@ -32,7 +35,7 @@ from repro_torch.core import make_aggregator
 from repro_torch.data import make_federated_batches
 from repro_torch.models import Model
 from repro_torch.train import (apply_delta, flat_to_tree, make_federated_round,
-                               make_local_update, tree_to_flat)
+                               make_local_update, make_wire_federated, tree_to_flat)
 from repro_torch.train.flatten import leaves
 
 N, K, B, S, ROUNDS, LR = 4, 2, 2, 32, 2, 1e-3
@@ -309,3 +312,86 @@ def test_round_uses_its_own_deltas(reference, dtype):
     assert torch.equal(avg, m["avg_delta"])
     assert torch.equal(tree_to_flat(apply_delta(params, avg)), tree_to_flat(new))
     assert torch.equal(losses.mean(), m["local_loss"])
+
+
+# ---- the wire runtime: make_wire_federated through a broker -------------------------
+
+WIRE_FAILED = {"clean": (), "node 3 failed": (3,)}
+
+
+def _wire_setup(reference):
+    """The f32 model from the reference's weights, its in-process weighted
+    round, and the wire callables over the same tokens (node l + 1 holds
+    learner l's microbatches)."""
+    model, bundle = _round(reference, "float32")
+    toks = reference["tokens"]
+    wf = make_wire_federated(model, {l + 1: toks[l] for l in range(N)}, local_steps=K,
+                             local_lr=LR)
+    return model, bundle, wf
+
+
+def _run_wire(run_round, broker, params, wf, weights, counter, failed):
+    async def go():
+        addr = await broker.start()
+        try:
+            return await asyncio.wait_for(
+                run_round(params, wf.local_fns, wf.apply_fn, addr, weights=weights,
+                          counter=counter, failed_nodes=failed), 120)
+        finally:
+            await broker.stop()
+    return asyncio.run(go())
+
+
+@pytest.mark.parametrize("case", list(WIRE_FAILED))
+def test_wire_round_bit_identical(reference, case):
+    """One FedAvg round on the wire — each live learner's callable runs its
+    two local steps, the deltas travel the SAFE chain through the port's
+    broker on 127.0.0.1 — publishes the in-process ``round_fn``'s delta bit
+    for bit at the same counter, weights and alive bitmap (a failed node
+    never computes or connects; in process its row is dead), and applying
+    it gives the same parameters."""
+    from repro_torch.net import SafeBroker, run_federated_round_net
+    model, bundle, wf = _wire_setup(reference)
+    failed = WIRE_FAILED[case]
+    alive = [0.0 if l + 1 in failed else 1.0 for l in range(N)]
+    params = model.tree()
+    W = wf.words_per_round(weighted=True)
+    assert W == wf.payload_words + 1 == tree_to_flat(params).numel() + 1
+    new, m = bundle.round_fn(params, torch.from_numpy(reference["tokens"]),
+                             weights=reference["weights"], counter=W, alive=alive)
+    got, res = _run_wire(run_federated_round_net,
+                         SafeBroker(progress_timeout=0.4, monitor_interval=0.1),
+                         params, wf, reference["weights"], W, failed)
+    assert res.average.dtype == np.float32
+    np.testing.assert_array_equal(res.average.view(np.uint32),
+                                  m["avg_delta"].numpy().view(np.uint32))
+    assert torch.equal(tree_to_flat(got), tree_to_flat(new))
+    # each live node's callable ran and kept its loss; a failed node's never ran
+    assert sorted(wf.last_losses) == [l for l in range(1, N + 1) if l not in failed]
+    assert all(np.isfinite(v) for v in wf.last_losses.values())
+
+
+@pytest.mark.parametrize("case", list(WIRE_FAILED))
+def test_reference_wire_round_same_words(reference, case):
+    """The same callables' deltas through the JAX package's broker and wire
+    round publish the same words as the port's in-process round."""
+    from repro.net import SafeBroker as RefBroker
+    from repro.net import run_federated_round_net as ref_round_net
+    model, bundle, wf = _wire_setup(reference)
+    failed = WIRE_FAILED[case]
+    alive = [0.0 if l + 1 in failed else 1.0 for l in range(N)]
+    params = model.tree()
+    W = wf.words_per_round()
+    _, m = bundle.round_fn(params, torch.from_numpy(reference["tokens"]),
+                           weights=reference["weights"], counter=2 * W, alive=alive)
+    published = {}
+
+    def keep(state, avg):
+        published["avg"] = avg
+        return state
+
+    wf.apply_fn = keep
+    _run_wire(ref_round_net, RefBroker(progress_timeout=0.4, monitor_interval=0.1), params, wf,
+              reference["weights"], 2 * W, failed)
+    np.testing.assert_array_equal(np.asarray(published["avg"], np.float32).view(np.uint32),
+                                  m["avg_delta"].numpy().view(np.uint32))

@@ -23,13 +23,14 @@ import torch
 from helpers import REPO
 from repro.optim.adamw import FlatAdamW as RefFlatAdamW
 from repro_torch.ckpt import latest_step, restore_checkpoint, save_checkpoint
-from repro_torch.configs import get_config
+from repro_torch.configs import ALIASES, get_config, get_smoke_config
 from repro_torch.core import make_aggregator
 from repro_torch.crypto.prf import RoundCounter
 from repro_torch.launch.train import parse_args, run
 from repro_torch.models import Model
 from repro_torch.optim import AdamState, FlatAdamW
-from repro_torch.train import make_train_step, tree_to_flat
+from repro_torch.train import leaf_paths, make_train_step, tree_to_flat
+from repro_torch.train.flatten import leaves
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
@@ -68,7 +69,43 @@ def test_train_step_launcher_runs(extra):
     assert out["losses"][-1] < out["losses"][0]
     assert np.isfinite(_flat(out)).all()
     W = out["state"]["master"].numel() + 2
-    assert out["counters"] == [0, W]
+    m = 4 if "--pipelined" in extra else 1  # the pipelined round pads 4 equal segments
+    assert out["counters"] == [0, -(-(m * -(-W // m)) // 2)]  # two words to a counter
+
+
+@pytest.mark.parametrize("arch", sorted(ALIASES))
+def test_every_config_takes_safe_steps(arch):
+    """Each of the ten configurations at the smoke size takes two SAFE
+    steps on the CPU in f32: a MoE by expert parallelism over the four learners
+    (``ep_axis``, as the launcher sets it), Mamba2 with the shared
+    attention block, RWKV6, the dense kinds, four codebooks and a prefix of
+    frontend embeddings; finite losses, fresh counters, every parameter
+    leaf but the unused ones moved."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")  # a step moves every word
+    if cfg.uses_moe:
+        cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=4)
+    model = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    agg = make_aggregator("safe", 4, device="cpu")
+    bundle = make_train_step(model, agg, lr=1e-3)
+    state = bundle.init_state_fn(model.tree())
+    init = [t.clone() for t in leaves(state["params"])]
+    rng = np.random.RandomState(0)
+    shape = (4, 1, 32) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1 else ())
+    prefix = (torch.from_numpy(rng.standard_normal((4, 1, cfg.prefix_embeds, cfg.d_model))
+                               .astype(np.float32)) if cfg.prefix_embeds else None)
+    counters, losses = [], []
+    for _ in range(2):
+        counters.append(agg.reserve_round(bundle.padded_size + 2))
+        state, m = bundle.step_fn(state, rng.randint(0, cfg.vocab, shape), prefix=prefix,
+                                  counter=counters[-1])
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all() and counters == [0, -(-(bundle.padded_size + 2) // 2)]
+    assert (state["ep_opt"] is not None) == cfg.uses_moe
+    for path, a, b in zip(leaf_paths(state["params"]), leaves(state["params"]), init):
+        assert bool(torch.isfinite(a.float()).all()), path
+        unused = path.endswith("_shared") or (cfg.recurrent_mlp is False and "ln2" in path
+                                              and not path.startswith("shared_attn"))
+        assert unused or not torch.equal(a, b), path
 
 
 def test_failing_learner_changes_the_step():
@@ -84,7 +121,7 @@ def test_federated_launcher_runs():
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
     assert out["losses"][-1] < out["losses"][0]
     P = _flat(out).size
-    assert out["counters"] == [0, P + 1]  # a weighted round's words
+    assert out["counters"] == [0, -(-(P + 1) // 2)]  # a weighted round's P + 1 words
 
 
 def test_resume_is_bit_exact(tmp_path):
@@ -111,30 +148,32 @@ def test_counters_never_overlap(tmp_path):
     ck = str(tmp_path / "ck")
     a = _run("--steps", "2", "--ckpt-dir", ck, "--ckpt-every", "2")
     b = _run("--steps", "3", "--ckpt-dir", ck, "--ckpt-every", "3")
-    W = a["state"]["master"].numel() + 2
-    spans = sorted((c, c + W) for c in a["counters"] + b["counters"])
+    C = -(-(a["state"]["master"].numel() + 2) // 2)  # counters of a step
+    spans = sorted((c, c + C) for c in a["counters"] + b["counters"])
     assert len(spans) == 3 and all(hi <= lo for (_, hi), (lo, _) in zip(spans, spans[1:]))
     _, extra = restore_checkpoint(ck, 3, b["state"])
-    assert extra == {"step": 3, "counter": 3 * W}
+    assert extra == {"step": 3, "counter": 3 * C}
 
 
-@pytest.mark.parametrize("layers,steps", [(12, 4), (24, 2)])
+@pytest.mark.parametrize("layers,steps", [(12, 9), (24, 5)])
 def test_full_width_counter_space(layers, steps):
-    """internlm2-1.8b at full width: a step reserves padded_size + 2 words
-    of the keys' 2^32, so 2^32 // (padded_size + 2) steps fit (4 at 12
-    layers, 2 at 24) and the next reservation is refused, before it
-    wraps."""
+    """internlm2-1.8b at full width: a step of padded_size + 2 words draws
+    C = ceil((padded_size + 2) / 2) of the keys' 2^32 Threefry counters
+    (each counter pads two words), so 2^32 // C steps fit (9 at 12 layers,
+    5 at 24) and the next reservation is refused, before it wraps."""
     cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=layers)
     agg = make_aggregator("safe", 4, device="cpu")
     bundle = make_train_step(Model(cfg, device="meta"), agg)
     W = bundle.padded_size + 2
-    assert 2**32 // W == steps
+    C = -(-W // 2)
+    assert agg.round_counters(W) == C and 2**32 // C == steps
     for i in range(steps):
-        assert agg.reserve_round(W) == i * W
+        assert agg.reserve_round(W) == i * C
     with pytest.raises(OverflowError, match="counter space exhausted"):
         agg.reserve_round(W)
-    assert agg._counters.remaining == 2**32 - steps * W  # the refusal changed nothing
-    assert agg.reserve_round(2**32 - steps * W) == steps * W  # what is left still serves
+    assert agg._counters.remaining == 2**32 - steps * C  # the refusal changed nothing
+    # what is left still serves
+    assert agg.reserve_round(2 * (2**32 - steps * C)) == steps * C
 
 
 def test_launcher_stops_with_the_refusal(tmp_path):
@@ -142,8 +181,8 @@ def test_launcher_stops_with_the_refusal(tmp_path):
     the resumed launcher refuses its first step instead of wrapping."""
     ck = str(tmp_path / "ck")
     out = _run("--steps", "1", "--ckpt-dir", ck, "--ckpt-every", "1")
-    W = out["state"]["master"].numel() + 2
-    save_checkpoint(ck, 1, out["state"], extra={"step": 1, "counter": RoundCounter.LIMIT - W + 1})
+    C = -(-(out["state"]["master"].numel() + 2) // 2)  # counters of a step
+    save_checkpoint(ck, 1, out["state"], extra={"step": 1, "counter": RoundCounter.LIMIT - C + 1})
     with pytest.raises(SystemExit, match="counter space exhausted"):
         _run("--steps", "3", "--ckpt-dir", ck, "--ckpt-every", "1")
     assert latest_step(ck) == 1
@@ -204,3 +243,78 @@ def test_flat_adamw_leaves_inputs_alone():
     new, s2 = opt.update(g, s, p)
     assert torch.equal(p, torch.arange(5.0)) and torch.equal(s.m, torch.ones(5))
     assert s2.step == 4 and not torch.equal(new, p)
+
+
+# ---- consecutive reserved rounds draw disjoint counters under every key ----------
+
+COUNTER_N, COUNTER_V = 6, 997    # pipelined segments of 167 (333 in subgroups) words: odd starts
+COUNTER_MODES = {
+    "sequential": dict(mode="safe"),
+    "pipelined": dict(mode="safe", pipelined=True),
+    "pipelined-subgroups": dict(mode="safe", pipelined=True, subgroups=2),
+    "bon": dict(mode="bon"),
+    "subgroups": dict(mode="safe", subgroups=2),
+    "pods": dict(mode="safe", pod_axis="pod"),
+    "weighted": dict(mode="safe", weighted=True),
+    "weighted-pipelined": dict(mode="safe", weighted=True, pipelined=True),
+    "leafwise": dict(mode="safe"),
+}
+
+
+@pytest.mark.parametrize("case", list(COUNTER_MODES))
+def test_reserved_rounds_draw_disjoint_counters(monkeypatch, case):
+    """Every Threefry block a pad evaluates is recorded (key, counter) by
+    wrapping ``crypto.prf._threefry_lanes``, which every pad of the CPU path
+    evaluates (``keystream_pair_lanes``, and through it the plain kernel
+    versions of ``kernels/ref.py``). Two consecutive rounds whose counters
+    come from ``reserve_round(words)`` — the words the caller's payload
+    has: V, V + 1 weighted, the train step's padded_size + 2 for the
+    leafwise domains — touch disjoint counters under every key, each
+    round inside its own reserved range, clean and with a dead learner."""
+    from repro_torch.crypto import prf
+    seen = {}
+    real = prf._threefry_lanes
+
+    def record(k0, k1, x0, x1):
+        pads = x1 == 0  # key derivations fold a nonzero tag into lane 1
+        if bool(pads.any()):
+            seen.setdefault((k0, k1), set()).update(x0[pads].reshape(-1).tolist())
+        return real(k0, k1, x0, x1)
+
+    monkeypatch.setattr(prf, "_threefry_lanes", record)
+    kw = dict(COUNTER_MODES[case])
+    n, V = COUNTER_N, COUNTER_V
+    agg = make_aggregator(kw.pop("mode"), n, device="cpu", **kw)
+    rng = np.random.RandomState(0)
+    pods = 2 if kw.get("pod_axis") else 1
+    vals = torch.from_numpy(rng.uniform(-1, 1, (pods, n, V)).astype(np.float32))
+    vals = vals if pods > 1 else vals[0]
+    weights = np.arange(1.0, n + 1, dtype=np.float32) if kw.get("weighted") else None
+    sizes = [300, 701]  # leafwise: two leaves, domains 1 and 2
+    words = (sum(sizes) + (-sum(sizes)) % n + 2 if case == "leafwise"
+             else V + (1 if kw.get("weighted") else 0))
+    rounds = []
+    for alive in ([1] * n, [1, 0] + [1] * (n - 2)):
+        for _ in range(2):
+            seen.clear()
+            base = agg.reserve_round(words)
+            rotate = base % (2 * n + 1)
+            if case == "leafwise":
+                off = 0
+                for idx, size in enumerate(sizes):
+                    agg.aggregate(vals[:, off:off + size], base, alive=alive,
+                                  domain=idx + 1, rotate=rotate)
+                    off += size
+            else:
+                agg.aggregate(vals, base, alive=alive, weights=weights, rotate=rotate)
+            hi = base + agg.round_counters(words)
+            for key, ctrs in seen.items():
+                assert base <= min(ctrs) and max(ctrs) < hi, (case, key, base, hi)
+            rounds.append({k: set(v) for k, v in seen.items()})
+    assert all(rounds)
+    for a, b in zip(rounds, rounds[1:]):
+        for key in a.keys() & b.keys():
+            assert not a[key] & b[key], (case, key)
+    if case.startswith("pipelined") or case == "weighted-pipelined":
+        # the segments pad m equal parts: more than ceil(words / 2) counters
+        assert agg.round_counters(words) > -(-words // 2)

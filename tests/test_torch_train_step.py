@@ -32,7 +32,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_aggregator, make_round_keys
 from repro_torch.data import make_federated_batches
 from repro_torch.models import Model
-from repro_torch.train import make_train_step, tree_to_flat
+from repro_torch.train import leaf_paths, make_train_step, tree_to_flat
 from repro_torch.train.flatten import leaves
 
 N, B, S, STEPS, LR = 4, 2, 32, 3, 1e-3
@@ -128,6 +128,63 @@ np.savez("@OUT@", **out)
 print("REF_OK")
 """
 
+# The rest of the zoo through the same step, f32 at the smoke size: the MoE
+# (qwen3-moe) by expert parallelism over the four learners, two steps;
+# zamba2 (Mamba2 + shared attention) and rwkv6, one step each.
+ZOO = {"qwen3-moe-235b-a22b": ({"ep_axis": "data", "ep_ranks": N}, 2),
+       "zamba2-2.7b": ({}, 1), "rwkv6-1.6b": ({}, 1)}
+
+ZOO_CODE = """
+import dataclasses
+import repro  # the package's jax shims first
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro.configs import get_smoke_config
+from repro.core import make_aggregator
+from repro.data import make_federated_batches
+from repro.models import Model
+from repro.train.flatten import is_expert_path, partition_tree, tree_to_flat
+from repro.train.train_step import make_train_step
+
+N, B, S, LR, ZOO = @ARGS@
+mesh = jax.make_mesh((N, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+out = {}
+
+def path_str(path):
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+for arch, (kw, steps) in ZOO.items():
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+    model = Model(cfg)
+    stream = make_federated_batches(cfg, N, B, S, seed=0)
+    params0 = model.init(jax.random.key(0))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params0)[0]:
+        out[f"{arch}/init/{path_str(path)}"] = np.asarray(leaf)
+    sec, ep = partition_tree(params0, lambda p: not is_expert_path(p))
+    out[f"{arch}/ep_paths"] = np.asarray([path_str(p) for p, _ in
+                                          jax.tree_util.tree_flatten_with_path(ep)[0]])
+    b = make_train_step(model, make_aggregator("safe", N, axis="data"), mesh, lr=LR)
+    s = b.init_state_fn(model.init(jax.random.key(0)))
+    W = b.padded_size + 2
+    losses, scales = [], []
+    for i in range(steps):
+        s, m = b.step_fn(s, jnp.asarray(stream.global_batch(i)["tokens"]), counter=i * W)
+        losses.append(float(m["loss"]))
+        scales.append(float(m["grad_scale"]))
+    out[f"{arch}/loss"] = np.asarray(losses, np.float32)
+    out[f"{arch}/grad_scale"] = np.asarray(scales, np.float32)
+    out[f"{arch}/sec_size"] = np.asarray(b.sec_size)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(s["params"])[0]:
+        out[f"{arch}/final/{path_str(path)}"] = np.asarray(leaf)
+    if s["ep_opt"] is not None:
+        out[f"{arch}/ep_step"] = np.asarray(s["ep_opt"].step)
+        out[f"{arch}/ep_m"] = np.asarray(tree_to_flat(s["ep_opt"].m))
+        out[f"{arch}/ep_v"] = np.asarray(tree_to_flat(s["ep_opt"].v))
+np.savez("@OUT@", **out)
+print("REF_OK")
+"""
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     """Two intra-op threads: the suite runs test files in parallel
@@ -145,17 +202,22 @@ NO_EXCESS = ('import os; os.environ["XLA_FLAGS"] += '
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The f32 run (every case, and the SAFE-call data) and the bf16 run
-    without excess precision (SAFE flat; keys "bfloat16-nx/"), side by
-    side."""
+    """The f32 run (every case, and the SAFE-call data), the bf16 run
+    without excess precision (SAFE flat; keys "bfloat16-nx/") and the zoo's
+    steps (keys "<arch>/"), side by side."""
     tmp = tmp_path_factory.mktemp("train_step_ref")
     runs = [("", RUNS, ("float32",), "", BIT_COUNTER_STEP, tmp / "ref.npz"),
-            (NO_EXCESS, {"safe": RUNS["safe"]}, ("bfloat16",), "-nx", 0, tmp / "ref_nx.npz")]
+            (NO_EXCESS, {"safe": RUNS["safe"]}, ("bfloat16",), "-nx", 0, tmp / "ref_nx.npz"),
+            (None, None, None, None, None, tmp / "ref_zoo.npz")]
 
     def run(prelude, cases, dtypes, tag, bits, path):
-        args = repr((N, B, S, STEPS, LR, cases, dtypes, tag, bits))
-        code = (REF_CODE.replace("@PRELUDE@", prelude).replace("@ARGS@", args)
-                .replace("@BIT_ALIVE@", repr(BIT_ALIVE)).replace("@OUT@", str(path)))
+        if prelude is None:  # the zoo: its keys start with the arch id
+            code = (ZOO_CODE.replace("@ARGS@", repr((N, B, S, LR, ZOO)))
+                    .replace("@OUT@", str(path)))
+        else:
+            args = repr((N, B, S, STEPS, LR, cases, dtypes, tag, bits))
+            code = (REF_CODE.replace("@PRELUDE@", prelude).replace("@ARGS@", args)
+                    .replace("@BIT_ALIVE@", repr(BIT_ALIVE)).replace("@OUT@", str(path)))
         assert "REF_OK" in run_multidevice(code, devices=N, timeout=900)
         return dict(np.load(path))
 
@@ -168,10 +230,11 @@ def _cfg(dtype):
     return dataclasses.replace(get_smoke_config("internlm2-1.8b"), dtype=dtype)
 
 
-def _model(reference, run):
-    """The port's model holding the initial weights of reference ``run``
-    (a dtype, or "bfloat16-nx")."""
-    cfg = _cfg(run.split("-")[0])
+def _model(reference, run, cfg=None):
+    """The port's model holding the initial weights the reference saved
+    under "<run>/init/" (run: a dtype, "bfloat16-nx", or a zoo arch with
+    its ``cfg``)."""
+    cfg = cfg or _cfg(run.split("-")[0])
     prefix = f"{run}/init/"
     tree = {}
     for key, a in reference.items():
@@ -396,3 +459,155 @@ def test_pod_axis_step(reference):
         make_train_step(_model(reference, "float32"),
                         make_aggregator("safe", N, device="cpu", pod_axis="pod")
                         ).step_fn(flat, toks[:3], counter=5)
+
+
+# ---- the rest of the zoo: expert parallelism, Mamba2 + shared attention, RWKV6 --------
+
+def _zoo_model(reference, arch):
+    """The port's smoke model of ``arch`` (f32, with ZOO's options) holding
+    the reference's initial weights."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **ZOO[arch][0])
+    return _model(reference, arch, cfg)
+
+
+def _zoo_port(reference, arch):
+    """(losses, grad_scales, {path: initial leaf}, {path: final leaf}, state,
+    bundle) of the port's steps from the reference's weights, on the
+    reference's token stream, counters from ``reserve_round``."""
+    model = _zoo_model(reference, arch)
+    agg = make_aggregator("safe", N, device="cpu")
+    bundle = make_train_step(model, agg, lr=LR)
+    state = bundle.init_state_fn(model.tree())
+    init = {p: t.detach().clone() for p, t in zip(leaf_paths(model.tree()), leaves(model.tree()))}
+    stream = make_federated_batches(model.cfg, N, B, S, seed=0)
+    losses, scales = [], []
+    for i in range(ZOO[arch][1]):
+        state, m = bundle.step_fn(state, stream.global_batch(i)["tokens"],
+                                  counter=agg.reserve_round(bundle.padded_size + 2))
+        losses.append(float(m["loss"]))
+        scales.append(float(m["grad_scale"]))
+    final = dict(zip(leaf_paths(state["params"]), leaves(state["params"])))
+    return np.asarray(losses), np.asarray(scales), init, final, state, bundle
+
+
+def _change(final, init, reference, arch, paths):
+    """Relative L2 of the port's parameter change against the reference's,
+    over ``paths`` as one vector."""
+    got = np.concatenate([(final[p] - init[p]).numpy().ravel() for p in paths])
+    want = np.concatenate([(reference[f"{arch}/final/{p}"] - init[p].numpy()).ravel()
+                           for p in paths])
+    return _rel_l2(got, want)
+
+
+# f32 bounds of the zoo's steps against the reference. Measured: losses
+# 7.5e-8 relative at worst, grad_scale 3.4e-7, the SAFE partition's change
+# 1.3e-3 (qwen3-moe, zamba2) and 2.0e-3 (rwkv6) relative L2, the experts'
+# change 8.2e-5 and their second moment 3.4e-5. A first AdamW step moves
+# each word by about ±lr whatever its gradient's size, so a gradient near
+# zero that differs by an ulp moves its word the other way: one step reads
+# more than internlm2's three (1.3e-4). The bounds sit 2.5x to 6x above.
+ZOO_LOSS_RTOL, ZOO_SCALE_RTOL, ZOO_REL_SEC, ZOO_REL_EP = 1e-6, 1e-5, 5e-3, 5e-4
+
+
+@pytest.mark.parametrize("arch", list(ZOO))
+def test_zoo_steps_match_reference_f32(reference, arch):
+    """qwen3-moe by expert parallelism (two steps), zamba2 and rwkv6 (one
+    step each) against the reference's step on a (4, 1) Auto mesh from the
+    same weights and tokens: the losses, grad_scale and the change of the
+    SAFE partition's parameters, and for the MoE the change of the expert
+    matrices. Every leaf is present and updated; the MoE keeps all 15."""
+    losses, scales, init, final, state, bundle = _zoo_port(reference, arch)
+    np.testing.assert_allclose(losses, reference[f"{arch}/loss"], rtol=ZOO_LOSS_RTOL)
+    np.testing.assert_allclose(scales, reference[f"{arch}/grad_scale"], rtol=ZOO_SCALE_RTOL)
+    ref_paths = sorted(k[len(f"{arch}/final/"):] for k in reference
+                       if k.startswith(f"{arch}/final/"))
+    assert sorted(final) == ref_paths == sorted(init)
+    ep_paths = list(reference[f"{arch}/ep_paths"])
+    sec_paths = [p for p in final if p not in ep_paths]
+    assert bundle.sec_size == int(reference[f"{arch}/sec_size"])
+    assert _change(final, init, reference, arch, sec_paths) <= ZOO_REL_SEC
+    for p in final:  # every leaf moves (the placeholder, zero, only by decay of 0)
+        if not p.endswith("_shared") and not (arch.startswith("zamba2") and "ln2" in p):
+            assert not torch.equal(final[p], init[p]), p
+    if ep_paths:
+        assert len(final) == 15 and sorted(ep_paths) == sorted(
+            p for p in final if p.rsplit("/", 1)[-1] in ("wi", "wg", "wo") and "moe/" in p)
+        assert _change(final, init, reference, arch, ep_paths) <= ZOO_REL_EP
+        ep = state["ep_opt"]
+        assert int(ep.step) == int(reference[f"{arch}/ep_step"]) == ZOO[arch][1]
+        assert _rel_l2(tree_to_flat(ep.v).numpy(), reference[f"{arch}/ep_v"]) <= ZOO_REL_EP
+    else:
+        assert state["ep_opt"] is None
+
+
+def test_moe_without_ep_axis_refused():
+    """A MoE with no ep_axis: the reference's step would drop its expert
+    leaves (and fail at the next step); the port refuses it."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"), dtype="float32")
+    with pytest.raises(ValueError, match="ep_axis"):
+        make_train_step(Model(cfg, device="cpu"), make_aggregator("safe", N, device="cpu"))
+
+
+def test_ep_step_sums_expert_gradients():
+    """The expert update is a tree AdamW (no clip) of the SUM over the
+    learners of their expert gradients, dead learners included (alive
+    touches SAFE alone): a learner marked dead changes the SAFE partition's
+    update but not the experts'."""
+    from repro_torch.optim import AdamW
+    from repro_torch.train.flatten import is_expert_path
+    from repro_torch.train.loss import next_token_loss
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"), dtype="float32",
+                              ep_axis="data", ep_ranks=N)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab, (N, B, 16)).astype(np.int32)
+    model = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    paths = leaf_paths(model.tree())
+    ep_idx = [i for i, p in enumerate(paths) if is_expert_path(p)]
+    plist = leaves(model.tree())
+    total = [torch.zeros_like(plist[i]) for i in ep_idx]
+    for l in range(N):
+        t = torch.from_numpy(toks[l])
+        logits, aux = model.apply(model.tree(), t)
+        g = torch.autograd.grad(next_token_loss(logits, t) + aux, [plist[i] for i in ep_idx])
+        for acc, gi in zip(total, g):
+            acc += gi
+    opt = AdamW(lr=LR, weight_decay=0.1, grad_clip=None)
+    ep_params = [plist[i].detach() for i in ep_idx]
+    want, _ = opt.update(total, opt.init(ep_params), ep_params)
+    out = {}
+    for alive in ([1, 1, 1, 1], [1, 0, 1, 1]):
+        bundle = make_train_step(model, make_aggregator("safe", N, device="cpu"), lr=LR,
+                                 donate=False)
+        state, _ = bundle.step_fn(bundle.init_state_fn(model.tree()), toks, counter=7,
+                                  alive=alive)
+        out[tuple(alive)] = [leaves(state["params"])[i] for i in ep_idx], state["master"]
+    for got in (out[1, 1, 1, 1][0], out[1, 0, 1, 1][0]):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
+    assert not torch.equal(out[1, 1, 1, 1][1], out[1, 0, 1, 1][1])
+
+
+def test_partition_round_trip():
+    """partition_tree / combine_trees split and rebuild the tree leaf for
+    leaf, with the reference's expert paths: the per-expert matrices, not
+    the router or the shared experts."""
+    import jax
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.models import Model as RefModel
+    from repro.train.flatten import is_expert_path as ref_is_expert
+    from repro.train.flatten import partition_tree as ref_partition
+    from repro_torch.train.flatten import combine_trees, is_expert_path, partition_tree
+    for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"):
+        tree = Model(get_smoke_config(arch), device="cpu").tree()
+        ep, rest = partition_tree(tree, is_expert_path)
+        ref = RefModel(ref_smoke(arch)).init(jax.random.key(0))
+        ref_ep, ref_rest = ref_partition(ref, ref_is_expert)
+        for mine, theirs in ((ep, ref_ep), (rest, ref_rest)):
+            got = leaf_paths(mine)
+            want = ["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+                    for path, _ in jax.tree_util.tree_flatten_with_path(theirs)[0]]
+            assert got == want
+        assert all(p.rsplit("/", 1)[-1] in ("wi", "wg", "wo") for p in leaf_paths(ep))
+        assert any("router" in p for p in leaf_paths(rest))
+        back = combine_trees(ep, rest)
+        assert leaf_paths(back) == leaf_paths(tree)
+        assert all(a is b for a, b in zip(leaves(back), leaves(tree)))
