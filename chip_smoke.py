@@ -46,7 +46,14 @@ no CPU fallback):
    ``python -m repro_torch.launch.train --smoke`` as subprocesses on the
    card (two uninterrupted runs, one resumed from its checkpoint,
    ``--federated``); then ``net.run_engine_load`` against the port's broker
-   in front of an engine on the card (n = 36, V = 2^20, 4 tenants);
+   in front of an engine on the card (n = 36, V = 2^20, 4 tenants); then
+   serving: internlm2-1.8b at full width and all 24 layers (bf16, random
+   weights from seed 0) through ``ServeEngine``, traffic A (the reference
+   launcher's defaults: 8 requests of 4-31 tokens, 4 slots of 256, 32 new
+   tokens each, greedy) and traffic B (16 requests of 1024-3072 tokens, 8
+   slots of 4096, 64 new tokens, two waves), and ``python -m
+   repro_torch.launch.serve --arch internlm2-1.8b`` as a subprocess on the
+   card; no SAFE kernel runs there, and its launch line says so;
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -84,7 +91,12 @@ no CPU fallback):
    finite (falling for the
    train step), its resumed run against an uninterrupted one beside two
    uninterrupted runs; every ``run_engine_load`` session bit-identical to
-   a single round;
+   a single round; serving: every request returns max_new tokens and every
+   logit is finite; prefill then 16 teacher-forced decode steps of two of
+   traffic B's prompts within 2e-2 of max |logit| of ``Model.apply``'s full
+   forward, and each of the ten smoke configurations' prefill then decode
+   within 2e-2 of its own full forward (bf16) and within 1e-3 of the port's
+   CPU path (f32);
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -104,7 +116,11 @@ no CPU fallback):
    with the expert AdamW beside its bound and mask_add and chain_combine
    timed at the path's V; each wire FedAvg round's wall split into the
    learners' local steps and the wire round; ``run_engine_load``'s
-   ``LoadReport``.
+   ``LoadReport``; for each serving traffic the time to first token
+   (prefill ms a request: median and max), the decode step's ms against its
+   bytes bound (the weights and the whole KV cache read once), decode and
+   end-to-end tokens per second, requests per second, peak memory, and the
+   device's idle share over a few decode steps under torch.profiler.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -210,6 +226,21 @@ WIRE_FED_ARCH, WIRE_FED_K = "internlm2-1.8b", 2
 # The launcher at the smoke size (subprocesses), and run_engine_load.
 LAUNCH_STEPS, LAUNCH_TIMEOUT_S = 4, 300
 LOAD_TENANTS, LOAD_ROUNDS = 4, 2
+
+# The serving path: internlm2-1.8b at its published widths and all 24 layers
+# (weights and caches fit: 3.40 GB of bf16 weights, a 3.22 GB KV cache at 8
+# slots x 4096), random weights from seed 0. Traffic A is the reference
+# launcher's defaults (src/repro/launch/serve.py:14-19, 37-41); traffic B is
+# long context, two waves through the slots. A traffic: (requests, slots,
+# max_seq, max_new, prompt seed, prompt lengths [lo, hi)).
+SERVE_ARCH = "internlm2-1.8b"
+SERVE_TRAFFIC = {"A": (8, 4, 256, 32, 0, 4, 32),
+                 "B": (16, 8, 4096, 64, 1, 1024, 3073)}
+SERVE_GATE_REQUESTS, SERVE_GATE_STEPS = 2, 16   # traffic B's, against the full forward
+SERVE_TOL = 2e-2            # of max |logit|: the reference's own decode bound (bf16)
+SERVE_CARD_TOL = 1e-3       # card vs CPU in f32, of max |logit| (tests/test_torch_cuda.py)
+SERVE_PROFILE_STEPS = 4
+SERVE_LAUNCH_TIMEOUT_S = 300
 
 # The wire paths. The engine's tenants upload over 127.0.0.1 in chunks of
 # the codec's default width (a session is 144 MiB, over one 64 MiB frame).
@@ -1477,6 +1508,243 @@ def engine_load_path(dev, launches, smi):
     torch.cuda.empty_cache()
 
 
+# ---- the serving path: phases 4, 5 and 6 -----------------------------------------
+
+def serve_requests(cfg, name):
+    from repro_torch.serve import Request
+    n, _, _, max_new, seed, lo, hi = SERVE_TRAFFIC[name]
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        plen = int(rng.randint(lo, hi))
+        out.append(Request(rid=i, prompt=rng.randint(0, cfg.vocab, plen).astype(np.int32),
+                           max_new=max_new))
+    return out
+
+
+def serve_traffic(model, params, name):
+    """One traffic through ``ServeEngine`` on the card, each prefill and
+    decode step timed (a synchronise after each: the engine's argmax waits
+    for the card there anyway). Returns the engine, its requests and the
+    readings."""
+    from repro_torch.serve import ServeEngine
+    _, slots, max_seq, _, _, _, _ = SERVE_TRAFFIC[name]
+    reqs = serve_requests(model.cfg, name)
+    eng = ServeEngine(model, params, batch_slots=slots, max_seq=max_seq)
+    prefill_ms, decode_ms, finite = [], [], []
+    prefill, decode = model.prefill, model.decode_step
+
+    def timed(fn, into):
+        def call(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            logits, cache = fn(*a, **kw)
+            sync()
+            into.append((time.perf_counter() - t) * 1e3)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return call
+
+    model.prefill, model.decode_step = timed(prefill, prefill_ms), timed(decode, decode_ms)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    return eng, reqs, dict(wall=wall, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                           finite=bool(torch.stack(finite).all()),
+                           peak=torch.cuda.max_memory_allocated())
+
+
+def serve_gate_full_width(model, params, reqs):
+    """Prefill then teacher-forced decode against ``Model.apply``'s full
+    forward, on the first SERVE_GATE_REQUESTS prompts of traffic B with
+    SERVE_GATE_STEPS further tokens: the worst |error| / max |logit|."""
+    rng = np.random.RandomState(SEED + 7)
+    dev = model.embed.device
+    worst = 0.0
+    with torch.inference_mode():
+        for r in reqs[:SERVE_GATE_REQUESTS]:
+            Sp = len(r.prompt)
+            extra = rng.randint(0, model.cfg.vocab, SERVE_GATE_STEPS)
+            toks = torch.as_tensor(np.concatenate([r.prompt, extra])[None], device=dev)
+            full = model.apply(params, toks)[0][0]  # [S, vocab] f32
+            cache = model.init_cache(1, Sp + SERVE_GATE_STEPS, prefilled=False)
+            logits, cache = model.prefill(params, toks[:, :Sp], cache=cache)
+            errs = [(logits[0] - full[Sp - 1]).abs().max()]
+            for t in range(SERVE_GATE_STEPS):
+                logits, cache = model.decode_step(params, toks[:, Sp + t], cache)
+                errs.append((logits[0] - full[Sp + t]).abs().max())
+            worst = max(worst, float(torch.stack(errs).max() / full.abs().max()))
+            del full, cache
+    return worst
+
+
+def serve_gate_smoke(dev):
+    """Each smoke configuration, prefill of 8 tokens then decode to 16 on the
+    card: bf16 against its own full forward (the reference's bound), and f32
+    against the port's CPU path. Returns {arch: (bf16 rel, f32 card vs CPU
+    rel)}."""
+    import dataclasses
+
+    from repro_torch.configs import ALIASES, get_smoke_config
+    from repro_torch.models import Model
+
+    def run(m, toks, prefix):
+        P = m.cfg.prefix_embeds
+        full = m(toks, prefix)[0]
+        logits, cache = m.prefill(m.tree(), toks[:, :8], prefix,
+                                  cache=m.init_cache(2, P + 16, prefilled=False))
+        rows = [logits]
+        for t in range(8, 16):
+            logits, cache = m.decode_step(m.tree(), toks[:, t], cache)
+            rows.append(logits)
+        return full[:, P + 7:P + 16], torch.stack(rows, 1)
+
+    out = {}
+    with torch.inference_mode():
+        for arch in sorted(ALIASES):
+            cfg = get_smoke_config(arch)
+            shape = (2, 16, cfg.num_codebooks) if cfg.num_codebooks > 1 else (2, 16)
+            rng = np.random.RandomState(SEED)
+            toks = torch.as_tensor(rng.randint(0, cfg.vocab, shape))
+            prefix = (torch.as_tensor(rng.randn(2, cfg.prefix_embeds, cfg.d_model)
+                                      .astype(np.float32)) if cfg.prefix_embeds else None)
+            move = lambda t, d: None if t is None else t.to(d)  # noqa: E731
+            full, dec = run(Model(cfg, device=dev), toks.to(dev), move(prefix, dev))
+            bf16 = float((dec - full).abs().max() / full.abs().max())
+            f32 = dataclasses.replace(cfg, dtype="float32")
+            cpu = Model(f32, device="cpu", generator=torch.Generator().manual_seed(SEED))
+            card = Model(f32, device=dev)
+            card.load_state_dict(cpu.state_dict())
+            _, want = run(cpu, toks, prefix)
+            _, got = run(card, toks.to(dev), move(prefix, dev))
+            out[arch] = (bf16, float((got.cpu() - want).abs().max() / want.abs().max()))
+    return out
+
+
+def serve_paths(dev, launches, smi):
+    """Phases 4-6 of serving: SERVE_ARCH at full width and depth through
+    ``ServeEngine`` with traffics A and B, and the serving launcher as a
+    subprocess; the consistency gates; the timings."""
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine, make_serve_step
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)  # random weights from seed 0
+    params = model.tree()
+    weight_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    n_params = sum(t.numel() for t in model.parameters())
+    torch.cuda.empty_cache()
+    say(f"phase 4 serve setup: {SERVE_ARCH} at full width, {cfg.n_layers} layers, "
+        f"{n_params} parameters ({weight_bytes / 1e9:.2f} GB {cfg.dtype}), "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # a warm-up request (the card's first products load their libraries)
+    warm = ServeEngine(model, params, batch_slots=1, max_seq=64)
+    warm.submit(serve_requests(cfg, "A")[0])
+    warm.run_until_done()
+    del warm
+
+    sync()
+    build.reset_launches()
+    runs = {}
+    for name in SERVE_TRAFFIC:
+        eng, reqs, rd = serve_traffic(model, params, name)
+        runs[name] = (eng, reqs, rd)
+        n, slots, max_seq, max_new, _, lo, hi = SERVE_TRAFFIC[name]
+        say(f"phase 4 main path serve {name}: {n} requests (prompts {lo}-{hi - 1} tokens) "
+            f"through {slots} slots of {max_seq}, max_new {max_new}, greedy: {rd['wall']:.2f} s, "
+            f"{eng.steps} decode steps, {len(rd['prefill_ms'])} prefills")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                           SERVE_ARCH], env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=SERVE_LAUNCH_TIMEOUT_S)
+    sync()
+    counts = dict(build.launches)
+    if proc.returncode != 0:
+        fail(f"serve launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    if not re.fullmatch(r"served 8 requests / 256 tokens in [0-9.]+s \([0-9.]+ tok/s, \d+ "
+                        r"decode steps, batch efficiency [0-9.]+\)", line):
+        fail(f"serve launcher printed {line!r}")
+    say(f"phase 4 main path serve launcher (python -m repro_torch.launch.serve --arch "
+        f"{SERVE_ARCH}, the smoke config, on the card): {line}")
+    say(f"phase 4 main path serve: launches {counts} (no SAFE kernel is on the serving path; "
+        f"the reference's prefill and decode are jnp, no Pallas call)")
+    if any(counts.values()):
+        fail(f"the serving path launched SAFE kernels: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    # phase 5: the answers
+    for name, (eng, reqs, rd) in runs.items():
+        short = [r.rid for r in reqs if len(r.generated) != r.max_new or not r.done]
+        if short or not rd["finite"] or eng.queue or any(eng.slot_req):
+            fail(f"serve {name}: requests {short} short of max_new, finite {rd['finite']}")
+    say(f"phase 5 serve sanity: every request of traffics {list(runs)} returned max_new "
+        f"tokens; every prefill and decode logit finite")
+    worst = serve_gate_full_width(model, params, runs["B"][1])
+    say(f"phase 5 serve full width: prefill then {SERVE_GATE_STEPS} teacher-forced decode "
+        f"steps of traffic B's first {SERVE_GATE_REQUESTS} prompts against Model.apply's full "
+        f"forward: max |error| {worst:.3e} of max |logit| (bound {SERVE_TOL})")
+    if not worst <= SERVE_TOL:
+        fail(f"serve full width: {worst} > {SERVE_TOL}")
+    smoke = serve_gate_smoke(dev)
+    say(f"phase 5 serve smoke configs: prefill then decode, bf16 against the full forward "
+        f"(bound {SERVE_TOL}) and f32 card against CPU (bound {SERVE_CARD_TOL}), of max "
+        f"|logit|: " + ", ".join(f"{a} {b:.2e} / {c:.2e}" for a, (b, c) in smoke.items()))
+    bad = {a: v for a, v in smoke.items() if not (v[0] <= SERVE_TOL and v[1] <= SERVE_CARD_TOL)}
+    if bad:
+        fail(f"serve smoke configs out of bounds: {bad}")
+
+    # phase 6: the timings
+    step = make_serve_step(model)
+    for name, (eng, reqs, rd) in runs.items():
+        n, slots, max_seq, max_new, _, _, _ = SERVE_TRAFFIC[name]
+        pre, dec = np.array(rd["prefill_ms"]), np.array(rd["decode_ms"])
+        cache_bytes = sum(v.numel() * v.element_size() for c in eng.cache
+                          for k, v in c.items() if k in ("k", "v"))
+        out_bytes = slots * cfg.vocab * 4
+        bound = (weight_bytes + cache_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        decode_tokens = n * (max_new - 1)  # the first token of each comes from its prefill
+        say(f"phase 6 serve {name} ({smi}): time to first token (prefill ms a request once "
+            f"admitted) median {np.median(pre):.2f}, max {pre.max():.2f}; decode step "
+            f"{dec.mean():.2f} ms mean, {np.median(dec):.2f} median over {len(dec)} steps, "
+            f"against its bytes bound {bound:.3f} ms (weights {weight_bytes / 1e9:.3f} GB + KV "
+            f"cache {cache_bytes / 1e9:.3f} GB read at 3.35 TB/s: {bound / dec.mean():.1%}); "
+            f"decode {decode_tokens / dec.sum() * 1e3:.1f} tokens/s; "
+            f"{n * max_new / rd['wall']:.1f} tokens/s and {n / rd['wall']:.3f} requests/s "
+            f"end to end; peak memory {rd['peak'] / 1e9:.2f} GB")
+        holder = {"cache": eng.cache}
+        toks = torch.zeros(slots, dtype=torch.int32, device=dev)
+
+        def decode_steps():
+            for _ in range(SERVE_PROFILE_STEPS):
+                logits, holder["cache"] = step(params, toks, holder["cache"])
+            logits.argmax(-1).cpu()
+
+        busy = say_profile(f"serve {name} decode x{SERVE_PROFILE_STEPS}", decode_steps)
+        if busy > 0:
+            per = busy / SERVE_PROFILE_STEPS
+            say(f"phase 6 serve {name} idle share ({smi}): device busy {per:.2f} ms a decode "
+                f"step of the unprofiled {dec.mean():.2f} ms: idle {1 - per / dec.mean():.0%}")
+        del holder
+    del runs, model, params, step
+    torch.cuda.empty_cache()
+
+
 def say_profile(label, fn):
     """Print one profiled call of ``fn``; returns its device busy ms."""
     wall, busy, top = profile_ms(fn)
@@ -1813,6 +2081,8 @@ def main():
     timed("wire fedavg", wire_fedavg_path, dev, smi)
     timed("launcher", launcher_paths, smi)
     timed("engine load", engine_load_path, dev, launches, smi)
+    torch.cuda.empty_cache()
+    timed("serve", serve_paths, dev, launches, smi)
     say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
         f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")

@@ -2,8 +2,8 @@
 
 These functions take the JAX package's objects as plain data — a
 ``ChainConfig``'s fields as a dict (``dataclasses.asdict``), its uint32 key
-arrays, an ``AggSession``'s fields and a model's parameter tree, all numpy
-— and build the port's objects from them.
+arrays, an ``AggSession``'s fields, a model's parameter tree and its
+decode cache, all numpy — and build the port's objects from them.
 """
 from __future__ import annotations
 
@@ -40,13 +40,58 @@ def model_params(cfg, tree) -> Dict[str, torch.Tensor]:
         if bf16 and a.ndim >= 2:
             if a.dtype.itemsize != 2 or a.dtype.name not in ("bfloat16", "uint16"):
                 raise ValueError(f"{path}: expected bf16 or its uint16 bits, got {a.dtype}")
-            t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+            t = _bf16(a)
         else:
             if a.dtype != np.float32:
                 raise ValueError(f"{path}: expected float32, got {a.dtype}")
             t = torch.from_numpy(np.array(a))
         state[path.replace("/", ".")] = t
     return state
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    """A bf16 tensor from an ``ml_dtypes.bfloat16`` array or its uint16
+    bits, bit for bit."""
+    return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+
+
+_CACHE_KEYS = {"mamba2": {"state", "pos"}, "rwkv6": {"state", "prev", "pos"}}
+
+
+def decode_cache(cfg, ref_cache) -> list:
+    """The port's stacked decode cache (``Model.init_cache``'s layout) from
+    the reference's, as ``jax.tree.map(np.asarray, cache)`` gives it: one
+    dict a pattern position, leaves [n_units, ...].
+
+    Each leaf keeps its dtype — the reference's caches mix them (bf16
+    attention k and v that turn to the activations' dtype at the first
+    decode step, RWKV6's bf16 ``prev``, f32 states, int32 ``pos``); bf16
+    arrives as ``ml_dtypes.bfloat16`` arrays or their uint16 bits and is
+    carried bit for bit. The leaves stay on the CPU, as ``model_params``'s
+    do; a caller moves them to its device."""
+    if len(ref_cache) != len(cfg.pattern):
+        raise ValueError(f"expected {len(cfg.pattern)} pattern positions, got {len(ref_cache)}")
+    out = []
+    for pos, (kind, c) in enumerate(zip(cfg.pattern, ref_cache)):
+        want = _CACHE_KEYS.get(kind, {"k", "v", "pos"})
+        if set(c) != want:
+            raise ValueError(f"position {pos} ({kind}): expected keys {sorted(want)}, "
+                             f"got {sorted(c)}")
+        leaves = {}
+        for k, leaf in c.items():
+            a = np.asarray(leaf)
+            if a.shape[:1] != (cfg.n_units,):
+                raise ValueError(f"position {pos} {k}: expected {cfg.n_units} units, "
+                                 f"got shape {a.shape}")
+            if a.dtype.itemsize == 2 and a.dtype.name in ("bfloat16", "uint16"):
+                t = _bf16(a)
+            elif a.dtype in (np.float32, np.int32):
+                t = torch.from_numpy(np.array(a))
+            else:
+                raise ValueError(f"position {pos} {k}: unexpected dtype {a.dtype}")
+            leaves[k] = t
+        out.append(leaves)
+    return out
 
 
 def chain_config(fields: dict) -> ChainConfig:

@@ -1,7 +1,7 @@
 """Shared decoder substrate: norms, RoPE, GQA attention, gated MLP.
 
-The counterpart of the JAX package's ``models/layers.py`` for the train
-and prefill path (no decode cache). Functions on tensors:
+The counterpart of the JAX package's ``models/layers.py``: the train,
+prefill and decode paths. Functions on tensors:
 ``*_init(generator, ...) -> params`` (dicts of tensors) and
 ``*_apply(params, x, ...)``. The dtypes follow the reference's step by
 step, since a plain port differs silently in three places:
@@ -18,9 +18,21 @@ step, since a plain port differs silently in three places:
 Products are ``torch.matmul``/``einsum``, as the reference leaves them to
 XLA; no library attention kernel is used. Constants enter as Python
 scalars, never as tensors made on the card: a host-to-card copy of a
-pageable value makes the host wait for the card's queue to drain. The
-blockwise attention for S > ``FLASH_THRESHOLD`` (ROADMAP Queue 1 item 2)
-and the decode caches (serving, item 1) are not ported yet.
+pageable value makes the host wait for the card's queue to drain. Above
+``FLASH_THRESHOLD`` tokens without a cache, attention is the reference's
+blockwise online softmax (``_flash_attention``), loops over q and k
+blocks in its order.
+
+The decode cache follows the reference's dtypes, which a plain port
+would not: ``attention_init_cache`` makes bf16 k and v whatever the
+model's dtype, a prefill writes its k and v cast to the cache's dtype,
+and a decode step reads the cache in the activations' dtype, writes the
+new token's k and v at full precision and returns the cache in that
+dtype (an f32 model's cache turns f32 at its first decode step). Where
+the dtypes agree (the bf16 model) k and v are written into the given
+cache in place: the reference's ``.at[].set`` is functional, but a copy
+of every layer's cache a step would double the step's bytes and change
+no value.
 """
 from __future__ import annotations
 
@@ -29,7 +41,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-FLASH_THRESHOLD = 4096  # the reference switches to blockwise attention above this
+FLASH_THRESHOLD = 4096  # dense attention above this many tokens would not fit
+FLASH_QBLOCK = 2048
+FLASH_KBLOCK = 1024
 
 
 def _dense_init(generator: torch.Generator, shape, device, scale=None) -> torch.Tensor:
@@ -114,18 +128,69 @@ def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, kind: str, window: int,
     return causal
 
 
-def _dense_attention(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind):
-    """Unblocked attention. qg: [B, Sq, nkv, g, hd]; k/v: [B, Sk, nkv, hd]
-    (no cache, so every key is valid)."""
+def _base_kind(kind: str) -> str:
+    return "local" if kind.startswith("local") else (
+        "chunked" if kind.startswith("chunked") else "global")
+
+
+def _dense_attention(qg, k_all, v_all, q_pos, k_pos, valid, cfg, base_kind):
+    """Unblocked attention (decode and short prefill).
+
+    qg: [B, Sq, nkv, g, hd]; k/v: [B, Sk, nkv, hd]; valid: bool[B, Sk],
+    the keys that hold a token, or None where every key does."""
     hd = qg.shape[-1]
     scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k_all.float())
     scores = scores / float(np.float32(np.sqrt(hd)))
     if cfg.attn_softcap is not None:
         scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
     mask = _attn_mask(q_pos, k_pos, base_kind, cfg.window, cfg.chunk)
+    if valid is not None:
+        mask = mask & valid[..., None, :]
     scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(qg.dtype)
     return torch.einsum("bngst,btnh->bsngh", probs, v_all)
+
+
+def _block(S: int, target: int) -> int:
+    """The largest divisor of S not above ``target`` (a frontend's prefix
+    makes S a non-power of two, 4096 + 256 for instance)."""
+    for b in range(min(target, S), 0, -1):
+        if S % b == 0:
+            return b
+    return S
+
+
+def _flash_attention(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind):
+    """Blockwise (FlashAttention-style) online-softmax attention, the
+    reference's jnp scan as loops: q blocks outside, k blocks inside, the
+    running max, sum and accumulator in f32, so the scores are
+    [*, qb, kb] at a time. Every key is valid (no cache)."""
+    B, Sq, nkv, g, hd = qg.shape
+    Sk = k_all.shape[1]
+    qb, kb = _block(Sq, FLASH_QBLOCK), _block(Sk, FLASH_KBLOCK)
+    scale = float(np.float32(1.0 / np.sqrt(hd)))  # the reference's weak-typed f32
+    outs = []
+    for i in range(0, Sq, qb):
+        qi, qpi = qg[:, i:i + qb].float(), q_pos[:, i:i + qb]
+        m = torch.full((B, nkv, g, qb), -1e30, dtype=torch.float32, device=qg.device)
+        l = torch.zeros((B, nkv, g, qb), dtype=torch.float32, device=qg.device)
+        acc = torch.zeros((B, nkv, g, qb, hd), dtype=torch.float32, device=qg.device)
+        for j in range(0, Sk, kb):
+            s = torch.einsum("bsngh,btnh->bngst", qi, k_all[:, j:j + kb].float()) * scale
+            if cfg.attn_softcap is not None:
+                s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+            mask = _attn_mask(qpi, k_pos[:, j:j + kb], base_kind, cfg.window, cfg.chunk)
+            s = s.masked_fill(~mask[:, None, None, :, :], -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bngst,btnh->bngsh", p, v_all[:, j:j + kb].float())
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(qg.dtype))  # [B, qb, nkv, g, hd]
+    return torch.cat(outs, dim=1)
 
 
 def attention_apply(
@@ -136,23 +201,17 @@ def attention_apply(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
 ) -> tuple:
-    """GQA attention on the train/prefill path. x: [B, S, D].
+    """GQA attention. x: [B, S, D].
 
-    Returns (y, None): no decode cache is kept. A cache, or S above
-    ``FLASH_THRESHOLD`` (the reference's blockwise path), raises."""
-    if cache is not None:
-        raise NotImplementedError(
-            "attention decode caches are not ported yet (serving: ROADMAP Queue 1 item 1)")
+    Train and prefill: S tokens, attended among themselves; a given cache
+    (assumed empty) is filled with the last S_c of them. Decode: S == 1
+    against ``cache`` = {"k", "v": [B, S_c, nkv, hd], "pos": int32[B]}.
+    Returns (y, new_cache), new_cache None without a cache."""
     B, S, D = x.shape
-    if S > FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"S = {S} > {FLASH_THRESHOLD} needs the blockwise attention, not ported "
-            "yet (ROADMAP Queue 1 item 2)")
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     groups = nh // nkv
-    base_kind = "local" if kind.startswith("local") else (
-        "chunked" if kind.startswith("chunked") else "global")
+    base_kind = _base_kind(kind)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
 
@@ -165,10 +224,74 @@ def attention_apply(
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
+    new_cache = None
+    if cache is None or S > 1:
+        k_all, v_all, k_pos, q_pos = k, v, positions, positions
+        valid = None
+        if cache is not None:
+            S_c = cache["k"].shape[1]
+            S_w = min(S, S_c)
+            if base_kind in ("local", "chunked"):
+                slots = torch.arange(S - S_w, S, device=x.device) % S_c
+                cache["k"][:, slots] = k[:, S - S_w:].to(cache["k"].dtype)
+                cache["v"][:, slots] = v[:, S - S_w:].to(cache["v"].dtype)
+            else:
+                # slot = token index; a prompt longer than the cache writes
+                # only the slots that exist, as JAX drops a scatter's
+                # out-of-bounds updates
+                lo, hi = S - S_w, min(S, S_c)
+                cache["k"][:, lo:hi] = k[:, lo:hi].to(cache["k"].dtype)
+                cache["v"][:, lo:hi] = v[:, lo:hi].to(cache["v"].dtype)
+            new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + S}
+    else:
+        S_c = cache["k"].shape[1]
+        pos = cache["pos"]  # int32[B]: the tokens already in the cache
+        bidx = torch.arange(B, device=x.device)
+        ar = torch.arange(S_c, dtype=torch.int32, device=x.device)[None, :]
+        if base_kind in ("local", "chunked"):
+            # a ring buffer: windowed and chunked layers keep S_c slots only
+            slot = (pos % S_c).long()
+            abs_pos = pos[:, None] - torch.remainder(pos[:, None] - ar, S_c)
+        else:
+            slot = torch.clamp_max(pos, S_c - 1).long()
+            abs_pos = ar.expand(B, S_c)
+        # in place where the cache already has the activations' dtype
+        k_all = cache["k"] if cache["k"].dtype == x.dtype else cache["k"].to(x.dtype)
+        v_all = cache["v"] if cache["v"].dtype == x.dtype else cache["v"].to(x.dtype)
+        k_all[bidx, slot] = k[:, 0]
+        v_all[bidx, slot] = v[:, 0]
+        new_cache = {"k": k_all, "v": v_all, "pos": pos + 1}
+        k_pos, q_pos = abs_pos, positions
+        # a slot holds a token if 0 <= abs_pos <= pos (ring slots never
+        # written carry negative absolute positions)
+        valid = (abs_pos <= pos[:, None]) & (abs_pos >= 0)
+
     qg = q.reshape(B, S, nkv, groups, hd)
-    out = _dense_attention(qg, k, v, positions, positions, cfg, base_kind)
+    if cache is None and S > FLASH_THRESHOLD:
+        out = _flash_attention(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind)
+    else:
+        out = _dense_attention(qg, k_all, v_all, q_pos, k_pos, valid, cfg, base_kind)
     y = out.reshape(B, S, nh * hd) @ params["wo"].to(x.dtype)
-    return y, None
+    return y, new_cache
+
+
+def attention_init_cache(cfg, kind: str, batch: int, seq_len: int,
+                         dtype=torch.bfloat16, prefilled: bool = True,
+                         device="cuda") -> dict:
+    """Decode cache of one attention layer: bf16 k and v by default, as the
+    reference's; windowed and chunked layers keep only ``window`` or
+    ``chunk`` slots (a ring buffer)."""
+    base_kind = _base_kind(kind)
+    S_c = seq_len
+    if base_kind == "local":
+        S_c = min(cfg.window, seq_len)
+    elif base_kind == "chunked":
+        S_c = min(cfg.chunk, seq_len)
+    shape = (batch, S_c, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch,), seq_len if prefilled else 0, dtype=torch.int32,
+                              device=device)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,20 @@
 """Recurrent token mixers: Mamba2 (SSD) and RWKV6 (Finch).
 
-The counterpart of the JAX package's ``models/ssm.py`` on the train and
-prefill path. Both are linear recurrences, computed in the reference's
-chunked (matrix) form: a loop over chunks of ``CHUNK`` tokens that
-carries the state, with einsums inside each chunk, so the score tensors
-stay [L, L] per chunk. The reference runs these scans in jnp, not in
+The counterpart of the JAX package's ``models/ssm.py``. Both are linear
+recurrences. Train and prefill compute them in the reference's chunked
+(matrix) form: a loop over chunks of ``CHUNK`` tokens that carries the
+state, with einsums inside each chunk, so the score tensors stay [L, L]
+per chunk; with a decode cache the loop starts from the cache's state
+(and RWKV6's token shift from its ``prev``) and returns them. Decode is
+the single-step recurrence on a cache. The reference runs these scans in jnp, not in
 Pallas, so they stay plain PyTorch here. The dtypes follow the
 reference's step by step: the scans run in f32, the projections in the
 activations' dtype.
 
 The sequence must be a whole number of chunks (or shorter than one), as
-the reference asserts. The single-step decode branch and the decode
-caches (``mamba2_init_cache``, ``rwkv6_init_cache``) belong to serving,
-ROADMAP Queue 1 item 1; a cache raises ``NotImplementedError``.
+the reference asserts. As in the reference, ``rwkv6_init_cache``'s
+``prev`` is bf16 whatever the model's dtype, and after a call it is in
+the activations' dtype.
 
 One place departs from the reference's code, not its function: the
 intra-chunk decays exp(clog_t - clog_s) are masked in the exponent
@@ -39,12 +41,6 @@ import torch.nn.functional as F
 from repro_torch.models.layers import _dense_init
 
 CHUNK = 64  # the scan's chunk length (bounds the [L, L, H, hd] decay tensors)
-
-
-def _no_cache(cache, what: str) -> None:
-    if cache is not None:
-        raise NotImplementedError(
-            f"{what} decode caches are not ported yet (serving: ROADMAP Queue 1 item 1)")
 
 
 def _masked(exponent: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -104,36 +100,44 @@ def _mamba2_split(params: dict, x: torch.Tensor, cfg):
 
 
 def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None):
-    """x: [B, S, d] -> (y, None)."""
-    _no_cache(cache, "Mamba2")
+    """x: [B, S, d]; cache: {"state": f32[B, H, 64, N], "pos": int32[B]} or
+    None. Returns (y, new_cache), new_cache None without a cache."""
     B_, S_, d = x.shape
     H = cfg.ssm_heads or (d // 64)
     hd, N = 64, cfg.ssm_state
     z, xi, Bm, Cm, dt, a = _mamba2_split(params, x, cfg)
     xif = xi.float()
-    L, nc = _chunks(S_)
-    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    st = torch.zeros((B_, H, hd, N), dtype=torch.float32, device=x.device)
-    ys = []
-    for c in range(nc):
-        sl = slice(c * L, (c + 1) * L)
-        xc, Bc, Cc, dtc, ac = xif[:, sl], Bm[:, sl], Cm[:, sl], dt[:, sl], a[:, sl]
-        clog = torch.cumsum(torch.log(torch.clamp_min(ac, 1e-20)), dim=1)  # [B,L,H]
-        # carry-in: y_state[t] = exp(clog_t)·C_t·S_prev
-        y_in = torch.einsum("blh,bhpn,bln->blhp", torch.exp(clog), st, Cc)
-        # intra-chunk: M[t,s] = exp(clog_t - clog_s)·dt_s  (s <= t), the mask
-        # applied to the exponent (see the module docstring)
-        rel = torch.exp(_masked(clog[:, :, None, :] - clog[:, None, :, :],
-                                causal[None, :, :, None]))  # [B,L,L,H]
-        M = rel * dtc[:, None, :, :]
-        ctb = torch.einsum("bln,bsn->bls", Cc, Bc)  # [B,L,L]
-        y_intra = torch.einsum("blsh,bls,bshp->blhp", M, ctb, xc)
-        # state update
-        decay_to_end = torch.exp(clog[:, -1:, :] - clog)  # [B,L,H]
-        st = st * torch.exp(clog[:, -1])[:, :, None, None] + torch.einsum(
-            "blh,blh,blhp,bln->bhpn", decay_to_end, dtc, xc, Bc)
-        ys.append(y_in + y_intra)
-    y = torch.cat(ys, dim=1)  # [B,S,H,hd]
+    if cache is not None and S_ == 1:  # single-step decode
+        st = cache["state"] * a[:, 0, :, None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, 0], xif[:, 0], Bm[:, 0])
+        y = torch.einsum("bhpn,bn->bhp", st, Cm[:, 0])[:, None]  # [B,1,H,hd]
+        new_cache = {"state": st, "pos": cache["pos"] + 1}
+    else:
+        L, nc = _chunks(S_)
+        causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+        st = cache["state"] if cache is not None else torch.zeros(
+            (B_, H, hd, N), dtype=torch.float32, device=x.device)
+        ys = []
+        for c in range(nc):
+            sl = slice(c * L, (c + 1) * L)
+            xc, Bc, Cc, dtc, ac = xif[:, sl], Bm[:, sl], Cm[:, sl], dt[:, sl], a[:, sl]
+            clog = torch.cumsum(torch.log(torch.clamp_min(ac, 1e-20)), dim=1)  # [B,L,H]
+            # carry-in: y_state[t] = exp(clog_t)·C_t·S_prev
+            y_in = torch.einsum("blh,bhpn,bln->blhp", torch.exp(clog), st, Cc)
+            # intra-chunk: M[t,s] = exp(clog_t - clog_s)·dt_s  (s <= t), the
+            # mask applied to the exponent (see the module docstring)
+            rel = torch.exp(_masked(clog[:, :, None, :] - clog[:, None, :, :],
+                                    causal[None, :, :, None]))  # [B,L,L,H]
+            M = rel * dtc[:, None, :, :]
+            ctb = torch.einsum("bln,bsn->bls", Cc, Bc)  # [B,L,L]
+            y_intra = torch.einsum("blsh,bls,bshp->blhp", M, ctb, xc)
+            # state update
+            decay_to_end = torch.exp(clog[:, -1:, :] - clog)  # [B,L,H]
+            st = st * torch.exp(clog[:, -1])[:, :, None, None] + torch.einsum(
+                "blh,blh,blhp,bln->bhpn", decay_to_end, dtc, xc, Bc)
+            ys.append(y_in + y_intra)
+        y = torch.cat(ys, dim=1)  # [B,S,H,hd]
+        new_cache = None if cache is None else {"state": st, "pos": cache["pos"] + S_}
     y = y + params["D"][None, None, :, None] * xif
     y = y.reshape(B_, S_, H * hd).to(x.dtype)
     # gated RMSNorm (mamba2's norm-before-out)
@@ -141,7 +145,14 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = Non
     var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
     yf = yf * torch.rsqrt(var + 1e-6) * (1.0 + params["norm_scale"])
     out = yf.to(x.dtype) @ params["out_proj"].to(x.dtype)
-    return out, None
+    return out, new_cache
+
+
+def mamba2_init_cache(cfg, batch: int, device="cuda") -> dict:
+    H = cfg.ssm_heads or (cfg.d_model // 64)
+    return {"state": torch.zeros((batch, H, 64, cfg.ssm_state), dtype=torch.float32,
+                                 device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -177,12 +188,14 @@ def _rwkv_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None):
-    """x: [B, S, d] -> (y, None)."""
-    _no_cache(cache, "RWKV6")
+    """x: [B, S, d]; cache: {"state": f32[B, H, hd, hd], "prev": [B, d],
+    "pos": int32[B]} or None. Returns (y, new_cache), new_cache None
+    without a cache."""
     B_, S_, d = x.shape
     hd = cfg.rwkv_head_size
     H = d // hd
-    xs = _rwkv_shift(x, x.new_zeros((B_, d)))
+    prev = cache["prev"].to(x.dtype) if cache is not None else x.new_zeros((B_, d))
+    xs = _rwkv_shift(x, prev)
     mu = params["mu"].to(x.dtype)
     xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
 
@@ -196,34 +209,55 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None
     rf, kf, vf = r.float(), k.float(), v.float()
     u = params["u"].float()  # the reference's einsum promotes a bf16 u to f32
 
-    L, nc = _chunks(S_)
-    strict = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device), diagonal=-1)
-    st = torch.zeros((B_, H, hd, hd), dtype=torch.float32, device=x.device)
-    ys = []
-    for c in range(nc):
-        sl = slice(c * L, (c + 1) * L)
-        rc, kc, vc, lwc = rf[:, sl], kf[:, sl], vf[:, sl], logw[:, sl]
-        clog = torch.cumsum(lwc, dim=1)  # [B,L,H,hd] inclusive
-        # carry-in uses the state before this step: decay exp(clog_{t-1})
-        clog_prev = clog - lwc  # exclusive cumsum
-        y_in = torch.einsum("blhc,bhcw->blhw", rc * torch.exp(clog_prev), st)
-        # intra: s < t strictly; decay exp(clog_{t-1} - clog_s)
-        Dm = torch.exp(_masked(clog_prev[:, :, None] - clog[:, None, :],
-                               strict[None, :, :, None, None]))  # [B,L,L,H,hd]
-        att = torch.einsum("blhc,blshc,bshc->blsh", rc, Dm, kc)
-        y_intra = torch.einsum("blsh,bshw->blhw", att, vc)
-        # bonus (current token)
-        y_bonus = torch.einsum("blhc,hc,blhc,blhw->blhw", rc, u, kc, vc)
-        # state update: S_new = diag(exp(clog_L)) S + Σ_s exp(clog_L - clog_s) k_s ⊗ v_s
-        dte = torch.exp(clog[:, -1:] - clog)  # [B,L,H,hd]
-        st = torch.exp(clog[:, -1])[..., None] * st + torch.einsum(
-            "blhc,blhc,blhw->bhcw", dte, kc, vc)
-        ys.append(y_in + y_intra + y_bonus)
-    y = torch.cat(ys, dim=1)  # [B,S,H,hd]
+    if cache is not None and S_ == 1:  # decode
+        st = cache["state"]  # [B,H,hd(key),hd(value)]
+        kv = torch.einsum("bhc,bhw->bhcw", kf[:, 0], vf[:, 0])
+        y = torch.einsum("bhc,bhcw->bhw", rf[:, 0], st + u[None, :, :, None] * kv)
+        st = torch.exp(logw[:, 0])[..., None] * st + kv
+        y = y[:, None]  # [B,1,H,hd]
+        new_cache = {"state": st, "prev": x[:, -1, :], "pos": cache["pos"] + 1}
+    else:
+        L, nc = _chunks(S_)
+        strict = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device), diagonal=-1)
+        st = cache["state"] if cache is not None else torch.zeros(
+            (B_, H, hd, hd), dtype=torch.float32, device=x.device)
+        ys = []
+        for c in range(nc):
+            sl = slice(c * L, (c + 1) * L)
+            rc, kc, vc, lwc = rf[:, sl], kf[:, sl], vf[:, sl], logw[:, sl]
+            clog = torch.cumsum(lwc, dim=1)  # [B,L,H,hd] inclusive
+            # carry-in uses the state before this step: decay exp(clog_{t-1})
+            clog_prev = clog - lwc  # exclusive cumsum
+            y_in = torch.einsum("blhc,bhcw->blhw", rc * torch.exp(clog_prev), st)
+            # intra: s < t strictly; decay exp(clog_{t-1} - clog_s)
+            Dm = torch.exp(_masked(clog_prev[:, :, None] - clog[:, None, :],
+                                   strict[None, :, :, None, None]))  # [B,L,L,H,hd]
+            att = torch.einsum("blhc,blshc,bshc->blsh", rc, Dm, kc)
+            y_intra = torch.einsum("blsh,bshw->blhw", att, vc)
+            # bonus (current token)
+            y_bonus = torch.einsum("blhc,hc,blhc,blhw->blhw", rc, u, kc, vc)
+            # state update: S_new = diag(exp(clog_L)) S + Σ_s exp(clog_L - clog_s) k_s ⊗ v_s
+            dte = torch.exp(clog[:, -1:] - clog)  # [B,L,H,hd]
+            st = torch.exp(clog[:, -1])[..., None] * st + torch.einsum(
+                "blhc,blhc,blhw->bhcw", dte, kc, vc)
+            ys.append(y_in + y_intra + y_bonus)
+        y = torch.cat(ys, dim=1)  # [B,S,H,hd]
+        new_cache = None if cache is None else {
+            "state": st, "prev": x[:, -1, :], "pos": cache["pos"] + S_}
 
     # per-head groupnorm, then the output gate
     var = torch.mean(torch.square(y), dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-6)
     y = y.reshape(B_, S_, d) * (1.0 + params["ln_scale"])
     y = y.to(x.dtype) * F.silu(g)
-    return y @ params["wo"].to(x.dtype), None
+    return y @ params["wo"].to(x.dtype), new_cache
+
+
+def rwkv6_init_cache(cfg, batch: int, d: int, device="cuda") -> dict:
+    """RWKV6's decode cache; ``prev`` is bf16 whatever the model's dtype,
+    as the reference's."""
+    hd = cfg.rwkv_head_size
+    H = d // hd
+    return {"state": torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),
+            "prev": torch.zeros((batch, d), dtype=torch.bfloat16, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

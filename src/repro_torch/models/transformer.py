@@ -1,7 +1,7 @@
 """Composable decoder: block dispatch and the stacked-unit model.
 
 The counterpart of the JAX package's ``models/transformer.py`` for every
-block kind (the train and prefill path): the attention kinds ``global``,
+block kind, on the train, prefill and decode paths: the attention kinds ``global``,
 ``local`` and ``chunked``; ``moe``, ``local_moe`` and ``chunked_moe``
 (attention plus the MoE MLP, ``models/moe.py``); the recurrent ``mamba2``
 and ``rwkv6`` (``models/ssm.py``), with an MLP only when
@@ -24,6 +24,14 @@ the stacked SSM vectors included — and only the unstacked vectors
 The placeholder takes no part in the forward pass, so its gradient is
 zero; ``param_grads`` gives such leaves a zero gradient where autograd
 gives none.
+
+Serving: ``init_cache`` stacks each block's decode cache per pattern
+position, ``[n_units, ...]`` a leaf, as the reference does (a
+``shared_attn`` position has one cache a unit, and decodes as a global
+layer: its kind names no window); ``prefill`` fills a cache from a prompt
+and ``decode_step`` takes one token a row. Both return the last
+position's logits only. Decode positions are pattern position 0's, unit
+0's ``pos``, as the reference takes them.
 """
 from __future__ import annotations
 
@@ -34,10 +42,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention_apply, attention_init, mlp_apply,
-                                       mlp_init, rmsnorm, rmsnorm_init)
+from repro_torch.models.layers import (attention_apply, attention_init,
+                                       attention_init_cache, mlp_apply, mlp_init, rmsnorm,
+                                       rmsnorm_init)
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.ssm import mamba2_apply, mamba2_init, rwkv6_apply, rwkv6_init
+from repro_torch.models.ssm import (mamba2_apply, mamba2_init, mamba2_init_cache, rwkv6_apply,
+                                    rwkv6_init, rwkv6_init_cache)
 from repro_torch.train.flatten import tree_map
 
 
@@ -58,26 +68,41 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device) 
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                positions: torch.Tensor) -> tuple:
-    """Pre-norm residual block. Returns (x, aux loss), aux None for a block
-    without MoE (the reference adds a zero)."""
+                positions: torch.Tensor, cache: Optional[dict] = None) -> tuple:
+    """Pre-norm residual block. Returns (x, new_cache, aux loss): new_cache
+    None without a cache, aux None for a block without MoE (the reference
+    adds a zero)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba2":
-        mix, _ = mamba2_apply(params["mamba"], h, cfg)
+        mix, new_cache = mamba2_apply(params["mamba"], h, cfg, cache)
     elif kind == "rwkv6":
-        mix, _ = rwkv6_apply(params["rwkv"], h, cfg)
+        mix, new_cache = rwkv6_apply(params["rwkv"], h, cfg, cache)
     else:
-        mix, _ = attention_apply(params["attn"], h, cfg, kind, positions)
+        mix, new_cache = attention_apply(params["attn"], h, cfg, kind, positions, cache)
     x = x + mix
     if "moe" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
         ff, aux = moe_apply(params["moe"], h, cfg.moe, ep_axis=cfg.ep_axis,
                             ep_ranks=cfg.ep_ranks)
-        return x + ff, aux
+        return x + ff, new_cache, aux
     if "mlp" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-        return x + mlp_apply(params["mlp"], h), None
-    return x, None  # a recurrent block without channel-mix (zamba2): x + 0
+        return x + mlp_apply(params["mlp"], h), new_cache, None
+    return x, new_cache, None  # a recurrent block without channel-mix (zamba2): x + 0
+
+
+def block_init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                     prefilled: bool = True, device="cuda") -> dict:
+    """One block's decode cache; a recurrent block's ``pos`` is ``seq_len``
+    when ``prefilled``, as an attention block's."""
+    if kind in ("mamba2", "rwkv6"):
+        c = (mamba2_init_cache(cfg, batch, device=device) if kind == "mamba2"
+             else rwkv6_init_cache(cfg, batch, cfg.d_model, device=device))
+        if prefilled:
+            c["pos"].fill_(seq_len)
+        return c
+    # no dtype: the attention cache is bf16 whatever the model's, as the reference's
+    return attention_init_cache(cfg, kind, batch, seq_len, prefilled=prefilled, device=device)
 
 
 def _stack(trees: list) -> dict:
@@ -186,12 +211,72 @@ class Model(nn.Module):
                     x, a = checkpoint(_block_fn(cfg, kind), x, positions, bp,
                                       use_reentrant=False)
                 else:
-                    x, a = block_apply(bp, x, cfg, kind, positions)
+                    x, _, a = block_apply(bp, x, cfg, kind, positions)
                 if a is not None:
                     aux = aux + a
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = self._logits(params, x)
         return logits, aux
+
+    # -- serving -------------------------------------------------------------
+    def init_cache(self, batch: int, seq_len: int, prefilled: bool = True,
+                   device=None) -> list:
+        """Stacked decode caches, one dict a pattern position, each leaf
+        [n_units, ...] (its own memory: the attention writes are in place).
+        On the model's device unless ``device`` says otherwise."""
+        cfg = self.cfg
+        device = self.embed.device if device is None else device
+        return [{k: v[None].repeat((cfg.n_units,) + (1,) * v.dim()) for k, v in
+                 block_init_cache(cfg, kind, batch, seq_len, prefilled, device).items()}
+                for kind in cfg.pattern]
+
+    def prefill(self, params: dict, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None,
+                cache: Optional[list] = None) -> tuple:
+        """Run the prompt through the model and fill the decode caches (a
+        fresh cache of the prompt's length if None). tokens: int[B, S] (or
+        [B, S, nc]). Returns (the last position's logits [B, vocab] (or
+        [B, nc, vocab]), cache)."""
+        x = self._embed(params, _clamp_vocab(tokens, self.cfg))
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        B, S, _ = x.shape
+        if cache is None:
+            cache = self.init_cache(B, S, prefilled=False, device=x.device)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
+        return self._run_with_cache(params, x, cache, positions)
+
+    def decode_step(self, params: dict, tokens: torch.Tensor, cache: list) -> tuple:
+        """One token a row: tokens int[B] (or [B, nc]). Returns (logits
+        [B, vocab] (or [B, nc, vocab]), new cache)."""
+        tok = tokens[:, None] if tokens.dim() == 1 else tokens[:, None, :]
+        x = self._embed(params, _clamp_vocab(tok, self.cfg))  # [B, 1, d]
+        positions = cache[0]["pos"][0][:, None].to(torch.int32)  # unit 0's; all agree
+        return self._run_with_cache(params, x, cache, positions)
+
+    def _run_with_cache(self, params: dict, x: torch.Tensor, cache: list,
+                        positions: torch.Tensor) -> tuple:
+        """The units in turn, each on its slice of every stacked cache leaf;
+        a leaf written in place comes back as the same stacked tensor, any
+        other is restacked. Returns (last position's logits, new cache)."""
+        cfg = self.cfg
+        units = [None if kind == "shared_attn" else _unbind(b, cfg.n_units)
+                 for kind, b in zip(cfg.pattern, params["blocks"])]
+        slices = [{k: [v[u] for u in range(cfg.n_units)] for k, v in c.items()}
+                  for c in cache]
+        new = [{k: [] for k in c} for c in cache]
+        for u in range(cfg.n_units):
+            for pos, kind in enumerate(cfg.pattern):
+                bp = params["shared_attn"] if kind == "shared_attn" else units[pos][u]
+                bc = {k: v[u] for k, v in slices[pos].items()}
+                x, nc, _ = block_apply(bp, x, cfg, kind, positions, bc)
+                for k, v in nc.items():
+                    new[pos][k].append(v)
+        new_cache = [{k: (cache[pos][k] if all(a is b for a, b in zip(vs, slices[pos][k]))
+                          else torch.stack(vs)) for k, vs in new[pos].items()}
+                     for pos in range(len(cfg.pattern))]
+        x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        return self._logits(params, x)[:, 0], new_cache
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -199,11 +284,13 @@ class Model(nn.Module):
                                  else torch.float32)
         tokens = tokens.long()
         if cfg.num_codebooks > 1:
-            # musicgen: sum the per-codebook embeddings
+            # musicgen: sum the per-codebook embeddings; a token row without
+            # its codebook axis (the serving engine's [B, 1]) reads its last
+            # column for every codebook, as JAX clamps a static index
             x = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=emb.dtype,
                             device=emb.device)
             for c in range(cfg.num_codebooks):
-                x = x + emb[c][tokens[..., c]]
+                x = x + emb[c][tokens[..., min(c, tokens.shape[-1] - 1)]]
         else:
             x = emb[tokens]
         # sqrt(d_model) computed in the activations' dtype, as the reference
@@ -234,7 +321,15 @@ def _unbind(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def _clamp_vocab(tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Serving's token ids, clamped below the vocabulary as JAX's gather
+    clamps them (PyTorch's would raise, or fault on the card); the
+    training path's ``apply`` does not clamp."""
+    return tokens.clamp_max(cfg.vocab - 1)
+
+
 def _block_fn(cfg: ModelConfig, kind: str):
     def fn(x, positions, bp):
-        return block_apply(bp, x, cfg, kind, positions)
+        x, _, aux = block_apply(bp, x, cfg, kind, positions)
+        return x, aux
     return fn

@@ -1,0 +1,131 @@
+"""Batched serving: continuous prefill and decode.
+
+The counterpart of the JAX package's ``serve/engine.py``.
+``make_serve_step`` gives the one-token decode step: ONE new token a row
+against a KV cache (or recurrent state). ``ServeEngine`` is the host-side
+loop: a fixed batch of slots, each holding one request's cache; a queued
+request is prefilled alone into a cache of ``max_seq`` and copied into a
+free slot of every stacked leaf, and a finished one leaves its slot. Every
+slot decodes every step, an empty one with token 0, so the decode step
+keeps one shape. Sampling is greedy (argmax) or, with ``temperature >
+0``, an f32 softmax moved to the host and one
+``np.random.RandomState(seed).choice`` a row, as the reference samples.
+
+Everything runs under ``torch.inference_mode()``: the model's leaves are
+``nn.Parameter``s, and a graph kept a decode step would grow without
+bound. The engine runs on the model's device. The reference's
+``cache_pspecs`` shards the cache over a mesh and waits with
+``models/sharding.py`` for a multi-card slice.
+
+The engine does not serve a multi-codebook model (musicgen), and neither
+does the reference's: the admitted token is the argmax of the flattened
+[nc, vocab] logits, the decode step then embeds a token row without its
+codebook axis (each package reads codebook 0's column for every codebook;
+``Model._embed``), and the first ``step`` raises ``TypeError`` where it
+turns a row of nc sampled tokens into one int.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import Model
+
+
+def make_serve_step(model: Model) -> Callable:
+    """(params, tokens, cache) -> (logits, cache): one token a row, under
+    ``torch.inference_mode()``."""
+    def serve_step(params, tokens, cache):
+        with torch.inference_mode():
+            return model.decode_step(params, tokens, cache)
+
+    return serve_step
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # int32[S]
+    max_new: int = 32
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Host-side batched serving loop over ``batch_slots`` slots of
+    ``max_seq`` positions each. ``params`` is the reference-shaped tree
+    (``model.tree()``)."""
+
+    def __init__(self, model: Model, params: dict, batch_slots: int = 4,
+                 max_seq: int = 512, temperature: float = 0.0, seed: int = 0):
+        self.model = model
+        self.params = params
+        self.slots = batch_slots
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self.rng = np.random.RandomState(seed)
+        self.device = model.embed.device
+        with torch.inference_mode():
+            self.cache = model.init_cache(batch_slots, max_seq, prefilled=False)
+        self.slot_req: list = [None] * batch_slots
+        self.queue: list = []
+        self.steps = 0
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                return i
+        return None
+
+    @torch.inference_mode()
+    def _admit(self) -> None:
+        while self.queue and (slot := self._free_slot()) is not None:
+            req = self.queue.pop(0)
+            self.slot_req[slot] = req
+            # prefill this request alone, then copy its cache into the slot
+            one = self.model.init_cache(1, self.max_seq, prefilled=False)
+            toks = torch.as_tensor(np.asarray(req.prompt)[None, :], dtype=torch.int32,
+                                   device=self.device)
+            logits, one = self.model.prefill(self.params, toks, cache=one)
+            req.generated = [int(torch.argmax(logits[0]))]
+            for full_c, one_c in zip(self.cache, one):
+                for k, full in full_c.items():
+                    full[:, slot] = one_c[k][:, 0]  # cast to the slot cache's dtype
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        if self.temperature <= 0:
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        p = torch.softmax(logits / self.temperature, dim=-1).cpu().numpy()
+        return np.array([self.rng.choice(p.shape[-1], p=row) for row in p])
+
+    @torch.inference_mode()
+    def step(self) -> None:
+        """Admit, then one decode step for every slot."""
+        self._admit()
+        if all(r is None for r in self.slot_req):
+            return
+        last = np.zeros((self.slots,), np.int32)
+        for i, r in enumerate(self.slot_req):
+            if r is not None and r.generated:
+                last[i] = r.generated[-1]
+        logits, self.cache = self.model.decode_step(
+            self.params, torch.as_tensor(last, device=self.device), self.cache)
+        nxt = self._sample(logits)
+        self.steps += 1
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            r.generated.append(int(nxt[i]))
+            if len(r.generated) >= r.max_new:
+                r.done = True
+                self.slot_req[i] = None
+
+    def run_until_done(self, max_steps: int = 10_000) -> None:
+        while (self.queue or any(self.slot_req)) and self.steps < max_steps:
+            self.step()

@@ -1,5 +1,6 @@
 """The PyTorch port on the card: its CUDA kernels against their plain
-versions, and FedAvg, FlatAdamW and the train step against the CPU path.
+versions, and FedAvg, FlatAdamW, the train step and serving against the
+CPU path.
 
 Every test here is marked ``cuda`` and skips where torch sees no GPU. The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -296,3 +297,106 @@ def test_cuda_train_step_matches_cpu(cuda, arch):
     if cfg.uses_moe:
         assert max(readings["ep_m"], readings["ep_v"]) <= CARD_REL_EP
     assert float((g["params"] - c["params"]).abs().max()) <= 2 * lr
+
+
+# Serving, card against CPU in f32: logits within this share of the CPU's
+# max |logit|, the bound the CPU tests hold the port to against the JAX
+# package (tests/test_torch_serve.py).
+CARD_SERVE_TOL = 1e-3
+SERVE_ARCHS = {"internlm2-1.8b": {}, "gemma3-12b": {"window": 8, "chunk": 8},
+               "zamba2-2.7b": {}, "qwen3-moe-235b-a22b": {}}
+
+
+def _serve_models(cuda, arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(SERVE_ARCHS))
+def test_cuda_prefill_then_decode_matches_cpu(cuda, arch):
+    """f32 smoke models (gemma3 with window = chunk = 8, so its local
+    layer's ring buffer wraps twice): prefill 8 tokens, decode to 24; each
+    step's logits within CARD_SERVE_TOL x max |logit| of the CPU's, and the
+    last cache's leaves of the CPU's dtypes, pos equal."""
+    cfg, cpu, card = _serve_models(cuda, arch, **SERVE_ARCHS[arch])
+    toks = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab, (2, 24)))
+    out = {}
+    with torch.inference_mode():
+        for name, m in (("cpu", cpu), ("card", card)):
+            t = toks.to(m.embed.device)
+            logits, cache = m.prefill(m.tree(), t[:, :8], cache=m.init_cache(2, 24, False))
+            rows = [logits.cpu()]
+            for i in range(8, 24):
+                logits, cache = m.decode_step(m.tree(), t[:, i], cache)
+                rows.append(logits.cpu())
+            out[name] = (torch.stack(rows), cache)
+    (lc, cc), (lg, cg) = out["cpu"], out["card"]
+    scale = float(lc.abs().max())
+    err = float((lg - lc).abs().max())
+    print(f"card vs cpu serving, {arch}: max |err| {err} of max |logit| {scale}")
+    assert bool(torch.isfinite(lg).all()) and err <= CARD_SERVE_TOL * scale
+    for a, b in zip(cc, cg):
+        for k in a:
+            assert b[k].is_cuda and b[k].dtype == a[k].dtype and b[k].shape == a[k].shape
+        assert torch.equal(a["pos"], b["pos"].cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_serve_engine_matches_cpu(cuda):
+    """ServeEngine on the card and on the CPU, smoke internlm2 in f32, 4
+    slots, 6 requests, greedy: the same decode steps and, request by
+    request, the same tokens up to a step where the CPU's top two logits lie
+    within CARD_SERVE_TOL x max |logit| (there either may win; that request
+    is compared no further)."""
+    from repro_torch.serve import Request, ServeEngine
+    cfg, cpu, card = _serve_models(cuda, "internlm2-1.8b")
+    rows = {}
+
+    def recorded(eng):
+        decode, prefill = eng.model.decode_step, eng.model.prefill
+
+        def rec_prefill(*a, **kw):
+            logits, c = prefill(*a, **kw)
+            rid = next(r.rid for r in eng.slot_req if r is not None and (r.rid, 0) not in rows)
+            rows[(rid, 0)] = logits[0].cpu()
+            return logits, c
+
+        def rec_decode(params, tokens, cache):
+            logits, c = decode(params, tokens, cache)
+            for i, r in enumerate(eng.slot_req):
+                if r is not None:
+                    rows[(r.rid, len(r.generated))] = logits[i].cpu()
+            return logits, c
+
+        eng.model.decode_step, eng.model.prefill = rec_decode, rec_prefill
+
+    engines, reqs = [], []
+    for m in (cpu, card):
+        eng = ServeEngine(m, m.tree(), batch_slots=4, max_seq=64)
+        rng = np.random.RandomState(5)
+        reqs.append([Request(rid=i, prompt=rng.randint(0, cfg.vocab, int(rng.randint(4, 32)))
+                             .astype(np.int32), max_new=12) for i in range(6)])
+        for r in reqs[-1]:
+            eng.submit(r)
+        engines.append(eng)
+    recorded(engines[0])
+    for eng in engines:
+        eng.run_until_done()
+    assert engines[0].steps == engines[1].steps
+    assert all(v.is_cuda for c in engines[1].cache for v in c.values())
+    for a, b in zip(*reqs):
+        assert len(a.generated) == len(b.generated) == 12
+        for t, (x, y) in enumerate(zip(a.generated, b.generated)):
+            if x != y:
+                row = rows[(a.rid, t)]
+                top2 = torch.sort(row.flatten()).values[-2:]
+                assert float(top2[1] - top2[0]) <= CARD_SERVE_TOL * float(row.abs().max())
+                break

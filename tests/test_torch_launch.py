@@ -318,3 +318,28 @@ def test_reserved_rounds_draw_disjoint_counters(monkeypatch, case):
     if case.startswith("pipelined") or case == "weighted-pipelined":
         # the segments pad m equal parts: more than ceil(words / 2) counters
         assert agg.round_counters(words) > -(-words // 2)
+
+
+def test_serve_launcher(capsys):
+    """``repro_torch.launch.serve`` at the smoke size on the CPU prints the
+    reference launcher's line, with the same request, token and decode-step
+    counts and batch efficiency as ``python -m repro.launch.serve`` given
+    the same flags (its times aside); its device defaults to the card."""
+    import re
+
+    from repro_torch.launch import serve
+    flags = ["--arch", "zamba2-2.7b", "--requests", "5", "--max-new", "6", "--slots", "2"]
+    out = serve.run(serve.parse_args(flags + ["--device", "cpu"]))
+    assert all(len(r.generated) == 6 for r in out["requests"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    pattern = (r"served 5 requests / 30 tokens in [0-9.]+s \([0-9.]+ tok/s, "
+               r"(\d+) decode steps, batch efficiency ([0-9.]+)\)")
+    got = re.fullmatch(pattern, line)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-m", "repro.launch.serve", *flags],
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    want = re.fullmatch(pattern, proc.stdout.strip().splitlines()[-1])
+    assert got and want and got.groups() == want.groups()
+    assert int(got.group(1)) == out["engine"].steps
+    assert serve.parse_args(["--arch", "internlm2-1.8b"]).device == "cuda"

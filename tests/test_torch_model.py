@@ -55,8 +55,8 @@ LEAF_ORDER = [
 # (musicgen), a prefix of frontend embeddings (internvl2).
 PORTED_ARCHS = ("internlm2-1.8b", "gemma2-27b", "gemma3-12b", "qwen3-14b",
                 "musicgen-large", "internvl2-1b")
-# The kinds ported later (MoE, Mamba2, RWKV6, shared attention); what of
-# them still waits (the decode caches, serving) raises.
+# The kinds ported later (MoE, Mamba2, RWKV6, shared attention), serving
+# included.
 NOT_PORTED = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "rwkv6-1.6b",
               "zamba2-2.7b")
 
@@ -95,33 +95,77 @@ def test_registry_equal():
     assert configs.all_arch_ids() == jconfigs.all_arch_ids()
 
 
+def _mixer_decode(jm, jp, m, kind, name, x, positions):
+    """One decode step of unit 0's token mixer of pattern position 0 on a
+    prefilled cache of 16 positions, in both packages: (reference's y and
+    cache, port's y and cache)."""
+    from repro.models import ssm as jssm
+    from repro.models import transformer as jtransformer
+    from repro_torch.models import ssm, transformer
+    jparams = {k: v[0] for k, v in jp["blocks"][0][name].items()}
+    params = {k: v[0] for k, v in m.tree()["blocks"][0][name].items()}
+    jc = jtransformer.block_init_cache(jm.cfg, kind, 2, 16)
+    c = transformer.block_init_cache(m.cfg, kind, 2, 16, device="cpu")
+    if name == "attn":
+        jout = jlayers.attention_apply(jparams, jnp.asarray(x), jm.cfg, kind,
+                                       jnp.asarray(positions), jc)
+        with torch.no_grad():
+            out = layers.attention_apply(params, torch.from_numpy(x), m.cfg, kind,
+                                         torch.from_numpy(positions), c)
+    else:
+        jfn, fn = {"mamba": (jssm.mamba2_apply, ssm.mamba2_apply),
+                   "rwkv": (jssm.rwkv6_apply, ssm.rwkv6_apply)}[name]
+        jout = jfn(jparams, jnp.asarray(x), jm.cfg, jc)
+        with torch.no_grad():
+            out = fn(params, torch.from_numpy(x), m.cfg, c)
+    return jout, out
+
+
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_unported_kinds_raise(arch):
-    """These configurations' kinds are ported now: the model builds and
-    runs forward (tests/test_torch_moe.py and test_torch_ssm.py hold them to
-    the reference). What still waits for the serving slice raises, naming
-    its ROADMAP item: a decode cache handed to the block's token mixer."""
-    cfg = configs.get_smoke_config(arch)
-    m = Model(cfg, device="cpu")
+    """These configurations' kinds are ported, serving included: the model
+    builds and runs forward (tests/test_torch_moe.py and test_torch_ssm.py
+    hold the forward to the reference), and the block's token mixer given a
+    real decode cache returns the reference's output and cache (f32, one
+    decode step at position 16: rtol 1e-5, atol 1e-5; the cache's k and v
+    within one bf16 rounding)."""
+    jm, jp, m = _pair(arch)
+    cfg = m.cfg
     logits, aux = m(torch.from_numpy(_tokens(cfg, S=64)))
     assert logits.shape == (2, 64, cfg.vocab) and bool(torch.isfinite(logits).all())
     assert (float(aux) > 0) == cfg.uses_moe
-    from repro_torch.models import ssm
     block = m.tree()["blocks"][0]
-    mixer = {"mamba": ssm.mamba2_apply, "rwkv": ssm.rwkv6_apply, "attn": layers.attention_apply}
-    name = next(k for k in mixer if k in block)
-    params = {k: v[0] for k, v in block[name].items()}  # unit 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mixer[name](params, torch.zeros(1, 1, cfg.d_model), cfg, cache={})
+    name = next(k for k in ("mamba", "rwkv", "attn") if k in block)
+    x = np.random.RandomState(4).randn(2, 1, cfg.d_model).astype(np.float32)
+    (jy, jc), (y, c) = _mixer_decode(jm, jp, m, cfg.pattern[0], name, x,
+                                     np.full((2, 1), 16, np.int32))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+    assert set(c) == set(jc)
+    for k in jc:
+        assert str(c[k].dtype).split(".")[1] == str(jc[k].dtype), k
+        np.testing.assert_allclose(_f32(c[k]), _f32(jc[k]), rtol=2.0 ** -7, atol=1e-5)
 
 
 def test_attention_refuses_cache_and_long_sequences():
-    cfg = configs.get_smoke_config(ARCH)
-    p = layers.attention_init(torch.Generator().manual_seed(0), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.attention_apply(p, torch.zeros(1, 1, cfg.d_model), cfg, cache={})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.attention_apply(p, torch.zeros(1, layers.FLASH_THRESHOLD + 1, cfg.d_model), cfg)
+    """Attention with a real decode cache, and at S = FLASH_THRESHOLD + 1
+    (the blockwise path, 17 x 17 blocks of 241), returns the reference's
+    output (f32: rtol 1e-5, atol 1e-5)."""
+    jm, jp, m = _pair()
+    x = np.random.RandomState(5).randn(2, 1, m.cfg.d_model).astype(np.float32)
+    for pos in (3, 15):  # a slot in the middle of the cache, and the last
+        (jy, jc), (y, c) = _mixer_decode(jm, jp, m, "global", "attn", x,
+                                         np.full((2, 1), pos, np.int32))
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(c["pos"].numpy(), np.asarray(jc["pos"]))
+    S = layers.FLASH_THRESHOLD + 1
+    xl = np.random.RandomState(6).randn(1, S, m.cfg.d_model).astype(np.float32)
+    jparams = {k: v[0] for k, v in jp["blocks"][0]["attn"].items()}
+    params = {k: v[0] for k, v in m.tree()["blocks"][0]["attn"].items()}
+    want, _ = jlayers.attention_apply(jparams, jnp.asarray(xl), m.cfg, "global")
+    with torch.no_grad():
+        got, cache = layers.attention_apply(params, torch.from_numpy(xl), m.cfg, "global")
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -4,8 +4,9 @@ JAX package's, on the CPU at the smoke size.
 * ``mamba2_apply`` and ``rwkv6_apply``: forward and the gradients of every
   parameter and of the input, in f32, on one chunk (S = 64) and on three
   (S = 192, the state carried across chunks); a sequence that is not a
-  whole number of chunks (S = 150) is refused by both packages, and a
-  decode cache by the port (serving is a later slice).
+  whole number of chunks (S = 150) is refused by both packages; a prompt
+  into a decode cache and one decode step match the reference
+  (``tests/test_torch_serve.py`` holds serving at large).
 * The zamba2 (Mamba2 + shared attention) and rwkv6 smoke models: the
   logits and the loss's gradient on every leaf, f32.
 * The flat layout, with zamba2's ``_shared`` placeholder and its unstacked
@@ -124,19 +125,31 @@ def test_mixer_matches_reference(kind, S):
 @pytest.mark.parametrize("kind", list(APPLY))
 def test_ragged_sequence_and_cache_refused(kind):
     """S = 150 is two chunks and a ragged tail: the reference asserts that
-    the sequence is a whole number of chunks, and the port raises; a decode
-    cache waits for the serving slice."""
+    the sequence is a whole number of chunks, and the port raises. A decode
+    cache is taken: a 64-token prompt into the mixer's cache, then one
+    decode step, each returning the reference's output (FWD_REL) and state
+    (relative L2 1e-5)."""
     jcfg, cfg = _cfgs(ARCH_OF[kind])
     params = {k: v.astype(np.float32) for k, v in _mixer_params(kind, cfg).items()}
     x = np.zeros((1, 150, cfg.d_model), np.float32)
     japply, apply = APPLY[kind]
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
     with pytest.raises(AssertionError):
-        japply({k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x), jcfg)
+        japply(jp, jnp.asarray(x), jcfg)
     tp = {k: torch.from_numpy(v) for k, v in params.items()}
     with pytest.raises(ValueError, match="chunks"):
         apply(tp, torch.from_numpy(x), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        apply(tp, torch.from_numpy(x[:, :1]), cfg, cache={})
+    init = {"mamba2": (jssm.mamba2_init_cache, ssm.mamba2_init_cache),
+            "rwkv6": (jssm.rwkv6_init_cache, ssm.rwkv6_init_cache)}[kind]
+    extra = () if kind == "mamba2" else (cfg.d_model,)
+    jc, c = init[0](jcfg, B, *extra), init[1](cfg, B, *extra, device="cpu")
+    xs = np.random.RandomState(2).standard_normal((B, 65, cfg.d_model)).astype(np.float32)
+    for part in (xs[:, :64], xs[:, 64:]):
+        want, jc = japply(jp, jnp.asarray(part), jcfg, jc)
+        got, c = apply(tp, torch.from_numpy(part), cfg, c)
+        assert _rel(got, want) <= FWD_REL
+        assert _rel(c["state"], jc["state"]) <= 1e-5
+        np.testing.assert_array_equal(c["pos"].numpy(), np.asarray(jc["pos"]))
 
 
 def _pair(arch, dtype="float32"):
