@@ -12,7 +12,8 @@ no CPU fallback):
    (``torch.equal``), at V in {1, 5, 129, 100_001, 2^24}, counter bases 0
    and 2^32 - 5, aligned and misaligned rows, pads that start at odd and
    even stream words, S in {1, 8, 36} rows, and m in {1, 2, 36, 300} BON
-   keys with mixed signs;
+   keys with mixed signs; then the host time a call through the kernels'
+   custom ops (``torch.ops.repro_torch``) adds to the wrapper's;
 4. the main paths, through the entry points a user calls, each with every
    kernel's launch count reset just before and read just after: one SAFE
    round (``make_aggregator("safe", 36).aggregate``) on f32[36, 2^24]; the
@@ -53,7 +54,12 @@ no CPU fallback):
    tokens each, greedy) and traffic B (16 requests of 1024-3072 tokens, 8
    slots of 4096, 64 new tokens, two waves), and ``python -m
    repro_torch.launch.serve --arch internlm2-1.8b`` as a subprocess on the
-   card; no SAFE kernel runs there, and its launch line says so;
+   card; no SAFE kernel runs there, and its launch line says so; last, the
+   dry run (``repro_torch.launch.dryrun.measure``, meta tensors): the
+   train-step path's step at 12 and 24 layers and one decode step of
+   traffic B at 24, the most layers of that step that fit the card, then
+   that 12-layer step, that decode step and the step at the most layers
+   that fit, each for real;
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -96,7 +102,11 @@ no CPU fallback):
    traffic B's prompts within 2e-2 of max |logit| of ``Model.apply``'s full
    forward, and each of the ten smoke configurations' prefill then decode
    within 2e-2 of its own full forward (bf16) and within 1e-3 of the port's
-   CPU path (f32);
+   CPU path (f32); the dry run's peak within 1% of
+   ``torch.cuda.max_memory_allocated`` over each real call, its verdict
+   that 12 layers of the train step fit the card and 24 do not, the step at
+   the most layers it says fit running on the card, and the card holding at
+   least ``dryrun.H100_USABLE_BYTES`` for a process to allocate;
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -120,13 +130,15 @@ no CPU fallback):
    (prefill ms a request: median and max), the decode step's ms against its
    bytes bound (the weights and the whole KV cache read once), decode and
    end-to-end tokens per second, requests per second, peak memory, and the
-   device's idle share over a few decode steps under torch.profiler.
+   device's idle share over a few decode steps under torch.profiler; the
+   dry run's peaks by category and matrix-product FLOPs beside the card's.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
 """
 import asyncio
 import json
+import math
 import os
 import subprocess
 import sys
@@ -186,7 +198,8 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "moe": {"mask_add", "chain_combine"},
                 "zamba2": {"mask_add", "chain_combine"},
                 "rwkv6": {"mask_add", "chain_combine"},
-                "engine_load": {"mask_add", "chain_combine_batched"}}
+                "engine_load": {"mask_add", "chain_combine_batched"},
+                "dryrun_train": {"mask_add", "chain_combine"}}
 
 # The FedAvg path: internlm2-1.8b at full width, cut to 12 of its 24 layers
 # (at 24 the learners' f32 deltas, the weighted payload and the chain's
@@ -253,6 +266,11 @@ WIRE_V = 10_000
 WIRE_DEAD = {"clean": (), "rank 13 dead": (14,), "rank 0 dead": (1,)}
 WIRE_AGG_TIMEOUT = 3.0      # the §5.4 re-election timeout of the wire rounds
 KEYSTREAM_WORDS = 1 << 22   # the host keystream rate's pad
+
+# The dry run against the card: its peak within DRY_TOL of the allocator's
+# over the same real call; the custom ops' host cost over DISPATCH_CALLS calls.
+DRY_TOL = 0.01
+DISPATCH_CALLS = 2000
 
 
 def say(*parts):
@@ -1847,6 +1865,183 @@ def aggregation_paths(dev):
     return launches, times, published
 
 
+# ---- the dry run against the card: phases 4, 5 and 6 --------------------------------
+
+def dispatch_cost(dev, smi):
+    """The host time a custom-op call adds: each kernel's op against its
+    wrapper called directly, at one word (the launch itself included in
+    both), over DISPATCH_CALLS calls each, in turns."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import threefry_mask_add as tma
+    x = torch.zeros(1, device=dev)
+    direct = lambda: tma.mask_add(x, [1, 2], 0)  # noqa: E731
+    op = lambda: ops.mask_add(x, [1, 2], 0)  # noqa: E731
+    per = {"direct": [], "op": []}
+    for name, fn in (("direct", direct), ("op", op), ("op", op), ("direct", direct)):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        sync()
+        per[name].append((time.perf_counter() - t0) / DISPATCH_CALLS * 1e6)
+    extra = min(per["op"]) - min(per["direct"])
+    say(f"phase 6 custom-op dispatch ({smi}): mask_add at one word {min(per['op']):.1f} us a "
+        f"call through torch.ops.repro_torch against {min(per['direct']):.1f} us through its "
+        f"wrapper ({extra:.1f} us more; turns {json.dumps(per)}); the SAFE round at "
+        f"n={N} makes {3 + N - 1} calls: {extra * (3 + N - 1) / 1e3:.3f} ms")
+
+
+def dryrun_paths(dev, launches, smi):
+    """Phases 4-6 of the dry run (``repro_torch.launch.dryrun``, meta
+    tensors) against the card's own allocator over the same calls run for
+    real: (a) one train step at the train-step path's size, (b) one decode
+    step of serving traffic B at all 24 layers, each peak within DRY_TOL of
+    ``max_memory_allocated`` (above what the card held before the call);
+    (c) for (a)'s traffic the dry run says TS_LAYERS layers fit the card
+    and 24 do not; (d) the step at the most layers the dry run says fit
+    runs on the card, within DRY_TOL too, and the card has at least
+    ``dryrun.H100_USABLE_BYTES`` for a process to allocate: its free bytes
+    with what this process holds free, less what the caching allocator
+    reserved beyond what it allocated in (d), where memory runs short
+    (with room to spare, as in (a), it keeps gigabytes more cached)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_aggregator
+    from repro_torch.data import make_federated_batches
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+    from repro_torch.train import make_train_step
+
+    cap, cap_from = dryrun.capacity()
+    _, slots, max_seq = SERVE_TRAFFIC["B"][:3]
+    serve_cfg = get_config(SERVE_ARCH)
+    ts_shape = dict(seq_len=TS_S, global_batch=TS_N * TS_B, kind="train")
+    before = dict(build.launches)
+    t0 = time.perf_counter()
+    pred = {layers: dryrun.measure(
+        dataclasses.replace(get_config(TS_ARCH), n_layers=layers), "train_4k",
+        shape=ts_shape, learners=TS_N, batch=TS_B) for layers in (TS_LAYERS, 24)}
+    pred["decode"] = dryrun.measure(
+        serve_cfg, "decode_32k", shape=dict(seq_len=max_seq, global_batch=slots, kind="decode"))
+    most = dryrun.max_units_that_fit(
+        dataclasses.replace(get_config(TS_ARCH), n_layers=24), "train_4k", cap,
+        pred[24]["peak_bytes"], shape=ts_shape, learners=TS_N, batch=TS_B)
+    edge = most["max_layers_that_fit"]
+    pred["edge"] = {"peak_bytes": most["peak_bytes_by_units"][str(most["max_units_that_fit"])]}
+    dry_s = time.perf_counter() - t0
+    if build.launches != before:
+        fail(f"the dry run launched kernels: {build.launches}, {before} before")
+    say(f"phase 4 dry run ({smi}): {dry_s:.1f} s on meta tensors for {TS_ARCH} train steps at "
+        f"{TS_LAYERS} and 24 layers (n={TS_N}, [{TS_B}, {TS_S}] tokens a learner), a "
+        f"decode step at {serve_cfg.n_layers} layers ({slots} slots of {max_seq}) and the most "
+        f"layers of that train step that fit {cap / 1e9:.3f} GB: {edge} (predicted "
+        f"{most['predicted_units']}, peaks by units {json.dumps(most['peak_bytes_by_units'])}); "
+        f"the SAFE kernels' shape functions at {TS_LAYERS} layers "
+        f"{json.dumps(pred[TS_LAYERS]['kernels'])}, no launch")
+
+    real, slack = {}, {}
+
+    def measured(key, run):
+        """``run()``'s peak above what the card held before it, and the
+        caching allocator's reserved-over-allocated peak there."""
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        out = run()
+        real[key] = torch.cuda.max_memory_allocated() - base
+        slack[key] = torch.cuda.max_memory_reserved() - torch.cuda.max_memory_allocated()
+        return out
+
+    def train_step(layers):
+        """(a)'s traffic, one step for real: the model, its state and the step."""
+        cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=layers)
+        model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+        agg = make_aggregator("safe", TS_N, device=dev)
+        bundle = make_train_step(model, agg, lr=TS_LR)
+        tokens = torch.from_numpy(make_federated_batches(cfg, TS_N, TS_B, TS_S, seed=SEED)
+                                  .global_batch(0)["tokens"]).to(dev)
+        state = bundle.init_state_fn(model.tree())
+        sync()
+        build.reset_launches()
+        torch.cuda.empty_cache()  # the set-up's freed blocks: the step's own reserve only
+        torch.cuda.reset_peak_memory_stats()
+        state, m = bundle.step_fn(state, tokens,
+                                  counter=agg.reserve_round(bundle.padded_size + 2))
+        sync()
+        loss = float(m["loss"])
+        counts = dict(build.launches)
+        say(f"phase 4 main path dry run train step: one step_fn of {TS_ARCH} at {layers} "
+            f"layers for real, loss {loss:.4f}; launches {counts}")
+        missing = sorted(k for k in PATH_KERNELS["dryrun_train"] if counts[k] <= 0)
+        if missing:
+            fail(f"the dry run's real train step never launched {missing}: {counts}")
+        if not math.isfinite(loss):
+            fail(f"dry run train step at {layers} layers: loss {loss}")
+        for k, c in counts.items():
+            launches[k] += c
+
+    def decode_step():
+        """(b): one decode step of traffic B at all 24 layers, for real."""
+        model = Model(serve_cfg, device=dev)  # random weights from seed 0
+        cache = model.init_cache(slots, max_seq, prefilled=True)
+        toks = torch.zeros(slots, dtype=torch.int32, device=dev)
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            logits, cache = model.decode_step(model.tree(), toks, cache)
+        sync()
+        if not bool(torch.isfinite(logits).all()):
+            fail("dry run decode step: non-finite logits")
+
+    measured(TS_LAYERS, lambda: train_step(TS_LAYERS))
+    measured("decode", decode_step)
+    measured("edge", lambda: train_step(edge))
+    sync()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    room = free + torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    usable = room - slack["edge"]
+
+    lines = {}
+    for key, what in ((TS_LAYERS, f"(a) train step at {TS_LAYERS} layers"),
+                      ("decode", f"(b) decode step, traffic B, {serve_cfg.n_layers} layers"),
+                      ("edge", f"(d) train step at {edge} layers, the most that fit")):
+        p, r = pred[key]["peak_bytes"], real[key]
+        err = abs(p - r) / r
+        cats = {k: round(v / 1e9, 3) for k, v in pred[key].get("peak_by_category", {}).items()}
+        lines[key] = (f"{what}: dry run {p / 1e9:.3f} GB"
+                      + (f" (GB by category {json.dumps(cats)})" if cats else "")
+                      + f" against max_memory_allocated {r / 1e9:.3f} GB, off by {err:.2%}; "
+                      f"reserved beyond allocated {slack[key] / 1e9:.3f} GB")
+        if err > DRY_TOL:
+            fail(f"dry run {lines[key]}, over {DRY_TOL:.0%}")
+        say(f"phase 5 dry run {lines[key]} (<= {DRY_TOL:.0%})")
+    fits = {layers: pred[layers]["peak_bytes"] <= cap for layers in (TS_LAYERS, 24)}
+    verdict = (f"(c) {TS_ARCH} train step, n={TS_N}, [{TS_B}, {TS_S}] tokens a learner: "
+               f"{TS_LAYERS} layers {pred[TS_LAYERS]['peak_bytes'] / 1e9:.2f} GB "
+               f"{'fits' if fits[TS_LAYERS] else 'does not fit'}, 24 layers "
+               f"{pred[24]['peak_bytes'] / 1e9:.2f} GB {'fits' if fits[24] else 'does not fit'} "
+               f"in {cap / 1e9:.3f} GB ({cap_from})")
+    if not fits[TS_LAYERS] or fits[24]:
+        fail(f"dry run {verdict}: expected {TS_LAYERS} layers to fit and 24 not to")
+    say(f"phase 5 dry run {verdict}")
+    card = (f"(d) the card's room for a process: {free} B free of {total} + "
+            f"{torch.cuda.memory_reserved() - torch.cuda.memory_allocated()} B this process "
+            f"holds free = {room} B, less (d)'s reserved beyond allocated "
+            f"{slack['edge']} B = {usable} B usable, against H100_USABLE_BYTES {cap} B")
+    if cap > usable:
+        fail(f"dry run {card}: the card holds less than the dry run sizes for")
+    say(f"phase 5 dry run {card}")
+    say(f"phase 6 dry run ({smi}): {lines[TS_LAYERS]}; {lines['decode']}; {lines['edge']}; "
+        f"usable {usable / 1e9:.3f} GB; matmul FLOPs of the train step "
+        f"{pred[TS_LAYERS]['matmul_flops'] / 1e12:.3f} TFLOP, of the decode step "
+        f"{pred['decode']['matmul_flops'] / 1e9:.3f} GFLOP; dry run wall {dry_s:.1f} s")
+
+
 # ---- the wire paths: phases 4, 5 and 6 ---------------------------------------------
 
 async def serve_engine_tenants(engine, specs):
@@ -2059,6 +2254,7 @@ def main():
     err, checks = check_kernels(dev, (tma, cc, bm), ref)
     say(f"phase 3 kernels == plain: {checks} comparisons, max |err| {err} "
         f"({time.perf_counter() - t0:.1f} s)")
+    dispatch_cost(dev, smi)
 
     walls = {}
 
@@ -2083,6 +2279,8 @@ def main():
     timed("engine load", engine_load_path, dev, launches, smi)
     torch.cuda.empty_cache()
     timed("serve", serve_paths, dev, launches, smi)
+    torch.cuda.empty_cache()
+    timed("dry run", dryrun_paths, dev, launches, smi)
     say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
         f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")

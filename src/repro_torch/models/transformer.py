@@ -248,7 +248,13 @@ class Model(nn.Module):
 
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: list) -> tuple:
         """One token a row: tokens int[B] (or [B, nc]). Returns (logits
-        [B, vocab] (or [B, nc, vocab]), new cache)."""
+        [B, vocab] (or [B, nc, vocab]), new cache).
+
+        ``cache`` is donated, as the reference's decode dry run donates it
+        (``jax.jit(decode_step, donate_argnums=(2,))``): k and v are written
+        into the caller's tensors where the dtypes agree (the bf16 path), so
+        the returned cache shares their storage and the caller keeps only
+        the returned one."""
         tok = tokens[:, None] if tokens.dim() == 1 else tokens[:, None, :]
         x = self._embed(params, _clamp_vocab(tok, self.cfg))  # [B, 1, d]
         positions = cache[0]["pos"][0][:, None].to(torch.int32)  # unit 0's; all agree
@@ -258,7 +264,9 @@ class Model(nn.Module):
                         positions: torch.Tensor) -> tuple:
         """The units in turn, each on its slice of every stacked cache leaf;
         a leaf written in place comes back as the same stacked tensor, any
-        other is restacked. Returns (last position's logits, new cache)."""
+        other is restacked. ``cache`` is donated (see ``decode_step``): a
+        leaf written in place is the caller's tensor, changed. Returns
+        (last position's logits, new cache)."""
         cfg = self.cfg
         units = [None if kind == "shared_attn" else _unbind(b, cfg.n_units)
                  for kind, b in zip(cfg.pattern, params["blocks"])]

@@ -13,9 +13,16 @@ keeps one shape. Sampling is greedy (argmax) or, with ``temperature >
 
 Everything runs under ``torch.inference_mode()``: the model's leaves are
 ``nn.Parameter``s, and a graph kept a decode step would grow without
-bound. The engine runs on the model's device. The reference's
-``cache_pspecs`` shards the cache over a mesh and waits with
-``models/sharding.py`` for a multi-card slice.
+bound. The engine runs on the model's device. ``cache_pspecs`` gives the
+reference's partition specs of a cache over a mesh (the dry run's pod
+meshes read them; on one card they do not apply).
+
+The decode step takes the cache it is given as donated, as the
+reference's decode dry run does (``jax.jit(decode_step,
+donate_argnums=(2,))``): the attention k and v are written into the
+caller's tensors where the dtypes agree (the bf16 path), so the cache
+returned shares their storage and the caller keeps only the returned one
+(``ServeEngine`` does; ``Model.decode_step``).
 
 The engine does not serve a multi-codebook model (musicgen), and neither
 does the reference's: the admitted token is the argmax of the flattened
@@ -33,6 +40,41 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import Model
+from repro_torch.train.flatten import tree_map
+
+
+def cache_pspecs(cache, batch_sharded: bool, seq_axis: Optional[str] = None,
+                 model_size: int = 1):
+    """Partition specs (tuples, one entry per dim) of a stacked decode cache
+    (``Model.init_cache``'s list of dicts; any leaf with a ``shape``).
+
+    batch_sharded: shard the batch dim over 'data' (decode_32k).
+    seq_axis: shard the attention-cache sequence dim instead (long_500k,
+    batch=1 — the beyond-paper sequence-parallel KV layout).
+    Attention k/v are [n_units, B, S_c, n_kv, hd]; recurrent states
+    [n_units, B, H, ...]; pos [n_units, B]. Head dims shard over 'model'
+    only when divisible (GQA kv counts are often < the TP degree). The same
+    rules by leaf rank as the reference's."""
+    def heads(leaf, dim):
+        return "model" if leaf.shape[dim] % max(model_size, 1) == 0 else None
+
+    def spec_for(leaf):
+        nd = len(leaf.shape)
+        if nd == 5:  # attention kv
+            if batch_sharded:
+                return (None, "data", None, heads(leaf, 3), None)
+            if seq_axis:
+                return (None, None, seq_axis, heads(leaf, 3), None)
+            return (None, None, None, heads(leaf, 3), None)
+        if nd == 4:  # mamba2 / rwkv6 state [U, B, H, ...]
+            return (None, "data" if batch_sharded else None, heads(leaf, 2), None)
+        if nd == 3:  # rwkv prev [U, B, d]
+            return (None, "data" if batch_sharded else None, None)
+        if nd == 2:  # pos [U, B]
+            return (None, "data") if batch_sharded else ()
+        return ()
+
+    return tree_map(spec_for, cache)
 
 
 def make_serve_step(model: Model) -> Callable:

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bon_mask as bm
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ops, ref  # ops: defines torch.ops.repro_torch
 from repro_torch.kernels import chain_combine as cc
 from repro_torch.kernels import threefry_mask_add as tma
 
@@ -400,3 +400,74 @@ def test_cuda_serve_engine_matches_cpu(cuda):
                 top2 = torch.sort(row.flatten()).values[-2:]
                 assert float(top2[1] - top2[0]) <= CARD_SERVE_TOL * float(row.abs().max())
                 break
+
+
+def _op_cases(dev):
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.uniform(-9, 9, 100_001).astype(np.float32)).to(dev)
+    cipher = torch.from_numpy(_u32(rng, 100_001)).to(dev)
+    rows = torch.from_numpy(rng.uniform(-9, 9, (3, 4097)).astype(np.float32)).to(dev)
+    crow = torch.from_numpy(_u32(rng, (3, 4097))).to(dev)
+    keys = [int(k) for k in _u32(rng, 6)]
+    return {
+        "mask_add": (x, keys[0], keys[1], 2**32 - 5, 3, 16),
+        "chain_combine": (cipher, x, keys[:2], keys[2:4], 2**32 - 5, 16),
+        "chain_combine_batched": (crow, rows, keys, keys[::-1], [0, 7, 2**32 - 5], [0, 1, 6],
+                                  16),
+        "bon_mask": (x, keys, [1, -1, 1], 2**31, 16),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mask_add", "chain_combine", "chain_combine_batched",
+                                  "bon_mask"])
+def test_cuda_custom_op_opcheck_and_route(cuda, name):
+    """On the card each custom op passes opcheck's schema and fake-tensor
+    checks, launches its kernel (counted once) and equals the CPU route
+    word for word; a CUDA failure raises, with no fallback."""
+    op = getattr(torch.ops.repro_torch, name)
+    args = _op_cases(cuda)[name]
+    torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
+    before = build.launches[name]
+    got = op(*args)
+    assert build.launches[name] == before + 1
+    cpu = op(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+    assert got.is_cuda and torch.equal(got.cpu(), cpu)
+    strided = [a[..., ::2] if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="contiguous"):  # the kernel refuses, no fallback
+        op(*strided)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
+def test_cuda_dry_run_peak_matches_the_allocator(cuda, shape_name):
+    """The dry run's peak (meta tensors) against max_memory_allocated over
+    the same call run for real on the card, at a small size."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.input_specs import build_spec
+
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), n_layers=4)
+    shape = {"train_4k": dict(seq_len=256, global_batch=8, kind="train"),
+             "decode_32k": dict(seq_len=1024, global_batch=8, kind="decode")}[shape_name]
+    kw = dict(learners=4) if shape_name == "train_4k" else {}
+    pred = dryrun.measure(cfg, shape_name, shape=shape, **kw)
+
+    def real():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        spec = build_spec(cfg, None, shape_name, shape=shape, device=cuda, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spec.fn(*spec.args, **spec.kwargs)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    # a process's first matrix product allocates cuBLAS's workspace (64 MiB
+    # on the H100), which stays allocated and which the dry run does not count
+    real()
+    got = real()
+    assert abs(pred["peak_bytes"] - got) <= 0.10 * got, (pred["peak_bytes"], got)

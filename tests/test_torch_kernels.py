@@ -219,8 +219,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 def test_other_devices_and_cpu_tensors_are_refused_by_the_kernels():
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ops.mask_add(torch.zeros(4, device="meta"), [1, 2])
+    # a meta tensor takes the ops' shape functions: no kernel, no launch
+    build.reset_launches()
+    ops.reset_fake_calls()
+    out = ops.mask_add(torch.zeros(4, device="meta"), [1, 2])
+    assert (out.device.type, out.shape, out.dtype) == ("meta", (4,), torch.uint32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tma.mask_add(torch.zeros(4), [1, 2])
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -231,8 +234,10 @@ def test_other_devices_and_cpu_tensors_are_refused_by_the_kernels():
                                  torch.zeros(4), [[1, 2]], [[3, 4]], [0])
     with pytest.raises(ValueError, match="CUDA tensor"):
         bm.bon_mask(torch.zeros(4), [[1, 2]], [1])
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ops.bon_mask(torch.zeros(4, device="meta"), [[1, 2]], [1])
+    assert ops.bon_mask(torch.zeros(4, device="meta"), [[1, 2]], [1]).device.type == "meta"
+    assert not any(build.launches.values())
+    assert ops.fake_calls["mask_add"] == {"calls": 1, "bytes": 32}
+    assert ops.fake_calls["bon_mask"] == {"calls": 1, "bytes": 32}
 
 
 def test_build_without_nvcc_names_the_toolkit(monkeypatch, tmp_path):
@@ -248,3 +253,41 @@ def test_build_dir_tracks_the_sources():
     assert {"mask_add.cu", "chain_combine.cu", "bon_mask.cu", "threefry.cuh"} <= {
         p.name for p in build.CSRC.iterdir()}
     assert set(build.LIBRARIES) == set(build.launches) - {"chain_combine_batched"}
+
+
+def _op_cases():
+    """Each op's schema arguments: keys and counter bases as ints, a
+    counter base that wraps, odd lengths."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.uniform(-9, 9, 129).astype(np.float32))
+    cipher = torch.from_numpy(_u32(rng, 129))
+    rows = torch.from_numpy(rng.uniform(-9, 9, (3, 65)).astype(np.float32))
+    crow = torch.from_numpy(_u32(rng, (3, 65)))
+    keys = [int(k) for k in _u32(rng, 6)]
+    return {
+        "mask_add": (x, keys[0], keys[1], 2**32 - 5, 3, 16),
+        "chain_combine": (cipher, x, keys[:2], keys[2:4], 2**32 - 5, 16),
+        "chain_combine_batched": (crow, rows, keys, keys[::-1], [0, 7, 2**32 - 5], [0, 1, 6],
+                                  16),
+        "bon_mask": (x, keys, [1, -1, 1], 2**31, 16),
+    }
+
+
+@pytest.mark.parametrize("name", ["mask_add", "chain_combine", "chain_combine_batched",
+                                  "bon_mask"])
+def test_custom_op_opcheck_on_cpu(name):
+    """Each kernel is a torch.library custom op: its schema and its shape
+    function (the fake implementation) agree with the CPU route, and the
+    shape function counts its call and bytes but no launch."""
+    op = getattr(torch.ops.repro_torch, name)
+    args = _op_cases()[name]
+    torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
+    build.reset_launches()
+    ops.reset_fake_calls()
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    out = op(*meta)
+    want = op(*args)
+    assert (out.shape, out.dtype) == (want.shape, want.dtype)
+    per_word = 12 if name.startswith("chain") else 8
+    assert ops.fake_calls[name] == {"calls": 1, "bytes": per_word * args[0].numel()}
+    assert not any(build.launches.values())
