@@ -59,7 +59,19 @@ no CPU fallback):
    train-step path's step at 12 and 24 layers and one decode step of
    traffic B at 24, the most layers of that step that fit the card, then
    that 12-layer step, that decode step and the step at the most layers
-   that fit, each for real;
+   that fit, each for real; then the dist path, one learner a process:
+   four ranks spawned by ``repro_torch.dist.spawn`` share the card over
+   gloo, each CUDA tensor staged through pinned host buffers
+   (``transport="host"``: NCCL refuses two ranks on one card, and the
+   script first shows ``init_world`` refusing nccl for more ranks than
+   cards), and run, each on its own row through ``aggregate_rank``, the
+   sequential round (rotated, one learner dead), the pipelined, BON, INSEC
+   and weighted rounds at V = 2^24 a rank; then two train steps of
+   internlm2-1.8b at full width and 6 layers (the second with learner 1
+   dead; ZeRO-1, each rank holding its quarter of the master vector and
+   moments) and one weighted FedAvg round, through the per-rank
+   ``make_train_step``/``make_federated_round``; the launch counts are
+   summed over the ranks;
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -106,7 +118,13 @@ no CPU fallback):
    ``torch.cuda.max_memory_allocated`` over each real call, its verdict
    that 12 layers of the train step fit the card and 24 do not, the step at
    the most layers it says fit running on the card, and the card holding at
-   least ``dryrun.H100_USABLE_BYTES`` for a process to allocate;
+   least ``dryrun.H100_USABLE_BYTES`` for a process to allocate; the
+   dist path: every rank's mean, parameters and published delta equal to
+   the other ranks' and to the same work in this process on the card
+   (sha256 of the words), each rank's master vector padded_size / 4 words,
+   and each kernel equal to its plain version at the shapes the dist path
+   gives it (V = 2^24 and 2^24 + 1, padded_size, P + 1, the pipelined
+   round's one-row hops and bon_mask's key sets);
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -131,10 +149,27 @@ no CPU fallback):
    bytes bound (the weights and the whole KV cache read once), decode and
    end-to-end tokens per second, requests per second, peak memory, and the
    device's idle share over a few decode steps under torch.profiler; the
-   dry run's peaks by category and matrix-product FLOPs beside the card's.
+   dry run's peaks by category and matrix-product FLOPs beside the card's;
+   the dist path's walls per round and per step, the seconds each rank
+   spent in collectives (the transport's share), each rank's peak memory,
+   and each kernel timed by CUDA events in each rank, one rank at a time.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --nccl4
+
+on a host with four cards instead runs the dist rounds over NCCL, a card a
+rank, each against one process's on the rank's card, then the training
+launcher under ``torch.distributed.run`` with internlm2-1.8b at all 24
+layers, a card a rank, and prints each rank's peak memory and the steps'
+walls. It is not part of the one-card run. Nor is
+
+    python3 chip_smoke.py --dist-depth 5 6 7
+
+which sizes the dist path's depth on one card: its four ranks alone at
+each depth in turn, up to the first that does not fit, with each rank's
+peak memory.
 """
 import asyncio
 import json
@@ -271,6 +306,32 @@ KEYSTREAM_WORDS = 1 << 22   # the host keystream rate's pad
 # over the same real call; the custom ops' host cost over DISPATCH_CALLS calls.
 DRY_TOL = 0.01
 DISPATCH_CALLS = 2000
+
+# The dist path: one learner a process, DIST_N ranks sharing the one card over
+# gloo, each CUDA tensor staged through pinned host buffers (transport="host";
+# NCCL refuses two ranks on one card). The rounds at V_MAIN words a rank:
+# name -> (aggregator kwargs, round kwargs; "w" stands for the weights). Then
+# internlm2-1.8b at full width and DIST_LAYERS of its 24 layers, the most for
+# which four ranks fit the card beside each other: two train steps, the
+# second with learner DIST_DEAD dead, and one weighted FedAvg round of DIST_K
+# local steps with the same learner dead; the launcher's traffic (2 x 256
+# tokens a learner, lr 1e-3). Each rank's allocator maps its blocks into
+# segments that grow (DIST_ALLOC_CONF): with fixed segments the FedAvg round
+# reserved twice what it allocated, and four ranks did not fit 3 layers; with
+# them a rank peaks at 17.15-19.41 GB allocated at 6 layers and 7 do not fit.
+DIST_N, DIST_LAYERS, DIST_K, DIST_DEAD = 4, 6, 2, 1
+DIST_ALLOC_CONF = "expandable_segments:True"
+DIST_ROUNDS = {
+    "sequential": (dict(mode="safe"), dict(rotate=3, alive="dead")),
+    "pipelined": (dict(mode="safe", pipelined=True), {}),
+    "bon": (dict(mode="bon"), dict(alive="dead")),
+    "insec": (dict(mode="insec"), dict(weights="w")),
+    "weighted": (dict(mode="safe", weighted=True), dict(weights="w")),
+}
+DIST_WEIGHTS = np.asarray([1000, 1500, 2000, 2500], np.float32)
+DIST_KERNELS = ("mask_add", "chain_combine", "chain_combine_batched", "bon_mask")
+DIST_TIMING_ITERS = 10
+NCCL_STEPS = 4              # ``--nccl4``: the launcher's steps at 24 layers, a card a rank
 
 
 def say(*parts):
@@ -679,6 +740,30 @@ def check_cpu_path(name, agg, alive, weights, counter, rotate=0, path="fedavg"):
         fail(f"{path} {name}: card and CPU path differ at [{narrow.shape[0]}, {V_CPU}]")
 
 
+def chunked_diff(got, want):
+    """Largest |got - want| of a uint32 vector against ``want(s, e)``, its
+    plain version's words [s, e), CHUNK words at a time."""
+    V = got.shape[0]
+    return max((u32_diff(got[s:min(V, s + CHUNK)], want(s, min(V, s + CHUNK)))
+                for s in range(0, V, CHUNK)), default=0)
+
+
+def hop_diff(x, key, kin, kout, base):
+    """mask_add of ``x`` and chain_combine of that ciphertext against their
+    plain versions, CHUNK words at a time (the plain pads start at the
+    chunk's word): {kernel: max |err|}."""
+    from repro_torch.kernels import chain_combine as cc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import threefry_mask_add as tma
+    masked = tma.mask_add(x, key, base)
+    hop = cc.chain_combine(masked, x, kin, kout, base)
+    return {"mask_add": chunked_diff(
+                masked, lambda s, e: ref.mask_add_ref(x[s:e], key, base, offset=s)),
+            "chain_combine": chunked_diff(
+                hop, lambda s, e: ref.chain_combine_ref(masked[s:e], x[s:e], kin, kout, base,
+                                                        offset=s))}
+
+
 def check_full_length(agg, weights, base, err):
     """mask_add and chain_combine at a path's own length — FedAvg's V = P + 1
     words, the train step's V = padded_size — on rows of the real payload
@@ -688,25 +773,14 @@ def check_full_length(agg, weights, base, err):
     at a time (the plain pads start at the chunk's word). Folds the
     differences into ``err``; the seen deltas are freed."""
     from repro_torch.core.chain import _payload
-    from repro_torch.kernels import chain_combine as cc
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import threefry_mask_add as tma
     payload = _payload(agg.seen["values"], agg.cfg, weights)
     agg.seen = None
     V = payload.shape[1]
     key, kin, kout = [0x5EED, 13], [3, 0xC0FFEE], [0xDEADBEEF, 7]
     full = {"mask_add": 0, "chain_combine": 0}
     for row in (0, 1):
-        x = payload[row]
-        masked = tma.mask_add(x, key, base)
-        hop = cc.chain_combine(masked, x, kin, kout, base)
-        for s in range(0, V, CHUNK):
-            e = min(V, s + CHUNK)
-            want = ref.mask_add_ref(x[s:e], key, base, offset=s)
-            full["mask_add"] = max(full["mask_add"], u32_diff(masked[s:e], want))
-            want = ref.chain_combine_ref(masked[s:e], x[s:e], kin, kout, base, offset=s)
-            full["chain_combine"] = max(full["chain_combine"], u32_diff(hop[s:e], want))
-        del masked, hop
+        e = hop_diff(payload[row], key, kin, kout, base)
+        full = {k: max(full[k], e[k]) for k in full}
     sync()
     for k, v in full.items():
         err[k] = max(err[k], v)
@@ -2224,7 +2298,507 @@ def wire_paths(dev, launches, published, smi):
         f"(os.cpu_count() {os.cpu_count()})")
 
 
+# ---- the dist path: one learner a process ---------------------------------------
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes, in order: equal digests are equal
+    words."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_alive():
+    a = np.ones(DIST_N, np.float32)
+    a[DIST_DEAD] = 0.0
+    return a
+
+
+def dist_row(dev, rank):
+    """Learner ``rank``'s f32[V_MAIN] row of the dist rounds (NaN when it is
+    the dead learner: it must never reach the sum)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1 + rank)
+    return torch.rand(V_MAIN, generator=g, device=dev) * 4 - 2
+
+
+def dist_round_args(name, rank=None):
+    """(mode, aggregator kwargs, round kwargs, whether ``rank``'s row is
+    NaN) of a dist round; the weights are every learner's f32[n], or
+    ``rank``'s scalar."""
+    akw, kw = DIST_ROUNDS[name]
+    akw, kw = dict(akw), dict(kw)
+    dead = False
+    if kw.get("alive") == "dead":
+        kw["alive"] = dist_alive()
+        dead = rank is not None and kw["alive"][rank] == 0
+    if kw.get("weights") == "w":
+        kw["weights"] = DIST_WEIGHTS if rank is None else float(DIST_WEIGHTS[rank])
+    return akw.pop("mode"), akw, kw, dead
+
+
+def dist_model(dev, layers):
+    """internlm2-1.8b at full width, ``layers`` layers, seed SEED; the
+    train step's tokens [2, n, B, S] and the FedAvg round's [n, k, B, S]."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=layers)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    stream = make_federated_batches(cfg, DIST_N, TS_B, TS_S, seed=SEED)
+    steps = np.stack([stream.global_batch(i)["tokens"] for i in range(2)])
+    fed = np.stack([np.stack([stream.learner_batch(l, 10 + k)["tokens"] for k in range(DIST_K)])
+                    for l in range(DIST_N)])
+    return model, steps, fed
+
+
+def dist_train(model, steps, world=None, on_step=None):
+    """Two SAFE train steps, the second with DIST_DEAD dead: on one card
+    (``world`` None, tokens [n, B, S]) or this rank's (its [B, S]).
+    Returns (digest of the parameters, losses)."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_train_step
+    from repro_torch.train.flatten import leaves
+    dev = leaves(model.tree())[0].device
+    agg = make_aggregator("safe", DIST_N, device=dev)
+    bundle = make_train_step(model, agg, world, lr=TS_LR)
+    state = bundle.init_state_fn(model.tree())
+    losses = []
+    for i, alive in enumerate((np.ones(DIST_N, np.float32), dist_alive())):
+        toks = torch.from_numpy(steps[i] if world is None else steps[i][world.rank]).to(dev)
+        counter = agg.reserve_round(bundle.padded_size + 2)
+        if on_step:
+            on_step("start", i, bundle, state)
+        state, m = bundle.step_fn(state, toks, counter=counter, alive=alive)
+        losses.append(float(m["loss"]))
+        if on_step:
+            on_step("end", i, bundle, state)
+    return digest(*leaves(state["params"])), losses
+
+
+def dist_fedavg(model, fed, world=None):
+    """One weighted FedAvg round, DIST_DEAD dead: (digest of the published
+    delta, digest of the new parameters, local loss)."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_federated_round, tree_size
+    from repro_torch.train.flatten import leaves
+    dev = leaves(model.tree())[0].device
+    agg = make_aggregator("safe", DIST_N, weighted=True, device=dev)
+    bundle = make_federated_round(model, agg, world, local_steps=DIST_K, local_lr=FED_LR,
+                                  return_delta=True)
+    toks = torch.from_numpy(fed if world is None else fed[world.rank]).to(dev)
+    counter = agg.reserve_round(tree_size(model.tree()) + 1)
+    params, m = bundle.round_fn(model.tree(), toks, weights=DIST_WEIGHTS, counter=counter,
+                                alive=dist_alive())
+    return digest(m["avg_delta"]), digest(*leaves(params)), float(m["local_loss"])
+
+
+def _dist_rank(world, layers):
+    """One rank of the dist path (spawned): the rounds, the train step and
+    the FedAvg round (the model at ``layers`` layers) through the per-rank
+    entry points, then, the launch counts read, its kernels' times by CUDA
+    events, rank after rank. The rounds and the train steps time their
+    collectives; the FedAvg round runs untimed."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import build, ops
+    dev, r = world.device, world.rank
+    out = {"rounds": {}, "round_ms": {}, "round_transport_ms": {}, "step_ms": [],
+           "step_transport_ms": [], "hop_ms": None}
+    build.reset_launches()
+    x = dist_row(dev, r)
+    for name in DIST_ROUNDS:
+        mode, akw, kw, dead = dist_round_args(name, r)
+        agg = make_aggregator(mode, world.size, device=dev, **akw)
+        row = torch.full_like(x, float("nan")) if dead else x
+        w = kw.pop("weights", None)
+        dist.barrier()
+        sync()
+        collectives.reset_stats(timed=True)
+        t0 = time.perf_counter()
+        mean = agg.aggregate_rank(row, 2**32 - 5, weights=w, world=world, **kw)
+        sync()
+        out["round_ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["round_transport_ms"][name] = collectives.stats["seconds"] * 1e3
+        out["rounds"][name] = digest(mean)
+        del mean
+    del x
+    torch.cuda.empty_cache()
+
+    model, steps, fed = dist_model(dev, layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    clock = {}
+
+    def on_step(when, i, bundle, state):
+        sync()
+        if when == "start":
+            collectives.reset_stats(timed=True)
+            clock["t0"] = time.perf_counter()
+        else:
+            out["step_ms"].append((time.perf_counter() - clock["t0"]) * 1e3)
+            out["step_transport_ms"].append(collectives.stats["seconds"] * 1e3)
+            out["padded_size"], out["master_words"] = bundle.padded_size, state["master"].numel()
+    out["train"] = dist_train(model, steps, world, on_step)
+    collectives.reset_stats()
+    out["train_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["train_reserved"] = torch.cuda.max_memory_reserved(dev)
+    del model
+    torch.cuda.empty_cache()
+    model = dist_model(dev, layers)[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync()
+    t0 = time.perf_counter()
+    out["fedavg"] = dist_fedavg(model, fed, world)
+    sync()
+    out["fedavg_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fedavg_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["fedavg_reserved"] = torch.cuda.max_memory_reserved(dev)
+    del model
+    torch.cuda.empty_cache()
+    out["launches"] = dict(build.launches)
+
+    # this rank's kernels at the dist path's shapes, while the other ranks wait
+    g = torch.Generator(device=dev).manual_seed(SEED + 100 + r)
+    xv = torch.rand(V_MAIN, generator=g, device=dev)
+    cv = torch.randint(-2**31, 2**31, (V_MAIN,), generator=g, device=dev,
+                       dtype=torch.int32).view(torch.uint32)
+    seg = V_MAIN // world.size
+    keys = [[r + 1, 7]] * world.size
+    calls = {
+        "mask_add": lambda: ops.mask_add(xv, [r, 5], 0),
+        "chain_combine": lambda: ops.chain_combine(cv, xv, [1, 2], [3, 4], 0),
+        "chain_combine_batched": lambda: ops.chain_combine_batched(
+            cv[None, :seg], xv[None, :seg], [[1, 2]], [[3, 4]], [0], starts=[seg * r + 1]),
+        "bon_mask": lambda: ops.bon_mask(xv, keys, [1] * world.size, 0),
+    }
+    out["kernel_ms"] = {}
+    for turn in range(world.size):
+        dist.barrier()
+        if turn == r:
+            out["kernel_ms"] = {k: cuda_ms(f, DIST_TIMING_ITERS) for k, f in calls.items()}
+    dist.barrier()
+    return out
+
+
+def spawn_dist_ranks(layers):
+    """DIST_N ranks of ``_dist_rank`` sharing the card, each rank's
+    allocator set to DIST_ALLOC_CONF (read when a rank's allocator starts;
+    this process's has started): their results, in rank order."""
+    from repro_torch.dist import spawn
+    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = DIST_ALLOC_CONF
+    try:
+        return [r["result"] for r in spawn(_dist_rank, DIST_N, "cuda", transport="host",
+                                           args=(layers,))]
+    finally:
+        if before is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+
+
+def dist_depth(depths):
+    """``python3 chip_smoke.py --dist-depth 5 6 7``, on one card: the dist
+    path's ranks alone at each depth in turn, up to the first that does not
+    fit four ranks; each rank's peaks, allocated and reserved. It sizes
+    DIST_LAYERS and is not part of the smoke run."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on a GPU")
+    from repro_torch.kernels import build
+    build.build()  # once, before the ranks
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    say(smi)
+    fits = []
+    for layers in depths:
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_dist_ranks(layers)
+        except Exception as e:  # noqa: BLE001 - a depth that does not fit ends the sizing
+            say(f"dist depth {layers}: does not fit four ranks on one card ({smi}) after "
+                f"{time.perf_counter() - t0:.1f} s: {type(e).__name__}: {str(e)[-600:]}")
+            break
+        gb = {k: [round(r[k] / 1e9, 3) for r in ranks]
+              for k in ("train_peak", "train_reserved", "fedavg_peak", "fedavg_reserved")}
+        say(f"dist depth {layers}: fits four ranks on one card ({smi}), {DIST_ALLOC_CONF}, "
+            f"{time.perf_counter() - t0:.1f} s; padded_size {ranks[0]['padded_size']}; GB a "
+            f"rank {json.dumps(gb)}")
+        fits.append(layers)
+    if not fits:
+        fail(f"dist depth: none of {depths} fits")
+    say(f"dist depth: the most layers that fit of {depths}: {max(fits)}")
+
+
+def check_dist_kernels(dev, lengths, err):
+    """Each kernel at the shapes the dist path gives it, against its plain
+    version on the same inputs: mask_add and chain_combine at each of
+    ``lengths`` (CHUNK words at a time), mask_add on the pipelined round's
+    seg words with pads from word l·seg, chain_combine_batched as that
+    round's one row of seg words from word s·seg, and bon_mask with each
+    live rank's keys — its 3 peers' and its own, signed as ``bon_rank``
+    signs them — and its correction (its own key and the dead learner's).
+    Folds the differences into ``err``; returns ({kernel: max |err|},
+    comparisons)."""
+    from repro_torch.kernels import bon_mask as bm
+    from repro_torch.kernels import chain_combine as cc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import threefry_mask_add as tma
+    g = torch.Generator(device=dev).manual_seed(SEED + 200)
+    rng = np.random.RandomState(SEED + 200)
+    base = 2**32 - 5
+
+    def keys(m):
+        return rng.randint(0, 2**32, (m, 2), dtype=np.uint64).astype(np.uint32)
+
+    got = {k: 0 for k in DIST_KERNELS}
+    checks = 0
+    for V in lengths:
+        x = torch.rand(V, generator=g, device=dev) * 4 - 2
+        e = hop_diff(x, keys(1)[0], keys(1)[0], keys(1)[0], base)
+        got = {k: max(got[k], e.get(k, 0)) for k in got}
+        checks += 2
+        del x
+    seg = -(-V_MAIN // DIST_N)
+    x = torch.rand(seg, generator=g, device=dev) * 4 - 2
+    c = torch.randint(-2**31, 2**31, (seg,), generator=g, device=dev,
+                      dtype=torch.int32).view(torch.uint32)
+    for s in range(DIST_N):
+        key, kin, kout = keys(1)[0], keys(1), keys(1)
+        got["mask_add"] = max(got["mask_add"], u32_diff(
+            tma.mask_add(x, key, base, offset=s * seg),
+            ref.mask_add_ref(x, key, base, offset=s * seg)))
+        got["chain_combine_batched"] = max(got["chain_combine_batched"], u32_diff(
+            cc.chain_combine_batched(c[None], x[None], kin, kout, [base], starts=[s * seg]),
+            ref.chain_combine_batched_ref(c[None], x[None], kin, kout, [base],
+                                          starts=[s * seg])))
+        checks += 2
+    x = torch.rand(V_MAIN, generator=g, device=dev) * 4 - 2
+    zero = torch.zeros_like(x)
+    alive = dist_alive()
+    dead = [v for v in range(DIST_N) if alive[v] == 0]
+    for u in range(DIST_N):
+        if alive[u] == 0:
+            continue
+        peers = [v for v in range(DIST_N) if v != u]
+        for xs, signs in ((x, [1 if u < v else -1 for v in peers] + [1]),
+                          (zero, [1] + [1 if u < v else -1 for v in dead])):
+            k = keys(len(signs))
+            got["bon_mask"] = max(got["bon_mask"], u32_diff(
+                bm.bon_mask(xs, k, signs, base), ref.bon_mask_ref(xs, k, signs, base)))
+            checks += 1
+    sync()
+    for k, v in got.items():
+        err[k] = max(err[k], v)
+    if any(got.values()):
+        fail(f"dist: a kernel differs from its plain version at the dist path's shapes: {got}")
+    return got, checks
+
+
+def dist_paths(dev, launches, err, smi):
+    """The dist path: DIST_N spawned ranks sharing the card (``transport=
+    "host"``, each rank's allocator set to DIST_ALLOC_CONF), one learner
+    each, against the same work in this process on the card; adds the
+    ranks' launches (summed) to ``launches`` and the kernels' checks at
+    the path's shapes to ``err``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import init_world
+    from repro_torch.train import tree_size
+
+    # nccl with fewer cards than ranks is refused, not swapped for gloo
+    try:
+        init_world(0, torch.cuda.device_count() + 1, dist.HashStore(), device="cuda")
+    except RuntimeError as e:
+        say(f"phase 5 dist: nccl refused for {torch.cuda.device_count() + 1} ranks on "
+            f"{torch.cuda.device_count()} card(s): {e}")
+    else:
+        fail("dist: nccl with fewer cards than ranks did not raise")
+    if dist.is_initialized():
+        fail("dist: a process group was left running")
+
+    # the same work in this process, on the card
+    t0 = time.perf_counter()
+    values = torch.stack([dist_row(dev, r) for r in range(DIST_N)])
+    want = {}
+    for name in DIST_ROUNDS:
+        mode, akw, kw, _ = dist_round_args(name)
+        v = values.clone()
+        if "alive" in kw:
+            v[torch.from_numpy(kw["alive"] == 0).to(dev)] = float("nan")
+        want[name] = digest(make_aggregator(mode, DIST_N, device=dev, **akw)
+                            .aggregate(v, 2**32 - 5, **kw))
+        del v
+    del values
+    model, steps, fed = dist_model(dev, DIST_LAYERS)
+    P = tree_size(model.tree())
+    want["train"] = dist_train(model, steps)
+    del model
+    torch.cuda.empty_cache()
+    want["fedavg"] = dist_fedavg(dist_model(dev, DIST_LAYERS)[0], fed)
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+
+    held = (torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev))
+    t0 = time.perf_counter()
+    ranks = spawn_dist_ranks(DIST_LAYERS)
+    ranks_s = time.perf_counter() - t0
+    how = (f"{DIST_N} ranks sharing {torch.cuda.device_count()} card ({smi}), gloo through "
+           f"pinned host buffers")
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
+    padded = ranks[0]["padded_size"]
+    t1 = time.perf_counter()
+    kerr, checks = check_dist_kernels(dev, (V_MAIN, V_MAIN + 1, padded, P + 1), err)
+    say(f"phase 4 main path dist ({how}): rounds {list(DIST_ROUNDS)} at [{DIST_N} ranks x "
+        f"{V_MAIN}], {DIST_LAYERS}-layer {TS_ARCH} train step x2 and FedAvg round; "
+        f"{ranks_s:.1f} s spawned, {one_s:.1f} s for the same in one process; launches summed "
+        f"over the ranks {counts}; the kernels at the path's shapes (V = {V_MAIN}, "
+        f"{V_MAIN + 1}, padded_size {padded}, P + 1 = {P + 1}; seg {V_MAIN // DIST_N} from "
+        f"words s*seg; bon_mask with 4 keys and 2) == plain: {checks} comparisons in "
+        f"{time.perf_counter() - t1:.1f} s, max |err| {kerr}")
+    missing = sorted(k for k in DIST_KERNELS if counts[k] <= 0)
+    if missing:
+        fail(f"path dist never launched {missing} in its ranks: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    # phase 5: every rank's answer equal to the others' and to one process's
+    for key in list(DIST_ROUNDS) + ["train", "fedavg"]:
+        got = [r["rounds"][key] if key in DIST_ROUNDS else r[key] for r in ranks]
+        if any(g != want[key] for g in got):
+            fail(f"dist {key}: the ranks' results differ from one process's on the card "
+                 f"(ranks {got}, one process {want[key]})")
+    say(f"phase 5 dist: every rank's mean of {list(DIST_ROUNDS)} torch.equal to the others' "
+        f"and to make_aggregator(...).aggregate of the stacked rows on the card (sha256 "
+        f"{ {k: want[k][:12] for k in DIST_ROUNDS} })")
+    say(f"phase 5 dist train step: every rank's parameters after 2 steps (learner "
+        f"{DIST_DEAD} dead in the second) word for word the one-process make_train_step's "
+        f"(sha256 {want['train'][0][:12]}); losses {[round(x, 4) for x in want['train'][1]]}; "
+        f"ZeRO-1 master {ranks[0]['master_words']} words a rank of padded_size "
+        f"{ranks[0]['padded_size']}")
+    say(f"phase 5 dist fedavg: every rank's published delta and parameters word for word the "
+        f"one-process round_fn's (sha256 {want['fedavg'][0][:12]}, {want['fedavg'][1][:12]}); "
+        f"local loss {want['fedavg'][2]:.4f}")
+    if any(r["master_words"] * DIST_N != r["padded_size"] for r in ranks):
+        fail("dist train step: a rank's master vector is not padded_size / n words")
+
+    # phase 6: walls, the transport's share, peaks and per-rank kernel times
+    for name in DIST_ROUNDS:
+        walls = [r["round_ms"][name] for r in ranks]
+        tr = [r["round_transport_ms"][name] for r in ranks]
+        say(f"phase 6 dist round {name} ({how}): wall {max(walls):.1f} ms (ranks "
+            f"{[round(w, 1) for w in walls]}); in collectives {[round(t, 1) for t in tr]} ms")
+    for i in range(2):
+        walls = [r["step_ms"][i] for r in ranks]
+        tr = [r["step_transport_ms"][i] for r in ranks]
+        say(f"phase 6 dist train step {i + 1} ({how}): wall {max(walls):.1f} ms; in "
+            f"collectives {[round(t, 1) for t in tr]} ms, transport share "
+            f"{[f'{t / w:.0%}' for t, w in zip(tr, walls)]}")
+    say(f"phase 6 dist fedavg ({how}): round wall {max(r['fedavg_ms'] for r in ranks):.1f} ms")
+    say(f"phase 6 dist peak memory ({how}): train step "
+        f"{[round(r['train_peak'] / 1e9, 2) for r in ranks]} GB a rank, FedAvg "
+        f"{[round(r['fedavg_peak'] / 1e9, 2) for r in ranks]} GB a rank (allocated; the "
+        f"allocator's reserve {[round(r['train_reserved'] / 1e9, 2) for r in ranks]} and "
+        f"{[round(r['fedavg_reserved'] / 1e9, 2) for r in ranks]} GB, {DIST_ALLOC_CONF}); "
+        f"this process held {held[0] / 1e9:.2f} GB allocated, {held[1] / 1e9:.2f} GB "
+        f"reserved while they ran")
+    for k in DIST_KERNELS:
+        say(f"phase 6 dist kernel {k} ({how}): CUDA events, one rank at a time, ms "
+            f"{[round(r['kernel_ms'][k], 4) for r in ranks]} by rank")
+
+
+def nccl_rounds_rank():
+    """One rank of ``--nccl4``'s rounds under ``torch.distributed.run``, a
+    card each over NCCL: each round of DIST_ROUNDS through
+    ``aggregate_rank`` against one process's ``aggregate`` of the stacked
+    rows on this rank's card."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import close_world, collectives, init_world
+    world = init_world()
+    dev, r = world.device, world.rank
+    values = torch.stack([dist_row(dev, q) for q in range(world.size)])
+    for name in DIST_ROUNDS:
+        mode, akw, kw, dead = dist_round_args(name, r)
+        row = torch.full_like(values[0], float("nan")) if dead else values[r]
+        w = kw.pop("weights", None)
+        agg = make_aggregator(mode, world.size, device=dev, **akw)
+        dist.barrier()
+        sync()
+        collectives.reset_stats(timed=True)
+        t0 = time.perf_counter()
+        got = agg.aggregate_rank(row, 2**32 - 5, weights=w, world=world, **kw)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        mode, akw, kw, _ = dist_round_args(name)
+        v = values.clone()
+        if "alive" in kw:
+            v[torch.from_numpy(kw["alive"] == 0).to(dev)] = float("nan")
+        want = make_aggregator(mode, world.size, device=dev, **akw).aggregate(v, 2**32 - 5, **kw)
+        if not torch.equal(got, want):
+            fail(f"rank {r}: the nccl round {name} differs from one process's")
+        say(f"nccl rank {r} round {name}: torch.equal to one process's; wall {ms:.2f} ms, in "
+            f"collectives {collectives.stats['seconds'] * 1e3:.2f} ms")
+    close_world()
+
+
+def nccl_paths():
+    """``python3 chip_smoke.py --nccl4``, on a host with four cards: the
+    dist rounds over NCCL, a card a rank, then the training launcher under
+    ``torch.distributed.run`` at internlm2-1.8b's full 24 layers (a card a
+    rank, NCCL_STEPS steps); each rank's peak memory and the steps' walls."""
+    import tempfile
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        fail(f"--nccl4 needs four cards, torch sees {cards}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    say(smi.replace("\n", " | "))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4"]
+    from repro_torch.kernels import build
+    build.build()  # once, before the ranks
+    t0 = time.perf_counter()
+    proc = subprocess.run(run + [os.path.join(ROOT, "chip_smoke.py"), "--nccl-rank"], env=env,
+                          capture_output=True, text=True, timeout=600)
+    say("\n".join(line for line in proc.stdout.splitlines() if line.startswith("nccl rank")))
+    if proc.returncode != 0:
+        fail(f"nccl rounds: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    say(f"nccl rounds: {time.perf_counter() - t0:.1f} s ({smi.splitlines()[0]} x{cards})")
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "m.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(run + ["-m", "repro_torch.launch.train", "--arch", TS_ARCH,
+                                     "--steps", str(NCCL_STEPS), "--model-shards", "1",
+                                     "--metrics", metrics],
+                              env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        say("\n".join(line for line in lines if "rank" in line or line.startswith("done")))
+        if proc.returncode != 0:
+            fail(f"nccl launcher: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        recs = [json.loads(line) for line in open(metrics) if line.strip()]
+    times = [r["time"] for r in recs]
+    steps = [round((b - a) * 1e3, 1) for a, b in zip(times, times[1:])]
+    say(f"nccl launcher ({smi.splitlines()[0]} x{cards}, nccl, a card a rank): {TS_ARCH} at 24 "
+        f"layers, {NCCL_STEPS} steps in {wall:.1f} s with start-up; losses "
+        f"{[round(r['loss'], 4) for r in recs]}; steps 2.. wall {steps} ms (rank 0's metrics)")
+
+
 def main():
+    if "--dist-depth" in sys.argv:
+        return dist_depth([int(a) for a in sys.argv[sys.argv.index("--dist-depth") + 1:]])
+    if "--nccl-rank" in sys.argv:
+        return nccl_rounds_rank()
+    if "--nccl4" in sys.argv:
+        return nccl_paths()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on a GPU")
     dev = torch.device("cuda")
@@ -2281,6 +2855,8 @@ def main():
     timed("serve", serve_paths, dev, launches, smi)
     torch.cuda.empty_cache()
     timed("dry run", dryrun_paths, dev, launches, smi)
+    torch.cuda.empty_cache()
+    timed("dist", dist_paths, dev, launches, err, smi)
     say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
         f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")

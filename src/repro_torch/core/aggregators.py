@@ -1,12 +1,18 @@
-"""Aggregator interface — SAFE and its baselines on one device.
+"""Aggregator interface — SAFE and its baselines.
 
 ``SecureAggregator.aggregate`` takes the learner-major [n, V] matrix
-(pod-major [P, n, V] with a pod axis) and returns the published [V] mean:
-the JAX package's ``aggregate_sharded`` without the mesh, plus the
-per-round initiator ``rotate`` its per-rank ``aggregate`` takes. Every
-mode of the reference runs: insec, saf, safe (sequential or pipelined)
-and bon, each with or without ``pod_axis``. It runs on ``device`` (the
-card by default); values given elsewhere are moved there first.
+(pod-major [P, n, V] with a pod axis) on one device and returns the
+published [V] mean: the JAX package's ``aggregate_sharded`` without the
+mesh, plus the per-round initiator ``rotate`` its per-rank ``aggregate``
+takes. Every mode of the reference runs: insec, saf, safe (sequential or
+pipelined) and bon, each with or without ``pod_axis``. It runs on
+``device`` (the card by default); values given elsewhere are moved there
+first.
+
+With one learner per process (``repro_torch.dist``), ``aggregate_rank``
+is the reference's per-rank ``aggregate`` and ``aggregate_sharded`` its
+``shard_map`` entry over a live process group; there is no pod axis
+across processes yet.
 
 Key provisioning (DESIGN.md §6): a ``provisioning_seed`` models the
 Round-0 out-of-band exchange (hop keys are KDF(provisioning, i, j)); each
@@ -22,14 +28,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core.bon import bon_aggregate
-from repro_torch.core.chain import (chain_aggregate_pipelined,
-                                    chain_aggregate_sequential)
-from repro_torch.core.insec import insec_aggregate
+from repro_torch.core.bon import bon_aggregate, bon_rank
+from repro_torch.core.chain import (chain_aggregate_pipelined, chain_aggregate_sequential,
+                                    chain_rank_pipelined, chain_rank_sequential)
+from repro_torch.core.insec import insec_aggregate, insec_rank
 from repro_torch.core.session import seed_words
 from repro_torch.core.types import ChainConfig, RoundKeys
 from repro_torch.crypto.np_impl import derive_key_np, threefry2x32_np
 from repro_torch.crypto.prf import RoundCounter
+from repro_torch.dist.world import rank_world
 
 
 def make_round_keys(provisioning_seed: int, learner_master: int,
@@ -118,6 +125,59 @@ class SecureAggregator:
         if cfg.pipelined:
             return chain_aggregate_pipelined(values, keys, cfg, alive, weights)
         return chain_aggregate_sequential(values, keys, cfg, alive, weights, rotate)
+
+    def check_world(self, world) -> None:
+        """Raise unless ``world`` holds one learner a rank of this
+        aggregator, without a pod axis (pods across ranks are not ported)."""
+        if world.size != self.cfg.num_learners:
+            raise ValueError(f"{world.size} ranks for {self.cfg.num_learners} learners: one "
+                             "learner a rank")
+        if self.cfg.pod_axis is not None:
+            raise ValueError("the per-rank round has no pod axis yet: run pods on one card")
+
+    def aggregate_rank(self, values, counter_base: int = 0, alive=None, weights=None,
+                       domain: int = 0, rotate: int = 0, *, world) -> torch.Tensor:
+        """Secure mean with one learner per rank: the reference's per-rank
+        ``aggregate`` (inside ``shard_map``), over ``world``
+        (``repro_torch.dist``). ``values`` is this rank's f32[V], ``alive``
+        the 0/1 [n] bitmap (the same on every rank), ``weights`` this rank's
+        scalar weight (read when ``cfg.weighted``), ``rotate`` and
+        ``domain`` as in ``aggregate``. Keys and the initiator election
+        are derived on the host from the same seeds on every rank; nothing
+        of them is sent. Returns the published f32[V] mean on every rank,
+        bit for bit ``aggregate``'s of the stacked rows."""
+        self.check_world(world)
+        values = torch.as_tensor(values, dtype=torch.float32).to(world.device).contiguous()
+        if values.dim() != 1:
+            raise ValueError(f"values: expected this rank's [V] vector, got {tuple(values.shape)}")
+        cfg = self.cfg
+        if cfg.mode == "insec":
+            return insec_rank(values, cfg, world, alive, weights)
+        keys = make_round_keys(self.provisioning_seed, self.learner_master,
+                               counter_base, cfg.num_learners, domain)
+        if cfg.mode == "bon":
+            return bon_rank(values, keys, cfg, world, alive)
+        if cfg.pipelined:
+            return chain_rank_pipelined(values, keys, cfg, world, alive, weights)
+        return chain_rank_sequential(values, keys, cfg, world, alive, weights, rotate)
+
+    def aggregate_sharded(self, mesh, global_values, counter_base: int = 0, alive=None,
+                          weights=None) -> torch.Tensor:
+        """The reference's ``aggregate_sharded`` on a live process group: each
+        rank takes its row of the learner-major f32[n, V] ``global_values``
+        (and of the f32[n] ``weights``) and returns the published [V] mean,
+        the same on every rank. ``mesh`` is a ``repro_torch.dist.World`` or
+        a ``DeviceMesh`` over the live group (its ``cfg.axis`` dimension
+        holds the learners)."""
+        world = rank_world(mesh, self.cfg.axis)
+        if world is None:
+            raise ValueError("aggregate_sharded needs a World or a mesh over the live "
+                             "process group init_world started")
+        row = torch.as_tensor(global_values)[world.rank]
+        w = None if weights is None else torch.as_tensor(
+            np.asarray(weights, np.float32) if not isinstance(weights, torch.Tensor)
+            else weights).reshape(-1)[world.rank]
+        return self.aggregate_rank(row, counter_base, alive, w, world=world)
 
     def aggregate_tree(self, tree: Dict[str, torch.Tensor], counter_base: int = 0,
                        alive=None, weights=None) -> Dict[str, torch.Tensor]:

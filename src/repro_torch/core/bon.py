@@ -30,6 +30,7 @@ from repro_torch.core.chain import host_alive, pod_rounds
 from repro_torch.core.types import ChainConfig, RoundKeys
 from repro_torch.crypto.fixedpoint import FixedPointCodec, ring_add, ring_sub
 from repro_torch.crypto.np_impl import derive_key_np, threefry2x32_np
+from repro_torch.dist import collectives
 from repro_torch.kernels import ops
 
 _TAG_PAIRWISE = 0x42  # 'B'
@@ -79,3 +80,33 @@ def bon_aggregate(
                                   scale_bits=sb)
         total = ring_sub(ring_add(total, y_u), correction)
     return codec.decode_mean(total, max(np.float32(len(live)), np.float32(1.0)))
+
+
+def bon_rank(values: torch.Tensor, keys: RoundKeys, cfg: ChainConfig, world,
+             alive=None) -> torch.Tensor:
+    """``bon_aggregate`` with one learner per rank: this rank's f32[V] row.
+    A live rank masks with one ``bon_mask`` launch and computes its share
+    of the unmasking with another; the two uint32 ``psum``s (mod 2^32, so
+    in any order the one-card sum's words) give the server's sum and its
+    correction. A dead rank sends zeros."""
+    n, sb, u = cfg.num_learners, cfg.scale_bits, world.rank
+    alive = host_alive(alive, n)
+    codec = FixedPointCodec(sb)
+    base = int(keys.counter_base) & 0xFFFFFFFF
+    zero = torch.zeros(values.shape[0], dtype=torch.float32, device=values.device)
+    if alive[u] > 0:
+        pair = pair_keys(keys.provisioning_seed, n)
+        dead = [v for v in range(n) if alive[v] <= 0]
+        b_u = derive_key_np(keys.learner_seed[u], _TAG_SELFMASK)
+        peers = [v for v in range(n) if v != u]
+        y = ops.bon_mask(values, [pair[u, v] for v in peers] + [b_u],
+                         [1 if u < v else -1 for v in peers] + [1], base, scale_bits=sb)
+        correction = ops.bon_mask(zero, [b_u] + [pair[u, v] for v in dead],
+                                  [1] + [1 if u < v else -1 for v in dead], base,
+                                  scale_bits=sb)
+    else:
+        y = correction = torch.zeros(values.shape[0], dtype=torch.int32,
+                                     device=values.device).view(torch.uint32)
+    total = ring_sub(collectives.psum(y, world), collectives.psum(correction, world))
+    live = int(np.sum(alive > 0))
+    return codec.decode_mean(total, max(np.float32(live), np.float32(1.0)))

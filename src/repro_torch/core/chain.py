@@ -50,6 +50,7 @@ from repro_torch.core.types import ChainConfig, RoundKeys
 from repro_torch.crypto.fixedpoint import (FixedPointCodec, device_scalar,
                                            ring_add, ring_sub)
 from repro_torch.crypto.np_impl import derive_key_np, threefry2x32_np
+from repro_torch.dist import collectives
 from repro_torch.kernels import ops
 from repro_torch.kernels.build import upload
 
@@ -439,3 +440,148 @@ def chain_aggregate_batched(
         counts = upload(np.maximum(counts, np.float32(1.0)), dev)
         group_avgs.append(_group_mean(codec, total, counts, cfg.weighted))
     return _publish(group_avgs, cfg.subgroups)
+
+
+# ---- one learner per rank (torch.distributed) ---------------------------------------
+
+def _rank_payload(values: torch.Tensor, cfg: ChainConfig, weight) -> torch.Tensor:
+    """This rank's payload: ``_payload`` of its [V] row and scalar weight."""
+    if cfg.mode not in ("safe", "saf"):
+        raise ValueError(f"chain modes are 'safe'/'saf', got {cfg.mode!r}")
+    w = None if weight is None else torch.as_tensor(weight, dtype=torch.float32).reshape(1)
+    return _payload(values[None], cfg, w)[0]
+
+
+def publish_rank(avg: Optional[torch.Tensor], posters: Sequence[int], like: torch.Tensor,
+                 subgroups: int, world) -> torch.Tensor:
+    """``_publish`` across ranks: rank ``posters[g]`` holds group g's average
+    (``avg``; None on the other ranks), each poster broadcasts it, and every
+    rank publishes the same f32 mean of the g averages as the one-card
+    ``_publish``. ``like`` gives a non-poster's shape and dtype."""
+    avgs = [collectives.broadcast(avg if world.rank == src else torch.empty_like(like),
+                                  src, world) for src in posters]
+    return _publish(avgs, subgroups)
+
+
+def chain_rank_sequential(
+    values: torch.Tensor,
+    keys: RoundKeys,
+    cfg: ChainConfig,
+    world,
+    alive=None,
+    weight=None,
+    rotate: int = 0,
+) -> torch.Tensor:
+    """``chain_aggregate_sequential`` with one learner per rank: this rank's
+    f32[V] ``values`` (and scalar ``weight``), the published mean on every
+    rank, bit for bit the one-card round's.
+
+    The masked vector goes point to point along the group's hop order, one
+    message a hop: the initiator posts ``mask_add`` ⊕ R to its successor,
+    each later rank receives, runs ``chain_combine`` on its own row (a dead
+    rank on a zero row) and sends on, and the last hop returns the vector
+    to the initiator, which unmasks and decodes. The reference's lockstep
+    ``ppermute`` also moves zeros through the idle ranks; the ciphertexts
+    and the mean are the same. Each group's initiator then broadcasts its
+    average (``publish_rank``)."""
+    n, m, sb = cfg.num_learners, cfg.group_size, cfg.scale_bits
+    rank, topo = world.rank, cfg.topology
+    alive = host_alive(alive, n)
+    codec = FixedPointCodec(sb)
+    payload = _rank_payload(values, cfg, weight)
+    zero = torch.zeros(payload.shape[0], dtype=torch.float32, device=payload.device)
+    row = payload if alive[rank] > 0 else zero
+    base = int(keys.counter_base) & 0xFFFFFFFF
+    if cfg.mode == "safe":
+        k_out, k_in = _hop_keys(keys.provisioning_seed, cfg)
+    grp = topo.group_of(rank)
+    order = topo.hop_order(alive, rotate, grp)
+    pos = order.index(rank)
+    prev, nxt = order[pos - 1], order[(pos + 1) % m]
+    shape, avg = (payload.shape[0],), None
+    if pos == 0:  # the initiator posts, then unmasks what comes back
+        R = _initiator_mask(keys.learner_seed[rank], zero, base, sb)
+        if cfg.mode == "safe":
+            c = ring_add(ops.mask_add(row, k_out[rank], base, scale_bits=sb), R)
+        else:
+            c = ring_add(codec.encode(row), R)
+        collectives.send(c, nxt, world)
+        c = collectives.recv(shape, torch.uint32, prev, world)
+        if cfg.mode == "safe":
+            c = ring_sub(c, ops.mask_add(zero, k_in[rank], base, scale_bits=sb))
+        avg = _group_mean(codec, ring_sub(c, R), _group_count(cfg, alive, grp),
+                          cfg.weighted)
+    else:
+        c = collectives.recv(shape, torch.uint32, prev, world)
+        if cfg.mode == "safe":
+            c = ops.chain_combine(c, row, k_in[rank], k_out[rank], base, scale_bits=sb)
+        else:
+            c = ring_add(c, codec.encode(row))
+        collectives.send(c, nxt, world)
+    like = zero[:-1] if cfg.weighted else zero
+    return publish_rank(avg, topo.elect_initiators(alive, rotate), like, cfg.subgroups,
+                        world)
+
+
+def chain_rank_pipelined(
+    values: torch.Tensor,
+    keys: RoundKeys,
+    cfg: ChainConfig,
+    world,
+    alive=None,
+    weight=None,
+) -> torch.Tensor:
+    """``chain_aggregate_pipelined`` with one learner per rank, bit for bit
+    the one-card round's.
+
+    This rank (local index l) starts segment l, masked with its R and its
+    outgoing pad from word l·seg; then m − 1 lockstep ``ppermute`` steps
+    along the ring, at step t combining the segment (l − t) mod m it now
+    holds — one ``chain_combine_batched`` row whose pads start at word
+    ((l − t) mod m)·seg, which may be odd (mid Threefry block); then the
+    last hop returns segment l, which it unmasks. A tiled ``all_gather``
+    of the unmasked segments gives every rank its group's ring sum; with
+    subgroups, each group's first rank broadcasts the group's average."""
+    n, m, sb = cfg.num_learners, cfg.group_size, cfg.scale_bits
+    rank, topo = world.rank, cfg.topology
+    alive = host_alive(alive, n)
+    codec = FixedPointCodec(sb)
+    payload = _rank_payload(values, cfg, weight)
+    W = payload.shape[0]
+    seg = -(-W // m)
+    x = payload.new_zeros(m * seg)
+    if alive[rank] > 0:  # a dead rank's row is all zero, as on one card
+        x[:W] = payload
+    x = x.view(m, seg)
+    base = int(keys.counter_base) & 0xFFFFFFFF
+    lrank, g0 = topo.local_index(rank), topo.group_start(rank)
+    perm = topo.ring_permutation()
+    zero = torch.zeros(seg, dtype=torch.float32, device=x.device)
+    R = _initiator_mask(keys.learner_seed[rank], zero, base, sb)
+    if cfg.mode == "safe":
+        k_out, k_in = _hop_keys(keys.provisioning_seed, cfg)
+        c = ring_add(ops.mask_add(x[lrank], k_out[rank], base, offset=lrank * seg,
+                                  scale_bits=sb), R)
+        for t in range(1, m):
+            c = collectives.ppermute(c, perm, world)
+            s = (lrank - t) % m
+            c = ops.chain_combine_batched(c[None], x[s][None], k_in[rank][None],
+                                          k_out[rank][None], [base], starts=[s * seg],
+                                          scale_bits=sb)[0]
+        c = collectives.ppermute(c, perm, world)
+        c = ring_sub(c, ops.mask_add(zero, k_in[rank], base, offset=lrank * seg,
+                                     scale_bits=sb))
+    else:  # SAF: the initiator masks alone, no hop pads
+        c = ring_add(codec.encode(x[lrank]), R)
+        for t in range(1, m):
+            c = collectives.ppermute(c, perm, world)
+            c = ring_add(c, codec.encode(x[(lrank - t) % m]))
+        c = collectives.ppermute(c, perm, world)
+    total = collectives.all_gather(ring_sub(c, R), world, tiled=True)
+    avg = _group_mean(codec, total[g0 * seg:(g0 + m) * seg][:W],
+                      _group_count(cfg, alive, topo.group_of(rank)), cfg.weighted)
+    if cfg.subgroups == 1:  # every member already holds it: no psum
+        return avg
+    posters = [g * m for g in range(cfg.subgroups)]
+    return publish_rank(avg if rank in posters else None, posters, avg, cfg.subgroups,
+                        world)

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.core.chain import host_alive, pod_rounds
 from repro_torch.core.types import ChainConfig
+from repro_torch.dist import collectives
 from repro_torch.kernels.build import upload
 
 
@@ -30,3 +31,16 @@ def insec_aggregate(values: torch.Tensor, cfg: ChainConfig, alive=None,
         w = weights.to(values.device, torch.float32) * alive
     num = (values * w[:, None]).sum(dim=0)
     return num / torch.clamp_min(w.sum(), 1e-12)
+
+
+def insec_rank(values: torch.Tensor, cfg: ChainConfig, world, alive=None,
+               weight=None) -> torch.Tensor:
+    """``insec_aggregate`` with one learner per rank: the ``psum``s of v·w
+    and w, each the one-card sum over the learner dim of the same
+    products, so the mean is the one-card mean bit for bit."""
+    a = host_alive(alive, cfg.num_learners)[world.rank]
+    w = torch.full((), float(a), dtype=torch.float32, device=values.device)
+    if weight is not None:
+        w = torch.as_tensor(weight, dtype=torch.float32).to(values.device).reshape(()) * w
+    num = collectives.psum(values * w, world)
+    return num / torch.clamp_min(collectives.psum(w, world), 1e-12)

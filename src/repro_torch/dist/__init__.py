@@ -1,0 +1,14 @@
+"""SAFE across processes: one learner per ``torch.distributed`` rank.
+
+``world`` starts the process group (``init_world``; ``spawn`` for n ranks
+on one host) and ``collectives`` holds the counterparts of the JAX
+package's ``jax.lax`` collectives over it. The per-rank rounds are
+``core.SecureAggregator.aggregate_rank`` and ``aggregate_sharded``; the
+per-rank FedAvg round and train step take a ``world`` (or a live mesh).
+Importing this package starts no process group.
+"""
+from repro_torch.dist import collectives
+from repro_torch.dist.world import TRANSPORTS, World, close_world, init_world, rank_world, spawn
+
+__all__ = ["World", "TRANSPORTS", "init_world", "close_world", "rank_world", "spawn",
+           "collectives"]

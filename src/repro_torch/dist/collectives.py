@@ -1,0 +1,216 @@
+"""The JAX package's collectives over a process group.
+
+Each function takes this rank's tensor and a ``World`` (``dist.world``)
+and is the counterpart of one ``jax.lax`` collective inside ``shard_map``
+over the learner axis:
+
+- ``axis_index`` — the rank;
+- ``ppermute(x, perm)`` — ``batch_isend_irecv`` over the (src, dst)
+  pairs (``topo.ring_permutation()``); a rank that no pair sends to gets
+  zeros, as in JAX;
+- ``send`` / ``recv`` — one point-to-point message (the sequential
+  chain's hops);
+- ``all_gather(x, tiled)`` — stacked [n, ...] or, tiled, concatenated
+  along dim 0; ``gather_to_host`` — the tiled gather on one rank only,
+  in host memory (a checkpoint's slices);
+- ``psum`` — f32: an all-gather, then ``sum(dim=0)`` over the [n, ...]
+  stack, the one-card port's sum over the learner dim on the same
+  tensor, so the bits are that sum's (a backend's all-reduce adds in an
+  order of its own); uint32: the sum mod 2^32;
+- ``pmean`` — f32: an all-gather, then ``mean(dim=0)``;
+- ``broadcast(x, src)`` — ``src``'s tensor on every rank.
+
+uint32 crosses the wire as its int32 view, the bits unchanged (neither
+gloo nor NCCL takes ``torch.uint32``). With the ``host`` transport a CUDA
+tensor is copied to a pinned host buffer before the message and back to
+the card after it. ``reset_stats(timed=True)`` times the collectives
+from then on: ``stats["seconds"]`` adds up the seconds this rank spent
+in them, the device synchronised before each (queued kernels are not the
+transport's) and after it (an NCCL call returns once its work is queued,
+so only then has the message arrived). Untimed, the default, no
+collective synchronises the device.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.crypto.fixedpoint import ring_add
+
+#: whether the collectives are timed, and their seconds since ``reset_stats``
+stats = {"timed": False, "seconds": 0.0}
+
+
+def reset_stats(timed: bool = False) -> None:
+    """Zero ``stats["seconds"]`` and time the collectives from now on, or not."""
+    stats.update(timed=timed, seconds=0.0)
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def axis_index(world) -> int:
+    """``jax.lax.axis_index`` over the learner axis: this rank."""
+    return world.rank
+
+
+class _Timed:
+    """Adds one collective's seconds to ``stats`` when they are timed."""
+
+    def __init__(self, world):
+        self.world = world
+
+    def _sync(self):
+        if self.world.device.type == "cuda":
+            torch.cuda.synchronize(self.world.device)
+
+    def __enter__(self):
+        if stats["timed"]:
+            self._sync()
+            self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if stats["timed"]:
+            self._sync()
+            stats["seconds"] += time.perf_counter() - self.t0
+
+
+def _wire(x: torch.Tensor, world) -> torch.Tensor:
+    """The tensor that crosses: uint32 as its int32 view, and with the host
+    transport a CUDA tensor copied to a pinned host buffer."""
+    t = x.contiguous()
+    if t.dtype == torch.uint32:
+        t = t.view(torch.int32)
+    if world.stage and t.is_cuda:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t)
+        return buf
+    return t
+
+
+def _buffer(shape, dtype: torch.dtype, world) -> torch.Tensor:
+    """A receive buffer of ``shape`` for a tensor of ``dtype``."""
+    if dtype == torch.uint32:
+        dtype = torch.int32
+    if world.stage:
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    return torch.empty(shape, dtype=dtype, device=world.device)
+
+
+def _back(t: torch.Tensor, dtype: torch.dtype, world) -> torch.Tensor:
+    """A received wire tensor as ``dtype`` on the rank's device."""
+    if t.device != world.device:
+        t = t.to(world.device)
+    return t.view(torch.uint32) if dtype == torch.uint32 else t
+
+
+def send(x: torch.Tensor, dst: int, world) -> None:
+    """Send ``x`` to rank ``dst`` (blocks until it is handed off)."""
+    with _Timed(world):
+        _dist().send(_wire(x, world), world.global_rank(dst), group=world.group)
+
+
+def recv(shape, dtype: torch.dtype, src: int, world) -> torch.Tensor:
+    """Receive a tensor of ``shape`` and ``dtype`` from rank ``src``."""
+    buf = _buffer(shape, dtype, world)
+    with _Timed(world):
+        _dist().recv(buf, world.global_rank(src), group=world.group)
+        out = _back(buf, dtype, world)
+    return out
+
+
+def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]], world) -> torch.Tensor:
+    """``jax.lax.ppermute``: for each (src, dst) pair, src's ``x`` arrives
+    at dst; a rank that is no pair's dst gets zeros."""
+    dist = _dist()
+    me = world.rank
+    dsts = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    if len(srcs) > 1:
+        raise ValueError(f"rank {me} is the destination of {len(srcs)} pairs")
+    with _Timed(world):
+        wire = _wire(x, world)
+        buf = _buffer(x.shape, x.dtype, world)
+        ops = [dist.P2POp(dist.isend, wire, world.global_rank(d), group=world.group)
+               for d in dsts]
+        ops += [dist.P2POp(dist.irecv, buf, world.global_rank(s), group=world.group)
+                for s in srcs]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if not srcs:
+            return torch.zeros_like(x)
+        out = _back(buf, x.dtype, world)
+    return out
+
+
+def all_gather(x: torch.Tensor, world, tiled: bool = False) -> torch.Tensor:
+    """``jax.lax.all_gather``: every rank's ``x`` stacked [n, ...] in rank
+    order, or with ``tiled`` concatenated along dim 0."""
+    dist = _dist()
+    n = world.size
+    with _Timed(world):
+        wire = _wire(x, world)
+        out = _buffer((n,) + tuple(x.shape), x.dtype, world)
+        if world.transport == "nccl":
+            dist.all_gather_into_tensor(out, wire, group=world.group)
+        else:
+            dist.all_gather(list(out.unbind(0)), wire, group=world.group)
+        out = _back(out, x.dtype, world)
+    if tiled:
+        return out.reshape((n * x.shape[0],) + tuple(x.shape[1:])) if x.dim() else out
+    return out
+
+
+def gather_to_host(x: torch.Tensor, dst: int, world) -> Optional[torch.Tensor]:
+    """The tiled ``all_gather`` of ``x`` on rank ``dst`` only, in host
+    memory (None on the other ranks): ``dst`` receives one rank's tensor at
+    a time, so its device holds one more ``x`` at most."""
+    if world.rank != dst:
+        send(x, dst, world)
+        return None
+    n = x.shape[0]
+    out = torch.empty((world.size * n,) + tuple(x.shape[1:]), dtype=x.dtype)
+    for r in range(world.size):
+        part = x if r == dst else recv(x.shape, x.dtype, r, world)
+        out[r * n:(r + 1) * n].copy_(part)
+    return out
+
+
+def psum(x: torch.Tensor, world) -> torch.Tensor:
+    """``jax.lax.psum`` over the learners: f32 as the one-card sum over dim
+    0 of the stacked [n, ...] tensor; uint32 mod 2^32."""
+    stack = all_gather(x, world)
+    if x.dtype == torch.uint32:
+        total = stack[0]
+        for row in stack[1:]:
+            total = ring_add(total, row)
+        return total
+    return stack.sum(dim=0)
+
+
+def pmean(x: torch.Tensor, world) -> torch.Tensor:
+    """``jax.lax.pmean`` over the learners: the mean over dim 0 of the
+    stacked [n, ...] tensor."""
+    return all_gather(x, world).mean(dim=0)
+
+
+def broadcast(x: torch.Tensor, src: int, world) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank (the others pass a tensor of the
+    same shape and dtype, whose values are not read)."""
+    with _Timed(world):
+        if world.rank == src:
+            buf = _wire(x, world)
+        else:
+            buf = _buffer(x.shape, x.dtype, world)
+        _dist().broadcast(buf, world.global_rank(src), group=world.group)
+        out = x if world.rank == src else _back(buf, x.dtype, world)
+    return out
+
+
+__all__ = ["axis_index", "ppermute", "send", "recv", "all_gather", "gather_to_host", "psum",
+           "pmean", "broadcast", "stats", "reset_stats"]

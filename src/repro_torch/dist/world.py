@@ -1,0 +1,238 @@
+"""Process groups: one learner per rank.
+
+The counterpart of the JAX package's mesh device list. There each learner
+is one device of the mesh's 'data' axis inside ``shard_map``; here each
+learner is one process of a ``torch.distributed`` group, its rank the
+learner's index and the world size the learner count n.
+
+The transport follows the device, and is never chosen silently:
+
+- CPU ranks talk over ``gloo``;
+- CUDA ranks with a card each talk over ``nccl`` (``transport="nccl"``,
+  the default for CUDA): rank r drives card ``local_rank``. Fewer cards
+  on the host than local ranks raises (NCCL refuses two ranks on one
+  card);
+- CUDA ranks that share a card take ``transport="host"`` when the caller
+  asks for it: ``gloo``, each CUDA tensor staged through a pinned host
+  buffer (as gloo's own CUDA all-reduce does), while the vectors and the
+  kernels stay on the card.
+
+``init_world`` starts this process's group (from explicit rank, world
+size and store, or from the environment ``torch.distributed.run`` sets);
+``spawn`` starts n ranks of a function on one host and returns what each
+rank returned with its kernel launch counts.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import tempfile
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+TRANSPORTS = ("nccl", "gloo", "host")
+TIMEOUT_S = 600  # a collective's longest wait for the other ranks
+
+#: this process's world, once ``init_world`` has run
+_CURRENT: Optional["World"] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class World:
+    """One process's view of the learner group.
+
+    ``group`` is the process group the collectives use (None: the default
+    group). ``transport`` is ``nccl``, ``gloo`` (CPU ranks) or ``host``
+    (CUDA ranks through host buffers over gloo)."""
+
+    rank: int
+    size: int
+    device: torch.device
+    transport: str
+    group: Any = None
+
+    @property
+    def backend(self) -> str:
+        return "nccl" if self.transport == "nccl" else "gloo"
+
+    @property
+    def stage(self) -> bool:
+        """True when CUDA tensors cross through pinned host buffers."""
+        return self.transport == "host"
+
+    def global_rank(self, r: int) -> int:
+        """The default group's rank of this group's rank ``r``."""
+        if self.group is None:
+            return r
+        import torch.distributed as dist
+        return dist.get_global_rank(self.group, r)
+
+    def describe(self) -> str:
+        how = {"nccl": "nccl, one card a rank", "gloo": "gloo on the CPU",
+               "host": "gloo through pinned host buffers, ranks sharing a card"}
+        text = f"{self.size} ranks on {self.device.type}, {how[self.transport]}"
+        if self.device.type == "cuda":
+            cards = torch.cuda.device_count()
+            text += f" ({cards} card{'s' if cards != 1 else ''} visible)"
+        return text
+
+
+def rank_world(mesh, axis: str = "data") -> Optional[World]:
+    """The learners' ``World`` when ``mesh`` puts one learner on each rank
+    of a live group: ``mesh`` itself when it is a ``World``; for a
+    ``DeviceMesh`` over the group ``init_world`` started
+    (``launch/mesh.py``), its ``axis`` dimension's group with this
+    process's device and transport. None for no mesh, or a mesh on a fake
+    group (the dry run's placements), where the learners are dim 0 of one
+    device."""
+    if mesh is None or isinstance(mesh, World):
+        return mesh
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_backend() == "fake" or _CURRENT is None:
+        return None
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh has no {axis!r} dimension (dimensions {names})")
+    return World(rank=mesh.get_local_rank(axis), size=mesh.size(names.index(axis)),
+                 device=_CURRENT.device, transport=_CURRENT.transport,
+                 group=mesh.get_group(axis))
+
+
+def _pick(device: str, transport: Optional[str], local_rank: int,
+          local_size: int) -> tuple:
+    """(transport, torch.device) for a rank, or raise."""
+    dev = torch.device(device)
+    if transport is not None and transport not in TRANSPORTS:
+        raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
+    if dev.type == "cpu":
+        if transport not in (None, "gloo"):
+            raise ValueError(f"CPU ranks talk over gloo, not {transport!r}")
+        return "gloo", dev
+    if dev.type != "cuda":
+        raise ValueError(f"device must be cpu or cuda, got {device!r}")
+    if transport == "gloo":
+        raise ValueError("CUDA ranks take transport='nccl' (a card a rank) or "
+                         "transport='host' (ranks sharing a card, staged through host "
+                         "buffers over gloo)")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards == 0:
+        raise RuntimeError(f"device {device!r}: torch sees no CUDA device")
+    if transport == "host":
+        index = dev.index if dev.index is not None else local_rank % cards
+        return "host", torch.device("cuda", index)
+    if cards < local_size:
+        raise RuntimeError(
+            f"nccl needs one card a rank: {local_size} ranks on this host, {cards} "
+            f"card{'s' if cards != 1 else ''} visible (NCCL refuses two ranks on one "
+            "card). Ranks that share a card take transport='host'.")
+    return "nccl", torch.device("cuda", local_rank)
+
+
+def init_world(rank: Optional[int] = None, world_size: Optional[int] = None,
+               store=None, *, device: str = "cuda", transport: Optional[str] = None) -> World:
+    """Start this process's process group and return its ``World``.
+
+    With ``rank`` None the rank, world size and local rank come from the
+    environment ``torch.distributed.run`` sets (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, and ``MASTER_ADDR``/``PORT``
+    for the store). Otherwise ``store`` (a ``torch.distributed`` store
+    every rank shares) is required and every rank is on this host.
+    ``device`` is where the rank keeps its tensors (cuda by default, as
+    every entry point of the port); ``transport`` as the module says. A
+    collective waits at most ``TIMEOUT_S`` for the other ranks."""
+    import torch.distributed as dist
+    global _CURRENT
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running in this process")
+    env = rank is None
+    if env:
+        rank = int(os.environ["RANK"])
+        world_size = int(os.environ["WORLD_SIZE"])
+        local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        local_size = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    else:
+        if world_size is None or store is None:
+            raise ValueError("init_world: give rank, world_size and store together, "
+                             "or none of them (torch.distributed.run's environment)")
+        local_rank, local_size = rank, world_size
+    transport, dev = _pick(device, transport, local_rank, local_size)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    world = World(rank=rank, size=world_size, device=dev, transport=transport)
+    where = dict(init_method="env://") if env else dict(store=store)
+    dist.init_process_group(world.backend, rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S), **where)
+    _CURRENT = world
+    return world
+
+
+def close_world() -> None:
+    """Stop this process's process group."""
+    import torch.distributed as dist
+    global _CURRENT
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _CURRENT = None
+
+
+def _to_host(obj: Any) -> Any:
+    """``obj`` with every tensor moved to the CPU (for the parent)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _rank_main(rank: int, fn: Callable, size: int, device: str, transport: Optional[str],
+               args: Sequence, out_dir: str, threads: Optional[int]) -> None:
+    """One spawned rank: start the group, run ``fn(world, *args)``, write
+    its result and its kernel launch counts for the parent."""
+    from repro_torch.kernels import build
+    if threads:
+        torch.set_num_threads(threads)
+    store = _file_store(out_dir, size)
+    world = init_world(rank, size, store, device=device, transport=transport)
+    try:
+        result = fn(world, *args)
+        if world.device.type == "cuda":
+            torch.cuda.synchronize(world.device)
+        torch.save({"result": _to_host(result), "launches": dict(build.launches)},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        close_world()
+
+
+def _file_store(out_dir: str, size: int):
+    import torch.distributed as dist
+    return dist.FileStore(os.path.join(out_dir, "store"), size)
+
+
+def spawn(fn: Callable, world_size: int, device: str = "cuda", *,
+          transport: Optional[str] = None, args: Sequence = (),
+          threads: Optional[int] = None) -> list:
+    """Run ``fn(world, *args)`` on ``world_size`` ranks of this host, each a
+    spawned process, over a ``FileStore`` in a temporary directory.
+
+    Returns one dict a rank, in rank order: ``result`` (what ``fn``
+    returned, its tensors moved to the CPU) and ``launches`` (that
+    process's ``kernels.build.launches``: the counts are per process, so
+    only the rank can read them). A rank that raises, or exits with
+    another code than 0, fails the call (``torch.multiprocessing``
+    then stops the other ranks). ``fn`` and ``args`` must pickle (``fn``
+    a module-level function); ``threads`` sets each rank's intra-op
+    threads."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as out_dir:
+        mp.start_processes(_rank_main, nprocs=world_size, join=True, start_method="spawn",
+                           args=(fn, world_size, device, transport, tuple(args), out_dir,
+                                 threads))
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                for r in range(world_size)]
+
+
+__all__ = ["World", "TRANSPORTS", "init_world", "close_world", "rank_world", "spawn"]

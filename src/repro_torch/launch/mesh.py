@@ -6,13 +6,17 @@ The counterpart of the JAX package's ``launch/mesh.py``. Single pod:
 Multi-pod: 2×16×16 = 512 devices, axes (pod, data, model): 'pod' is the
 hierarchical-federation axis (paper §5.10).
 
-The port runs on one card, where the learners are dim 0 of a
-learner-major tensor, and has no multi-card step yet. These meshes let the
-dry run (``launch/dryrun.py``) place the production layout's arguments on
-a fake process group: ``start_fake_world(512)`` is the counterpart of the
+The meshes are built over whatever process group is running. On a fake
+one they let the dry run (``launch/dryrun.py``) place the production
+layout's arguments: ``start_fake_world(512)`` is the counterpart of the
 reference's ``--xla_force_host_platform_device_count=512``, one process
-standing in for every rank. Defined as functions, so importing this
-module starts no process group.
+standing in for every rank. On a live group started by
+``repro_torch.dist.init_world`` (one learner a rank), ``make_test_mesh(n,
+1)`` is the learners' mesh: ``dist.rank_world(mesh, "data")`` gives the
+collectives its 'data' dimension's group, and ``aggregate_sharded``, the
+per-rank train step and FedAvg round take the mesh as the reference's
+take theirs. Defined as functions, so importing this module starts no
+process group.
 """
 from __future__ import annotations
 
@@ -61,14 +65,24 @@ def _mesh(shape: tuple, axes: tuple, device_type: str):
     return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+def _device_type(device_type):
+    """The mesh's device type: as given, else the live world's, else cuda."""
+    if device_type is not None:
+        return device_type
+    from repro_torch.dist import world
+    return world._CURRENT.device.type if world._CURRENT is not None else "cuda"
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, device_type)
+    return _mesh(shape, axes, _device_type(device_type))
 
 
-def make_test_mesh(data: int = 4, model: int = 2, pod: int = 1, device_type: str = "cuda"):
-    """Small mesh over the first ranks, for tests."""
+def make_test_mesh(data: int = 4, model: int = 2, pod: int = 1, device_type=None):
+    """Small mesh over the first ranks, for tests (of the live world's
+    device type when ``init_world`` started one)."""
+    device_type = _device_type(device_type)
     if pod > 1:
         return _mesh((pod, data, model), ("pod", "data", "model"), device_type)
     return _mesh((data, model), ("data", "model"), device_type)

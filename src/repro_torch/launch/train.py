@@ -11,9 +11,22 @@ Examples:
   # on the CPU
   ... --device cpu
 
-The learners are dim 0 of one device, so the model axis is 1:
-``--model-shards`` is accepted, so the reference's command lines run, and
-does nothing. Every aggregation round takes fresh counter space from
+  # one learner a process: W ranks, a card each (nccl), or on the CPU (gloo)
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch internlm2-1.8b --smoke --steps 50 --model-shards 1
+  ... --device cpu                  # gloo
+
+On one process the learners are dim 0 of one device, so the model axis is
+1: ``--model-shards`` is accepted, so the reference's command lines run,
+and does nothing. Under ``torch.distributed.run`` (``RANK`` and
+``WORLD_SIZE`` in the environment) each rank is one learner, as in the
+reference: ``--learners`` is the world size (given, it must equal it) and
+``--model-shards`` must be 1 (the model axis across ranks is a later
+slice). Each rank makes only its own learner's batches, steps with the
+per-rank train step (ZeRO-1: it holds its slice of the master vector and
+moments) or FedAvg round, and prints the same lines with its rank; rank 0
+writes the checkpoint, its slices gathered from every rank into the
+one-process format, and a resume gives each rank its slice back. Every aggregation round takes fresh counter space from
 ``SecureAggregator.reserve_round``, given the round's words:
 ``padded_size + 2`` a train step and ``P + 1`` a weighted FedAvg round
 (half as many Threefry counters: each counter pads two words), where the
@@ -44,10 +57,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--batch-per-learner", type=int, default=2)
-    ap.add_argument("--learners", type=int, default=4)
+    ap.add_argument("--learners", type=int, default=None,
+                    help="learners (default 4; the world size under torch.distributed.run)")
     ap.add_argument("--model-shards", type=int, default=2,
-                    help="accepted for the reference's command lines; one card has "
-                         "no model axis")
+                    help="accepted for the reference's command lines; one process has "
+                         "no model axis, and across ranks it must be 1")
     ap.add_argument("--aggregator", default="safe",
                     choices=["safe", "saf", "insec", "bon"])
     ap.add_argument("--pipelined", action="store_true")
@@ -66,6 +80,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _distributed() -> bool:
+    """True under torch.distributed.run (one learner a rank)."""
+    import os
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
 def run(args: argparse.Namespace) -> dict:
     """Train as ``args`` say; returns {"losses", "counters", "params",
     "state"} (``state`` None for ``--federated``), the losses and the
@@ -73,7 +93,7 @@ def run(args: argparse.Namespace) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.ckpt import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.ckpt import latest_step
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import make_aggregator
     from repro_torch.data import make_federated_batches
@@ -81,10 +101,27 @@ def run(args: argparse.Namespace) -> dict:
     from repro_torch.train import (MetricsLogger, make_federated_round,
                                    make_train_step, tree_size)
 
-    dev = torch.device(args.device)
-    print(f"repro_torch.launch.train: {args.arch}{' (smoke)' if args.smoke else ''} on "
-          f"{dev}; {args.learners} learners as dim 0 of one device, so the model axis "
-          f"is 1 on one card (--model-shards {args.model_shards} not used)", flush=True)
+    world = None
+    if _distributed():
+        from repro_torch.dist import init_world
+        world = init_world(device=args.device)
+        if args.learners not in (None, world.size):
+            raise SystemExit(f"--learners {args.learners}: under torch.distributed.run the "
+                             f"learners are the {world.size} ranks")
+        if args.model_shards != 1:
+            raise SystemExit(f"--model-shards {args.model_shards}: across ranks the model "
+                             "axis must be 1 (pass --model-shards 1)")
+        args.learners = world.size
+        dev = world.device
+        print(f"repro_torch.launch.train: {args.arch}{' (smoke)' if args.smoke else ''}; "
+              f"rank {world.rank} of {world.describe()}; learner {world.rank} on {dev}",
+              flush=True)
+    else:
+        args.learners = 4 if args.learners is None else args.learners
+        dev = torch.device(args.device)
+        print(f"repro_torch.launch.train: {args.arch}{' (smoke)' if args.smoke else ''} on "
+              f"{dev}; {args.learners} learners as dim 0 of one device, so the model axis "
+              f"is 1 on one card (--model-shards {args.model_shards} not used)", flush=True)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.uses_moe and cfg.ep_axis is None and not args.federated:
         cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=args.learners)
@@ -95,7 +132,9 @@ def run(args: argparse.Namespace) -> dict:
                           weighted=args.federated, device=dev)
     stream = make_federated_batches(cfg, args.learners, args.batch_per_learner,
                                     args.seq_len, seed=args.seed)
-    log = MetricsLogger(args.metrics or None)
+    lead = world is None or world.rank == 0  # logs the metrics, writes checkpoints
+    log = MetricsLogger((args.metrics or None) if lead else None)
+    log_step = log.log if lead else (lambda step, **metrics: None)
     dead = {int(x) for x in args.fail_learners.split(",") if x}
 
     def alive_at(step):
@@ -117,51 +156,100 @@ def run(args: argparse.Namespace) -> dict:
     t0 = time.time()
     try:
         if args.federated:
-            bundle = make_federated_round(model, agg, local_steps=args.local_steps,
+            bundle = make_federated_round(model, agg, world, local_steps=args.local_steps,
                                           local_lr=args.lr)
             params = model.tree()
             words = tree_size(params) + 1  # the words a weighted round pads
+            mine = range(args.learners) if world is None else [world.rank]
             for r in range(args.steps):
                 toks = np.stack([
                     np.stack([stream.learner_batch(l, r * args.local_steps + k)
                               ["tokens"] for k in range(args.local_steps)])
-                    for l in range(args.learners)])
-                gb = stream.global_batch(r)
+                    for l in mine])
+                weights = np.asarray([stream.learner_batch(l, r)["weight"]
+                                      for l in range(args.learners)], np.float32)
                 counters.append(reserve(words))
-                params, m = bundle.round_fn(params, torch.from_numpy(toks).to(dev),
-                                            weights=gb["weights"], counter=counters[-1],
-                                            alive=alive_at(r))
+                params, m = bundle.round_fn(
+                    params, torch.from_numpy(toks if world is None else toks[0]).to(dev),
+                    weights=weights, counter=counters[-1], alive=alive_at(r))
                 losses.append(float(m["local_loss"]))
-                log.log(r, **{k: float(v) for k, v in m.items()})
+                log_step(r, **{k: float(v) for k, v in m.items()})
         else:
-            bundle = make_train_step(model, agg, lr=args.lr)
+            bundle = make_train_step(model, agg, world, lr=args.lr)
             words = bundle.padded_size + 2  # the words a step pads
             state = bundle.init_state_fn(model.tree())
             start = 0
             if args.ckpt_dir and (s := latest_step(args.ckpt_dir)) is not None:
-                state, extra = restore_checkpoint(args.ckpt_dir, s, state)
+                state, extra = _restore(args.ckpt_dir, s, state, bundle, world)
                 start = int(extra.get("step", s))
                 # continue the counters of the run that wrote the checkpoint
                 agg.reserve_counters(int(extra.get("counter",
                                                    start * agg.round_counters(words))))
                 print(f"resumed from step {start}", flush=True)
             for step in range(start, args.steps):
-                gb = stream.global_batch(step)
+                toks = (stream.global_batch(step)["tokens"] if world is None
+                        else stream.learner_batch(world.rank, step)["tokens"])
                 counters.append(reserve(words))
-                state, m = bundle.step_fn(state, torch.from_numpy(gb["tokens"]).to(dev),
+                state, m = bundle.step_fn(state, torch.from_numpy(toks).to(dev),
                                           counter=counters[-1], alive=alive_at(step))
                 losses.append(float(m["loss"]))
-                log.log(step, loss=losses[-1], grad_scale=float(m["grad_scale"]))
+                log_step(step, loss=losses[-1], grad_scale=float(m["grad_scale"]))
                 if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                    save_checkpoint(args.ckpt_dir, step + 1, state,
-                                    extra={"step": step + 1,
-                                           "counter": counters[-1]
-                                           + agg.round_counters(words)})
+                    _save(args.ckpt_dir, step + 1, state, bundle, world,
+                          extra={"step": step + 1,
+                                 "counter": counters[-1] + agg.round_counters(words)})
             params = state["params"]
     finally:
         log.close()
-    print(f"done in {time.time() - t0:.1f}s", flush=True)
+        if world is not None:
+            from repro_torch.dist import close_world
+            close_world()
+    peak = (f"; peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
+            if dev.type == "cuda" else "")
+    print(f"done in {time.time() - t0:.1f}s{peak}", flush=True)
     return {"losses": losses, "counters": counters, "params": params, "state": state}
+
+
+_SLICED = ("master", "fm", "fv")  # the ZeRO-1 state a rank holds a slice of
+
+
+def _save(directory: str, step: int, state: dict, bundle, world, extra: dict) -> None:
+    """One process writes its state. Across ranks, rank 0 gathers the
+    slices into host memory, a rank's slice at a time, and writes the
+    one-process state (the reference's format); the others wait until it
+    has."""
+    from repro_torch.ckpt import save_checkpoint
+    if world is None:
+        save_checkpoint(directory, step, state, extra=extra)
+        return
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+    full = dict(state)
+    if not bundle.leafwise:
+        for k in _SLICED:
+            full[k] = collectives.gather_to_host(state[k], 0, world)
+    if world.rank == 0:
+        save_checkpoint(directory, step, full, extra=extra)
+    del full
+    dist.barrier()
+
+
+def _restore(directory: str, step: int, state: dict, bundle, world) -> tuple:
+    """Restore a checkpoint; across ranks each rank reads the one-process
+    state into host memory and moves its slices to its device."""
+    from repro_torch.ckpt import restore_checkpoint
+    if world is None or bundle.leafwise:
+        return restore_checkpoint(directory, step, state)
+    import torch
+    skeleton = dict(state)
+    for k in _SLICED:
+        skeleton[k] = torch.zeros(bundle.padded_size, dtype=state[k].dtype)
+    full, extra = restore_checkpoint(directory, step, skeleton)
+    n = bundle.padded_size // world.size
+    for k in _SLICED:
+        full[k] = full[k][world.rank * n:(world.rank + 1) * n].to(state[k].device, copy=True)
+    return full, extra
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -12,10 +12,11 @@ Two runtimes consume the same local update (``make_local_update``):
 
 * ``make_federated_round`` — the whole round in process. Where the
   reference runs the learners side by side, one per mesh rank, the port
-  runs them one after another on the card, learner-major as every path of
-  the port is. A learner's copy of the parameters and its optimizer state
-  are freed before the next learner starts. A dead learner still trains,
-  as in the reference; the round ignores its row.
+  runs them one after another on the card, learner-major. A learner's
+  copy of the parameters and its optimizer state are freed before the
+  next learner starts. A dead learner still trains, as in the reference;
+  the round ignores its row. Given a mesh over a live process group it
+  runs one learner per rank, as the reference does (``_rank_round``).
 * ``make_wire_federated`` — one callable per learner, the paper's own
   deployment: ``net.client.run_federated_round_net`` (and
   ``run_federated_rounds_net``) runs them and ships their deltas through
@@ -36,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregators import SecureAggregator
+from repro_torch.dist import collectives
+from repro_torch.dist.world import rank_world
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.flatten import leaves, tree_map, tree_size, tree_unflatten
 from repro_torch.train.loss import next_token_loss, param_grads
@@ -130,9 +133,11 @@ def apply_delta(params: Any, avg_delta: torch.Tensor) -> Any:
 def make_federated_round(
     model: Model,
     aggregator: SecureAggregator,
+    mesh: Any = None,
     *,
     local_steps: int = 4,
     local_lr: float = 1e-3,
+    learner_axis: str = "data",
     return_delta: bool = False,
 ) -> FederatedBundle:
     """Build one FedAvg round: k local AdamW steps per learner, then the
@@ -147,10 +152,23 @@ def make_federated_round(
     tree and the metrics ``local_loss`` (mean over all n learners),
     ``delta_norm`` and, with ``return_delta``, ``avg_delta`` (f32[P]), as
     tensors on that device.
+
+    With a ``mesh`` that puts one learner on each rank of a live process
+    group (a ``repro_torch.dist.World`` or a ``launch/mesh.py`` mesh over
+    it), the round is the reference's ``per_rank_round``: ``round_fn``
+    takes this learner's int[local_steps, B, S] ``tokens`` and the f32[n]
+    ``weights`` of every learner (or this one's scalar), and this rank's
+    delta goes through ``aggregate_rank``; ``local_loss`` is the
+    ``pmean`` of the learners' losses and ``deltas_fn`` is absent. The
+    published delta and the new parameters are the one-card round's bit for
+    bit.
     """
     n = aggregator.cfg.num_learners
     local_update = make_local_update(model, local_steps=local_steps,
                                      local_lr=local_lr)
+    world = rank_world(mesh, learner_axis)
+    if world is not None:
+        return _rank_round(aggregator, world, local_update, return_delta)
 
     def deltas_fn(params, tokens):
         tokens = torch.as_tensor(tokens)
@@ -177,6 +195,33 @@ def make_federated_round(
 
     return FederatedBundle(round_fn=round_fn, init_state_fn=lambda p: p,
                            deltas_fn=deltas_fn)
+
+
+def _rank_round(aggregator: SecureAggregator, world, local_update: Callable,
+                return_delta: bool) -> FederatedBundle:
+    """``make_federated_round`` with one learner per rank."""
+    n = aggregator.cfg.num_learners
+    aggregator.check_world(world)
+
+    def round_fn(params, tokens, weights=None, counter=0, alive=None):
+        dev = leaves(params)[0].device
+        w = None
+        if weights is not None:
+            w = torch.as_tensor(np.asarray(weights, np.float32)
+                                if not isinstance(weights, torch.Tensor) else weights)
+            w = w.reshape(-1)[world.rank if w.numel() == n else 0]
+        delta, loss = local_update(params, torch.as_tensor(tokens).to(dev))
+        avg_delta = aggregator.aggregate_rank(delta, int(counter), alive=alive, weights=w,
+                                              world=world)
+        del delta
+        out_params = apply_delta(params, avg_delta)
+        metrics = {"local_loss": collectives.pmean(loss, world),
+                   "delta_norm": torch.sqrt(torch.sum(torch.square(avg_delta)))}
+        if return_delta:
+            metrics["avg_delta"] = avg_delta
+        return out_params, metrics
+
+    return FederatedBundle(round_fn=round_fn, init_state_fn=lambda p: p, deltas_fn=None)
 
 
 @dataclasses.dataclass

@@ -1,4 +1,5 @@
-"""The SAFE-secured data-parallel train step on one card.
+"""The SAFE-secured data-parallel train step: on one card, or one learner
+per rank.
 
 The counterpart of the JAX package's ``train/train_step.py``. Every
 step's gradient goes through the SAFE chain instead of an all-reduce
@@ -38,8 +39,19 @@ tree ``AdamW`` (with ``grad_clip``) instead of the flat master; it switches
 on by itself when the flat f32 vector would exceed 8 GB, as in the
 reference.
 
-Options that shard over a model axis have no meaning on one card: the
-``mesh`` and ``learner_axis``, ``chain_model_sharded`` (the reference's
+One learner per rank. Given a ``mesh`` that puts one learner on each rank
+of a live process group (a ``repro_torch.dist.World``, or a
+``launch/mesh.py`` mesh over the group ``dist.init_world`` started; its
+``learner_axis`` dimension is the learners), the step is the reference's
+``per_rank_step``: this rank's forward and backward, ``aggregate_rank``,
+ZeRO-1's slice update with a master, m and v of ``padded_size / n`` words,
+and the tiled ``all_gather`` of the slices (``_rank_step``). Its
+parameters are the one-card step's word for word. A model with expert
+leaves is refused there (the experts' all-to-all over the group is a
+later slice), as is a pod axis.
+
+Options that shard over a model axis have no meaning here: a ``mesh`` on
+a fake group (the dry run's), ``chain_model_sharded`` (the reference's
 per-model-shard chains, whose published mean is the same) and the
 reference's Megatron output anchors (``models/sharding.py``) change no
 arithmetic, so they are accepted and do nothing. The reference's buffer
@@ -55,6 +67,8 @@ from typing import TYPE_CHECKING, Any, Callable, Optional
 import torch
 
 from repro_torch.core.aggregators import SecureAggregator
+from repro_torch.dist import collectives
+from repro_torch.dist.world import rank_world
 from repro_torch.optim.adamw import AdamState, AdamW, FlatAdamW, copied
 from repro_torch.train.flatten import (combine_trees, is_expert_path, leaf_paths, leaves,
                                        partition_tree, tree_map, tree_size,
@@ -129,6 +143,51 @@ def _ep_update(opt: AdamW, ep_sum: list, state: AdamState, ep_params: Any,
     return ep_params, AdamState(torch.tensor(step + 1, dtype=torch.int32), state.m, state.v)
 
 
+def _learner_grads(model: Model, params: Any, tokens: torch.Tensor, prefix, mark,
+                   leafwise: bool, sec_size: int, padded_size: int) -> tuple:
+    """Each learner's loss (one a row of ``tokens``); its SAFE-partition
+    gradient written into its row of the flat f32[rows, padded_size] matrix
+    (or of one matrix per leaf when ``leafwise``); and the f32 sum over the
+    learners of the expert gradients."""
+    cfg = model.cfg
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    plist = leaves(p)
+    is_ep = [is_expert_path(path) for path in leaf_paths(p)]
+    dev, rows = plist[0].device, tokens.shape[0]
+    if leafwise:
+        mats = [torch.empty((rows, t.numel()), dtype=torch.float32, device=dev)
+                for t, e in zip(plist, is_ep) if not e]
+    else:
+        mat = torch.empty((rows, padded_size), dtype=torch.float32, device=dev)
+        mat[:, sec_size:].zero_()
+    losses, ep_sum = [], None
+    for l in range(rows):
+        batch = tokens[l]
+        with torch.enable_grad():
+            logits, aux = model.apply(p, batch, None if prefix is None else prefix[l])
+            loss = next_token_loss(logits, batch, cfg.prefix_embeds) + aux
+            grads = param_grads(loss, plist)
+        del logits
+        losses.append(loss.detach())
+        mark("forward_backward")
+        with torch.no_grad():
+            sec_g = [g for g, e in zip(grads, is_ep) if not e]
+            if leafwise:
+                for g, m in zip(sec_g, mats):
+                    m[l].copy_(g.reshape(-1))
+            else:
+                _write_flat(sec_g, mat[l])
+            ep_g = [g for g, e in zip(grads, is_ep) if e]
+            if ep_sum is None:  # the reference's all-to-all transpose sums them
+                ep_sum = [g.float() if g.dtype != torch.float32 else g for g in ep_g]
+            else:
+                for acc, g in zip(ep_sum, ep_g):
+                    acc.add_(g)
+        del grads, sec_g, ep_g
+        mark("flatten")
+    return torch.stack(losses), (mats if leafwise else mat), ep_sum
+
+
 def make_train_step(
     model: Model,
     aggregator: SecureAggregator,
@@ -162,6 +221,14 @@ def make_train_step(
     ``weight``, as 0-d tensors on the parameters' device."""
     cfg = model.cfg
     use_ep = cfg.ep_axis is not None
+    world = rank_world(mesh, learner_axis)
+    if world is not None and world.size > 1 and (
+            use_ep or any(map(is_expert_path, leaf_paths(model.tree())))):
+        raise ValueError(
+            f"{cfg.arch_id}: a model with per-expert matrices (moe/wi, wg, wo) across "
+            f"{world.size} ranks needs the experts' all-to-all over the learner group, "
+            "which the port has not yet; train it on one card (the learners as dim 0, "
+            "ep_axis='data') or by FedAvg, whose payload carries every leaf.")
     if not use_ep and any(map(is_expert_path, leaf_paths(model.tree()))):
         raise ValueError(
             f"{cfg.arch_id}: the model has per-expert matrices (moe/wi, wg, wo) but "
@@ -185,6 +252,10 @@ def make_train_step(
     padded_size = shard_len * n
     if leafwise is None:
         leafwise = sec_size * 4 > LEAFWISE_BYTES
+    if world is not None:
+        aggregator.check_world(world)
+        return _rank_step(model, aggregator, world, flat_opt, sec_opt, sec_size,
+                          padded_size, leafwise, donate)
 
     def init_state_fn(params):
         """The step's state from a parameter tree. The state's parameters
@@ -208,48 +279,6 @@ def make_train_step(
                 "fv": torch.zeros_like(flat), "fstep": torch.zeros((), dtype=torch.int32),
                 "ep_opt": ep_state, "sec_opt": sec_state, "step": 0}
 
-    def learner_grads(params, tokens, prefix, mark):
-        """Each learner's loss; its SAFE-partition gradient written into its
-        row(s) of the flat matrix (or of one matrix per leaf when
-        leafwise); and the f32 sum over the learners of the expert
-        gradients."""
-        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        plist = leaves(p)
-        is_ep = [is_expert_path(path) for path in leaf_paths(p)]
-        dev, rows = plist[0].device, tokens.shape[0]
-        if leafwise:
-            mats = [torch.empty((rows, t.numel()), dtype=torch.float32, device=dev)
-                    for t, e in zip(plist, is_ep) if not e]
-        else:
-            mat = torch.empty((rows, padded_size), dtype=torch.float32, device=dev)
-            mat[:, sec_size:].zero_()
-        losses, ep_sum = [], None
-        for l in range(rows):
-            batch = tokens[l]
-            with torch.enable_grad():
-                logits, aux = model.apply(p, batch, None if prefix is None else prefix[l])
-                loss = next_token_loss(logits, batch, cfg.prefix_embeds) + aux
-                grads = param_grads(loss, plist)
-            del logits
-            losses.append(loss.detach())
-            mark("forward_backward")
-            with torch.no_grad():
-                sec_g = [g for g, e in zip(grads, is_ep) if not e]
-                if leafwise:
-                    for g, m in zip(sec_g, mats):
-                        m[l].copy_(g.reshape(-1))
-                else:
-                    _write_flat(sec_g, mat[l])
-                ep_g = [g for g, e in zip(grads, is_ep) if e]
-                if ep_sum is None:  # the reference's all-to-all transpose sums them
-                    ep_sum = [g.float() if g.dtype != torch.float32 else g for g in ep_g]
-                else:
-                    for acc, g in zip(ep_sum, ep_g):
-                        acc.add_(g)
-            del grads, sec_g, ep_g
-            mark("flatten")
-        return torch.stack(losses), (mats if leafwise else mat), ep_sum
-
     def step_fn(state, tokens, prefix=None, weights=None, counter=0, alive=None,
                 mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
@@ -270,7 +299,8 @@ def make_train_step(
         def as_values(m):  # [P·n, V] -> [P, n, V] for the pod axis
             return m.view(pods, n, -1) if agg_pods else m
 
-        losses, grads, ep_sum = learner_grads(params, tokens, prefix, mark)
+        losses, grads, ep_sum = _learner_grads(model, params, tokens, prefix, mark,
+                                               leafwise, sec_size, padded_size)
         if leafwise:
             avg = [aggregator.aggregate(as_values(m), counter, alive=alive, domain=idx + 1,
                                         rotate=rotate).view(leaf.shape)
@@ -309,6 +339,107 @@ def make_train_step(
                    "weight": weights.reshape(-1)[0].to(device=dev, dtype=torch.float32)}
         new_state = {"params": new, "master": master, "fm": fm, "fv": fv, "fstep": fstep,
                      "ep_opt": ep_state, "sec_opt": sec_state, "step": state["step"] + 1}
+        return new_state, metrics
+
+    return TrainStepBundle(step_fn=step_fn, init_state_fn=init_state_fn,
+                           sec_size=sec_size, padded_size=padded_size, leafwise=leafwise)
+
+
+def _rank_step(model: Model, aggregator: SecureAggregator, world, flat_opt: FlatAdamW,
+               sec_opt: AdamW, sec_size: int, padded_size: int, leafwise: bool,
+               donate: bool) -> TrainStepBundle:
+    """The train step with one learner per rank (the reference's
+    ``per_rank_step``): this rank's forward and backward, its padded flat
+    gradient through ``aggregate_rank``, then ZeRO-1 — ``FlatAdamW`` on
+    this rank's slice [rank·shard_len, (rank + 1)·shard_len) of the master
+    vector, whose state (master, m, v) holds that slice alone, and a tiled
+    ``all_gather`` of the updated slices, from which every rank rebuilds
+    the parameters. The loss is ``pmean``'d. Leafwise, each leaf is its own
+    round and the tree ``AdamW`` updates every leaf on every rank, as on
+    one card.
+
+    ``step_fn(state, tokens, prefix=None, weights=None, counter=0,
+    alive=None, mark=None)``: ``tokens`` this learner's int[B, S],
+    ``prefix`` its prefix embeddings, ``weights`` the f32[n] weights of
+    every learner (or this one's scalar; returned as the ``weight``
+    metric), ``counter`` and ``alive`` the same on every rank. Everything
+    else is the one-card step's, and the parameters are the one-card
+    step's word for word."""
+    n, r = world.size, world.rank
+    shard_len = padded_size // n
+    lo, hi = r * shard_len, (r + 1) * shard_len
+
+    def init_state_fn(params):
+        """The step's state, the master vector's slice of this rank only."""
+        params = tree_map(lambda t: t.detach(), params)
+        dev = leaves(params)[0].device
+        sec_state = None
+        if leafwise:
+            flat = torch.zeros(n, dtype=torch.float32, device=dev)  # placeholder
+            s = sec_opt.init(params)
+            sec_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
+        else:
+            full = torch.zeros(padded_size, dtype=torch.float32, device=dev)
+            _write_flat(params, full)
+            flat = full[lo:hi].clone()
+            del full
+        return {"params": params, "master": flat, "fm": torch.zeros_like(flat),
+                "fv": torch.zeros_like(flat), "fstep": torch.zeros((), dtype=torch.int32),
+                "ep_opt": None, "sec_opt": sec_state, "step": 0}
+
+    def step_fn(state, tokens, prefix=None, weights=None, counter=0, alive=None,
+                mark: Optional[Callable[[str], None]] = None):
+        mark = mark or (lambda name: None)
+        params = state["params"]
+        dev = leaves(params)[0].device
+        tokens = torch.as_tensor(tokens).to(dev)
+        if tokens.dim() < 2:
+            raise ValueError(f"tokens: expected this learner's [B, S], got shape "
+                             f"{tuple(tokens.shape)}")
+        if prefix is not None:
+            prefix = torch.as_tensor(prefix).to(dev)[None]
+        w = torch.ones(()) if weights is None else torch.as_tensor(weights).reshape(-1)
+        w = w.reshape(-1)[r if w.numel() == n else 0]
+        counter = int(counter) & 0xFFFFFFFF
+        rotate = counter % (2 * n + 1)  # §8: rotate the initiator every round
+
+        losses, grads, _ = _learner_grads(model, params, tokens[None], prefix, mark,
+                                          leafwise, sec_size, padded_size)
+        if leafwise:
+            avg = [aggregator.aggregate_rank(m[0], counter, alive=alive, domain=idx + 1,
+                                             rotate=rotate, world=world).view(leaf.shape)
+                   for idx, (m, leaf) in enumerate(zip(grads, leaves(params)))]
+            del grads
+            mark("aggregate")
+            grad_norm = torch.sqrt(sum(torch.sum(torch.square(a)) for a in avg))
+            s = state["sec_opt"]
+            update = sec_opt.update_ if donate else sec_opt.update
+            new, s = update(tree_unflatten(params, avg), AdamState(int(s.step), s.m, s.v),
+                            params)
+            sec_state = AdamState(torch.tensor(s.step, dtype=torch.int32), s.m, s.v)
+            master, fm, fv, fstep = state["master"], state["fm"], state["fv"], state["fstep"]
+            mark("optimizer")
+        else:
+            avg = aggregator.aggregate_rank(grads[0], counter, alive=alive, rotate=rotate,
+                                            world=world)
+            del grads
+            mark("aggregate")
+            grad_norm = torch.sqrt(torch.sum(torch.square(avg[:sec_size])))
+            fs = AdamState(int(state["fstep"]), state["fm"], state["fv"])
+            master, fs = flat_opt.update(avg[lo:hi], fs, state["master"], inplace=donate)
+            del avg
+            fm, fv, fstep = fs.m, fs.v, torch.tensor(fs.step, dtype=torch.int32)
+            sec_state = None
+            mark("optimizer")
+            flat = collectives.all_gather(master, world, tiled=True)  # ZeRO-1's gather
+            mark("all_gather")
+            new = _rebuild(params, flat[:sec_size], inplace=donate)
+            del flat
+        mark("rebuild")
+        metrics = {"loss": collectives.pmean(losses[0], world), "grad_scale": grad_norm,
+                   "weight": w.to(device=dev, dtype=torch.float32)}
+        new_state = {"params": new, "master": master, "fm": fm, "fv": fv, "fstep": fstep,
+                     "ep_opt": None, "sec_opt": sec_state, "step": state["step"] + 1}
         return new_state, metrics
 
     return TrainStepBundle(step_fn=step_fn, init_state_fn=init_state_fn,

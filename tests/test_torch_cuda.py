@@ -471,3 +471,56 @@ def test_cuda_dry_run_peak_matches_the_allocator(cuda, shape_name):
     real()
     got = real()
     assert abs(pred["peak_bytes"] - got) <= 0.10 * got, (pred["peak_bytes"], got)
+
+
+# ---- one learner a process: ranks sharing the card -------------------------------
+
+# learners -> {round: (mode, aggregator kwargs, round kwargs)}; SAFE needs 3
+# learners a ring, so two ranks run BON and INSEC and three the chain.
+RANK_ROUNDS = {
+    2: {"bon": ("bon", {}, {}), "insec": ("insec", {}, {"alive": [1, 0]})},
+    3: {"safe": ("safe", {}, {"rotate": 2, "alive": [1, 1, 0]}),
+        "pipelined": ("safe", {"pipelined": True}, {}),
+        "weighted": ("safe", {"weighted": True}, {"weights": [2.0, 3.0, 5.0]})},
+}
+RANK_V = 100_003
+
+
+def _rank_rows(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    return torch.rand((n, RANK_V), generator=g, device=dev) * 4 - 2
+
+
+def _rank_rounds(world):
+    from repro_torch.core import make_aggregator
+    rows = _rank_rows(world.device, world.size)
+    out = {}
+    for name, (mode, akw, kw) in RANK_ROUNDS[world.size].items():
+        kw = dict(kw)
+        w = kw.pop("weights", None)
+        out[name] = make_aggregator(mode, world.size, **akw).aggregate_rank(
+            rows[world.rank], 77, weights=None if w is None else w[world.rank],
+            world=world, **kw)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", sorted(RANK_ROUNDS))
+def test_cuda_ranks_sharing_the_card_equal_one_process(cuda, n):
+    """n spawned ranks on the one card (``transport="host"``: gloo through
+    pinned host buffers), one learner each: every rank's mean equals one
+    process's ``aggregate`` of the stacked rows on the card, and the
+    ranks launched the kernels."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import spawn
+    build.build()  # once here, not in every rank
+    ranks = spawn(_rank_rounds, n, "cuda", transport="host")
+    rows = _rank_rows(cuda, n)
+    for name, (mode, akw, kw) in RANK_ROUNDS[n].items():
+        want = make_aggregator(mode, n, **akw).aggregate(rows, 77, **kw).cpu()
+        for r, res in enumerate(ranks):
+            assert torch.equal(res["result"][name], want), (name, r)
+    kernels = ("bon_mask",) if n == 2 else ("mask_add", "chain_combine",
+                                            "chain_combine_batched")
+    for k in kernels:
+        assert sum(res["launches"][k] for res in ranks) > 0, k
