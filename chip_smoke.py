@@ -71,7 +71,19 @@ no CPU fallback):
    dead; ZeRO-1, each rank holding its quarter of the master vector and
    moments) and one weighted FedAvg round, through the per-rank
    ``make_train_step``/``make_federated_round``; the launch counts are
-   summed over the ranks;
+   summed over the ranks; then the rest of the reference's manual mesh
+   axes across ranks: ``moe_dist``, qwen3-moe at the zoo path's cut (1
+   layer, vocabulary 18,992, published widths) by expert parallelism over
+   four ranks sharing the card, 32 of the 128 experts a rank
+   (``Model(cfg, ep_world=world)``, the experts' two all-to-alls), two
+   train steps (learner 1 dead in the second), after the same ranks the
+   one-card EP step from the same seed and tokens; ``pod_rounds``, 2 pods x
+   4 learners = 8 ranks on a ('pod', 'data') mesh, the rounds above at
+   2^24 words a rank with the pod mean across ranks; ``rank_engine``, the
+   multi-session engine one learner a rank on each pod's four ranks (ten
+   sessions through 8 slots of 2^20 words a rank); ``pod_steps``, 2 pods x
+   3 learners = 6 ranks (SAFE's rings need three), two pod train steps and
+   a weighted FedAvg round of internlm2-1.8b at full width and 1 layer;
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -124,7 +136,16 @@ no CPU fallback):
    (sha256 of the words), each rank's master vector padded_size / 4 words,
    and each kernel equal to its plain version at the shapes the dist path
    gives it (V = 2^24 and 2^24 + 1, padded_size, P + 1, the pipelined
-   round's one-row hops and bon_mask's key sets);
+   round's one-row hops and bon_mask's key sets); moe_dist: the ranks'
+   losses equal, within EP_LOSS_RTOL of the one-card EP step's, the change
+   of the SAFE partition's f32 master and of the bf16 expert shards within
+   EP_MASTER_REL and EP_EXPERT_REL of one card's (relative L2), and each
+   step's gradient rows of the four ranks, aggregated on one card, giving
+   every rank's published mean word for word; pod_rounds, rank_engine and
+   pod_steps: every rank's means, sessions, parameters and published delta
+   equal to the same work in this process on the card (sha256); the
+   kernels at those paths' shapes (their padded_size and P + 1,
+   chain_combine_batched on [8, 2^20] with per-row keys and bases);
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -152,7 +173,9 @@ no CPU fallback):
    dry run's peaks by category and matrix-product FLOPs beside the card's;
    the dist path's walls per round and per step, the seconds each rank
    spent in collectives (the transport's share), each rank's peak memory,
-   and each kernel timed by CUDA events in each rank, one rank at a time.
+   and each kernel timed by CUDA events in each rank, one rank at a time;
+   the same walls, transport shares and peaks for moe_dist, the pod rounds,
+   the per-rank engine's steps and the pod steps.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -160,10 +183,16 @@ last is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --nccl4
 
 on a host with four cards instead runs the dist rounds over NCCL, a card a
-rank, each against one process's on the rank's card, then the training
+rank, each against one process's on the rank's card; the pod rounds that
+two learners a pod allow (BON, INSEC) at 2 pods x 2 learners, the per-rank
+engine and two BON pod train steps of internlm2-1.8b at 6 layers, each
+against one process's; qwen3-moe with its full vocabulary through the
+launcher at the most layers the dry run's per-rank step says fit a card,
+and the smoke MoE resumed from a full-E checkpoint; then the training
 launcher under ``torch.distributed.run`` with internlm2-1.8b at all 24
 layers, a card a rank, and prints each rank's peak memory and the steps'
-walls. It is not part of the one-card run. Nor is
+walls. ``--nccl4-moe`` runs its MoE part alone. It is not part of the
+one-card run. Nor is
 
     python3 chip_smoke.py --dist-depth 5 6 7
 
@@ -234,7 +263,11 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "zamba2": {"mask_add", "chain_combine"},
                 "rwkv6": {"mask_add", "chain_combine"},
                 "engine_load": {"mask_add", "chain_combine_batched"},
-                "dryrun_train": {"mask_add", "chain_combine"}}
+                "dryrun_train": {"mask_add", "chain_combine"},
+                "moe_dist": {"mask_add", "chain_combine"},
+                "pod_rounds": {"mask_add", "chain_combine", "chain_combine_batched", "bon_mask"},
+                "rank_engine": {"mask_add", "chain_combine_batched"},
+                "pod_steps": {"mask_add", "chain_combine"}}
 
 # The FedAvg path: internlm2-1.8b at full width, cut to 12 of its 24 layers
 # (at 24 the learners' f32 deltas, the weighted payload and the chain's
@@ -332,6 +365,29 @@ DIST_WEIGHTS = np.asarray([1000, 1500, 2000, 2500], np.float32)
 DIST_KERNELS = ("mask_add", "chain_combine", "chain_combine_batched", "bon_mask")
 DIST_TIMING_ITERS = 10
 NCCL_STEPS = 4              # ``--nccl4``: the launcher's steps at 24 layers, a card a rank
+NCCL_MOE_TIMEOUT_S = 240    # ``--nccl4``: the MoE launcher's time a depth (a hang ends there)
+# The MoE across ranks (moe_dist): the zoo's MoE path (qwen3-moe-235b-a22b at its
+# published widths, n_layers 94 -> 1, vocab 151,936 -> 18,992) with DIST_N ranks
+# sharing the card, E/n = 32 experts a rank; EP_STEPS steps of the launcher's
+# traffic, the second with learner DIST_DEAD dead, against the one-card EP step
+# from the same seed and tokens. The float math (bf16) differs from one card's:
+# one expert product over n·C rows against each learner's C, summed in f32.
+# Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): the losses 3.3e-4 relative, the
+# change over the two steps of the SAFE partition's f32 master 8.5e-2 and of
+# the bf16 expert shards 6.3e-2 relative L2 (AdamW's first steps move a word
+# by about lr whatever its gradient's size, so a near-zero gradient that
+# rounds the other way moves it the other way); the bounds sit ~3x above.
+EP_ARCH, EP_CUT = ZOO_PATHS["moe"]
+EP_STEPS = 2
+EP_LOSS_RTOL, EP_MASTER_REL, EP_EXPERT_REL = 1e-3, 0.25, 0.2
+# Pods across ranks: the rounds at POD_P pods x DIST_N learners (8 ranks, V_MAIN
+# words a rank) and the per-rank engine on each pod's DIST_N learners (S_ENGINE
+# slots x V_ENGINE words a rank); the steps at POD_P x POD_STEP_N (6 ranks: SAFE's
+# rings need three members) of internlm2-1.8b at POD_LAYERS layers, the depth at
+# which six ranks fit the card (the dry run's --per-rank: 8.58 GB a rank at 1
+# layer, 10.72 at 2, before FedAvg's local copy and six CUDA contexts).
+POD_P, POD_STEP_N, POD_LAYERS = 2, 3, 1
+ENGINE_RANK_ROUNDS = 2
 
 
 def say(*parts):
@@ -2485,21 +2541,26 @@ def _dist_rank(world, layers):
     return out
 
 
-def spawn_dist_ranks(layers):
-    """DIST_N ranks of ``_dist_rank`` sharing the card, each rank's
-    allocator set to DIST_ALLOC_CONF (read when a rank's allocator starts;
-    this process's has started): their results, in rank order."""
+def spawn_ranks(fn, ranks, args=()):
+    """``ranks`` spawned ranks of ``fn`` sharing the card over the host
+    transport, each rank's allocator set to DIST_ALLOC_CONF (read when a
+    rank's allocator starts; this process's has started): their results,
+    in rank order."""
     from repro_torch.dist import spawn
     before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = DIST_ALLOC_CONF
     try:
-        return [r["result"] for r in spawn(_dist_rank, DIST_N, "cuda", transport="host",
-                                           args=(layers,))]
+        return [r["result"] for r in spawn(fn, ranks, "cuda", transport="host", args=args)]
     finally:
         if before is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+
+
+def spawn_dist_ranks(layers):
+    """DIST_N ranks of ``_dist_rank`` sharing the card: their results."""
+    return spawn_ranks(_dist_rank, DIST_N, (layers,))
 
 
 def dist_depth(depths):
@@ -2535,7 +2596,7 @@ def dist_depth(depths):
     say(f"dist depth: the most layers that fit of {depths}: {max(fits)}")
 
 
-def check_dist_kernels(dev, lengths, err):
+def check_dist_kernels(dev, lengths, err, rounds=True, engine=None):
     """Each kernel at the shapes the dist path gives it, against its plain
     version on the same inputs: mask_add and chain_combine at each of
     ``lengths`` (CHUNK words at a time), mask_add on the pipelined round's
@@ -2543,7 +2604,10 @@ def check_dist_kernels(dev, lengths, err):
     round's one row of seg words from word s·seg, and bon_mask with each
     live rank's keys — its 3 peers' and its own, signed as ``bon_rank``
     signs them — and its correction (its own key and the dead learner's).
-    Folds the differences into ``err``; returns ({kernel: max |err|},
+    ``rounds`` False leaves out the rounds' segment and key-set shapes;
+    ``engine`` (S, V) adds chain_combine_batched on S rows of V words with
+    per-row keys and counter bases, as the per-rank engine's hop launches
+    them. Folds the differences into ``err``; returns ({kernel: max |err|},
     comparisons)."""
     from repro_torch.kernels import bon_mask as bm
     from repro_torch.kernels import chain_combine as cc
@@ -2564,39 +2628,51 @@ def check_dist_kernels(dev, lengths, err):
         got = {k: max(got[k], e.get(k, 0)) for k in got}
         checks += 2
         del x
-    seg = -(-V_MAIN // DIST_N)
-    x = torch.rand(seg, generator=g, device=dev) * 4 - 2
-    c = torch.randint(-2**31, 2**31, (seg,), generator=g, device=dev,
-                      dtype=torch.int32).view(torch.uint32)
-    for s in range(DIST_N):
-        key, kin, kout = keys(1)[0], keys(1), keys(1)
-        got["mask_add"] = max(got["mask_add"], u32_diff(
-            tma.mask_add(x, key, base, offset=s * seg),
-            ref.mask_add_ref(x, key, base, offset=s * seg)))
+    if engine is not None:
+        S, V = engine
+        x = torch.rand((S, V), generator=g, device=dev) * 4 - 2
+        c = torch.randint(-2**31, 2**31, (S, V), generator=g, device=dev,
+                          dtype=torch.int32).view(torch.uint32)
+        kin, kout, bases = keys(S), keys(S), [base - 3 * s for s in range(S)]
         got["chain_combine_batched"] = max(got["chain_combine_batched"], u32_diff(
-            cc.chain_combine_batched(c[None], x[None], kin, kout, [base], starts=[s * seg]),
-            ref.chain_combine_batched_ref(c[None], x[None], kin, kout, [base],
-                                          starts=[s * seg])))
-        checks += 2
-    x = torch.rand(V_MAIN, generator=g, device=dev) * 4 - 2
-    zero = torch.zeros_like(x)
-    alive = dist_alive()
-    dead = [v for v in range(DIST_N) if alive[v] == 0]
-    for u in range(DIST_N):
-        if alive[u] == 0:
-            continue
-        peers = [v for v in range(DIST_N) if v != u]
-        for xs, signs in ((x, [1 if u < v else -1 for v in peers] + [1]),
-                          (zero, [1] + [1 if u < v else -1 for v in dead])):
-            k = keys(len(signs))
-            got["bon_mask"] = max(got["bon_mask"], u32_diff(
-                bm.bon_mask(xs, k, signs, base), ref.bon_mask_ref(xs, k, signs, base)))
-            checks += 1
+            cc.chain_combine_batched(c, x, kin, kout, bases),
+            ref.chain_combine_batched_ref(c, x, kin, kout, bases)))
+        checks += 1
+        del x, c
+    if rounds:
+        seg = -(-V_MAIN // DIST_N)
+        x = torch.rand(seg, generator=g, device=dev) * 4 - 2
+        c = torch.randint(-2**31, 2**31, (seg,), generator=g, device=dev,
+                          dtype=torch.int32).view(torch.uint32)
+        for s in range(DIST_N):
+            key, kin, kout = keys(1)[0], keys(1), keys(1)
+            got["mask_add"] = max(got["mask_add"], u32_diff(
+                tma.mask_add(x, key, base, offset=s * seg),
+                ref.mask_add_ref(x, key, base, offset=s * seg)))
+            got["chain_combine_batched"] = max(got["chain_combine_batched"], u32_diff(
+                cc.chain_combine_batched(c[None], x[None], kin, kout, [base], starts=[s * seg]),
+                ref.chain_combine_batched_ref(c[None], x[None], kin, kout, [base],
+                                              starts=[s * seg])))
+            checks += 2
+        x = torch.rand(V_MAIN, generator=g, device=dev) * 4 - 2
+        zero = torch.zeros_like(x)
+        alive = dist_alive()
+        dead = [v for v in range(DIST_N) if alive[v] == 0]
+        for u in range(DIST_N):
+            if alive[u] == 0:
+                continue
+            peers = [v for v in range(DIST_N) if v != u]
+            for xs, signs in ((x, [1 if u < v else -1 for v in peers] + [1]),
+                              (zero, [1] + [1 if u < v else -1 for v in dead])):
+                k = keys(len(signs))
+                got["bon_mask"] = max(got["bon_mask"], u32_diff(
+                    bm.bon_mask(xs, k, signs, base), ref.bon_mask_ref(xs, k, signs, base)))
+                checks += 1
     sync()
     for k, v in got.items():
         err[k] = max(err[k], v)
     if any(got.values()):
-        fail(f"dist: a kernel differs from its plain version at the dist path's shapes: {got}")
+        fail(f"a kernel differs from its plain version at a dist path's shapes: {got}")
     return got, checks
 
 
@@ -2713,6 +2789,554 @@ def dist_paths(dev, launches, err, smi):
             f"{[round(r['kernel_ms'][k], 4) for r in ranks]} by rank")
 
 
+# ---- the experts' all-to-all, pods and the engine across ranks ------------------
+
+def ep_config():
+    """The EP path's configuration: the zoo's MoE path (qwen3-moe at its
+    published widths, cut to ZOO_PATHS["moe"]), ep_ranks = DIST_N."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(EP_ARCH), **EP_CUT)
+
+
+def ep_run(dev, world=None, capture=None, on_step=None, on_init=None):
+    """EP_STEPS SAFE train steps of the EP path's model from seed SEED, the
+    second with DIST_DEAD dead, on the launcher's traffic: on one card (the
+    learners as dim 0, every expert local) or, with ``world``, this rank's
+    step on its E/n experts, its tokens exchanged with the others'.
+    ``capture`` (a list) receives each round's (this rank's gradient row
+    and published mean in host memory, counter, alive, rotate);
+    ``on_init(state)`` sees the initial state. Returns (losses, state,
+    bundle)."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    from repro_torch.train import make_train_step
+    cfg = ep_config()
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),
+                  ep_world=world)
+    agg = make_aggregator("safe", DIST_N, device=dev)
+    if capture is not None:
+        inner = agg.aggregate_rank
+
+        def watched(values, counter_base=0, **kw):
+            out = inner(values, counter_base, **kw)
+            capture.append((values.cpu(), out.cpu(), counter_base, kw["alive"], kw["rotate"]))
+            return out
+        agg.aggregate_rank = watched
+    bundle = make_train_step(model, agg, world, lr=TS_LR)
+    state = bundle.init_state_fn(model.tree())
+    del model
+    if on_init:
+        on_init(state)
+    stream = make_federated_batches(cfg, DIST_N, TS_B, TS_S, seed=SEED)
+    losses = []
+    for i, alive in enumerate((np.ones(DIST_N, np.float32), dist_alive())[:EP_STEPS]):
+        toks = stream.global_batch(i)["tokens"]
+        toks = torch.from_numpy(toks if world is None else toks[world.rank]).to(dev)
+        counter = agg.reserve_round(bundle.padded_size + 2)
+        if on_step:
+            on_step("start", i)
+        state, m = bundle.step_fn(state, toks, counter=counter, alive=alive)
+        losses.append(float(m["loss"]))
+        if on_step:
+            on_step("end", i)
+    return losses, state, bundle
+
+
+def ep_experts(state):
+    """The expert leaves of a train state's parameters, in leaf order."""
+    from repro_torch.train.flatten import is_expert_path, leaves_with_paths
+    return [t for p, t in leaves_with_paths(state["params"]) if is_expert_path(p)]
+
+
+def _ep_rank(world, out_dir):
+    """One rank of the EP path: its two steps with collectives timed, its
+    master slice and expert shard written to ``out_dir`` for the parent,
+    then the SAFE call checked on rank 0: every rank's captured gradient
+    rows, gathered there, through the one-card aggregate must give the
+    rank's published mean word for word."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import build
+    dev, r = world.device, world.rank
+    out = {"step_ms": [], "step_transport_ms": []}
+    clock, capture = {}, []
+
+    def on_step(when, i):
+        sync()
+        if when == "start":
+            dist.barrier()
+            collectives.reset_stats(timed=True)
+            clock["t0"] = time.perf_counter()
+        else:
+            out["step_ms"].append((time.perf_counter() - clock["t0"]) * 1e3)
+            out["step_transport_ms"].append(collectives.stats["seconds"] * 1e3)
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["losses"], state, bundle = ep_run(dev, world, capture, on_step)
+    collectives.reset_stats()
+    out["launches"] = dict(build.launches)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["reserved"] = torch.cuda.max_memory_reserved(dev)
+    out["padded_size"], out["master_words"] = bundle.padded_size, state["master"].numel()
+    out["expert_shape"] = [tuple(t.shape) for t in ep_experts(state)]
+    torch.save({"master": state["master"].cpu(), "experts": [t.cpu() for t in ep_experts(state)]},
+               os.path.join(out_dir, f"ep_rank{r}.pt"))
+    del state, bundle
+    torch.cuda.empty_cache()
+    out["safe_exact"] = []
+    for row, mean, counter, alive, rotate in capture:
+        rows = collectives.gather_to_host(row[None], 0, world)
+        if r == 0:
+            want = make_aggregator("safe", DIST_N, device=dev).aggregate(
+                rows.to(dev), counter, alive=alive, rotate=rotate)
+            out["safe_exact"].append(bool(torch.equal(want.cpu(), mean)))
+            del want
+        del rows
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _rel(a, b, base):
+    """||a - b|| / ||b - base|| over lists of tensors, in float64 pieces."""
+    num = den = 0.0
+    for x, y, z in zip(a, b, base):
+        for lo in range(0, x.numel(), CHUNK):
+            xs, ys, zs = (t.reshape(-1)[lo:lo + CHUNK].double() for t in (x, y, z))
+            num += float(((xs - ys) ** 2).sum())
+            den += float(((ys - zs) ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def ep_dist_path(dev, launches, err, smi):
+    """The MoE across ranks: DIST_N spawned ranks sharing the card, each
+    with its E/n experts, against the one-card EP step from the same seed
+    and tokens; adds the ranks' launches to ``launches``."""
+    import tempfile
+
+    from repro_torch.train import tree_size
+    how = (f"{DIST_N} ranks sharing {torch.cuda.device_count()} card ({smi}), gloo through "
+           f"pinned host buffers")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_ep_rank, DIST_N, (tmp,))
+        ranks_s = time.perf_counter() - t0
+        # the one-card EP step, its initial SAFE master and experts kept
+        t0 = time.perf_counter()
+        keep = {}
+
+        def first(state):
+            keep["master0"] = state["master"].clone()
+            keep["experts0"] = [t.clone() for t in ep_experts(state)]
+        losses, state, bundle = ep_run(dev, on_init=first)
+        one_s = time.perf_counter() - t0
+        P = tree_size(state["params"])
+        n_loc = ranks[0]["expert_shape"][0][1]
+        L = bundle.padded_size // DIST_N
+        got_m, got_e, want_m, want_e, base_m, base_e = [], [], [], [], [], []
+        for r in range(DIST_N):
+            part = torch.load(os.path.join(tmp, f"ep_rank{r}.pt"))
+            got_m.append(part["master"].to(dev))
+            want_m.append(state["master"][r * L:(r + 1) * L])
+            base_m.append(keep["master0"][r * L:(r + 1) * L])
+            for x, y, z in zip(part["experts"], ep_experts(state), keep["experts0"]):
+                got_e.append(x.to(dev))
+                want_e.append(y[:, r * n_loc:(r + 1) * n_loc])
+                base_e.append(z[:, r * n_loc:(r + 1) * n_loc])
+            del part
+        e_master = _rel(got_m, want_m, base_m)
+        e_experts = _rel(got_e, want_e, base_e)
+        del got_m, got_e, want_m, want_e, base_m, base_e, keep, state, bundle
+        torch.cuda.empty_cache()
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
+    padded = ranks[0]["padded_size"]
+    kerr, checks = check_dist_kernels(dev, (padded,), err, rounds=False)
+    from repro_torch.configs import get_config
+    cut = ", ".join(f"{k} {getattr(get_config(EP_ARCH), k)} -> {v}" for k, v in EP_CUT.items()
+                    if k in ("n_layers", "vocab"))
+    say(f"phase 4 main path moe_dist ({how}): {EP_ARCH} at full width, reduced: {cut}; "
+        f"{P} parameters, padded_size {padded}, {n_loc} of {n_loc * DIST_N} experts a rank "
+        f"(shapes {ranks[0]['expert_shape']}); {EP_STEPS} EP train steps (learner "
+        f"{DIST_DEAD} dead in the second), {TS_B} x {TS_S} tokens a learner; {ranks_s:.1f} s "
+        f"spawned, {one_s:.1f} s for the one-card EP step; launches summed over the ranks "
+        f"{counts}; the kernels at V = padded_size == plain: {checks} comparisons, max |err| "
+        f"{kerr}")
+    missing = sorted(k for k in PATH_KERNELS["moe_dist"] if counts[k] <= 0)
+    if missing:
+        fail(f"path moe_dist never launched {missing} in its ranks: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    rank_losses = ranks[0]["losses"]
+    if any(r["losses"] != rank_losses for r in ranks):
+        fail(f"moe_dist: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(rank_losses, losses))
+    if not all(ranks[0]["safe_exact"]) or len(ranks[0]["safe_exact"]) != EP_STEPS:
+        fail(f"moe_dist: SAFE on the ranks' own gradients differs from one card's: "
+             f"{ranks[0]['safe_exact']}")
+    if not (np.isfinite(rank_losses).all() and loss_err <= EP_LOSS_RTOL
+            and e_master <= EP_MASTER_REL and e_experts <= EP_EXPERT_REL):
+        fail(f"moe_dist: against the one-card EP step: losses {rank_losses} vs {losses} "
+             f"({loss_err:.3g} > {EP_LOSS_RTOL}?), the SAFE master's change {e_master:.3g} "
+             f"(bound {EP_MASTER_REL}), the experts' change {e_experts:.3g} (bound "
+             f"{EP_EXPERT_REL})")
+    if any(r["master_words"] * DIST_N != padded for r in ranks):
+        fail("moe_dist: a rank's master vector is not padded_size / n words")
+    say(f"phase 5 moe_dist: SAFE on each step's gradient rows of the {DIST_N} ranks, "
+        f"aggregated on one card, == every rank's published mean word for word "
+        f"({ranks[0]['safe_exact']}); losses {[round(x, 5) for x in rank_losses]} against the "
+        f"one-card EP step's {[round(x, 5) for x in losses]} (relative {loss_err:.3g}, bound "
+        f"{EP_LOSS_RTOL}); relative L2 of the change over {EP_STEPS} steps against one card's: "
+        f"the SAFE partition's f32 master {e_master:.3g} (bound {EP_MASTER_REL}), the bf16 "
+        f"expert shards {e_experts:.3g} (bound {EP_EXPERT_REL})")
+    for i in range(EP_STEPS):
+        walls = [r["step_ms"][i] for r in ranks]
+        tr = [r["step_transport_ms"][i] for r in ranks]
+        say(f"phase 6 moe_dist train step {i + 1} ({how}): wall {max(walls):.1f} ms; in "
+            f"collectives {[round(t, 1) for t in tr]} ms, transport share "
+            f"{[f'{t / w:.0%}' for t, w in zip(tr, walls)]}")
+    say(f"phase 6 moe_dist peak memory ({how}): {[round(r['peak'] / 1e9, 2) for r in ranks]} "
+        f"GB a rank allocated, {[round(r['reserved'] / 1e9, 2) for r in ranks]} GB reserved "
+        f"({DIST_ALLOC_CONF})")
+
+
+def pod_weights():
+    """The pod rounds' f32[P, n] weights."""
+    return np.stack([DIST_WEIGHTS, DIST_WEIGHTS[::-1] * 1.5]).astype(np.float32)
+
+
+def pod_round_args(name):
+    """(mode, aggregator kwargs with the pod axis, round kwargs with the
+    alive bitmap and the [P, n] weights) of a pod round."""
+    akw, kw = DIST_ROUNDS[name]
+    akw, kw = dict(akw, pod_axis="pod"), dict(kw)
+    if kw.get("alive") == "dead":
+        kw["alive"] = dist_alive()
+    if kw.get("weights") == "w":
+        kw["weights"] = pod_weights()
+    return akw.pop("mode"), akw, kw
+
+
+def rank_engine_sessions():
+    """The per-rank engine's sessions (n = DIST_N, V_ENGINE words a rank):
+    ten through S_ENGINE slots, some of several rounds, learner DIST_DEAD
+    or the default initiator dead in two, every one rotated."""
+    out = []
+    for s in range(10):
+        alive = np.ones(DIST_N, np.float32)
+        if s == 2:
+            alive[0] = 0.0
+        if s == 5:
+            alive[DIST_DEAD] = 0.0
+        out.append(dict(seed=SEED + 300 + s, rounds=ENGINE_RANK_ROUNDS if s % 3 == 0 else 1,
+                        provisioning_seed=0xC0FFEE + s, learner_master=0x5EED + 17 * s,
+                        alive=alive, rotate0=3 * s))
+    return out
+
+
+def session_values(dev, spec):
+    g = torch.Generator(device=dev).manual_seed(spec["seed"])
+    return torch.rand((DIST_N, V_ENGINE), generator=g, device=dev) * 4 - 2
+
+
+def run_engine(dev, world=None):
+    """The rank engine's sessions through an ``AggregationEngine`` of
+    S_ENGINE slots: on one card, or this rank's rows over ``world``.
+    Returns (each session's digest of its published means, steps, wall ms)."""
+    from repro_torch.core.types import ChainConfig
+    from repro_torch.serve.agg_engine import AggregationEngine
+    eng = AggregationEngine(ChainConfig(num_learners=DIST_N, mode="safe"), S_ENGINE, V_ENGINE,
+                            device=dev, world=world)
+    sess = []
+    for spec in rank_engine_sessions():
+        v = session_values(dev, spec)
+        sess.append(eng.submit(v if world is None else v[world.rank], rounds=spec["rounds"],
+                               provisioning_seed=spec["provisioning_seed"],
+                               learner_master=spec["learner_master"], alive=spec["alive"],
+                               rotate0=spec["rotate0"]))
+    sync()
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    return [digest(*s.results) for s in sess], eng.steps, ms
+
+
+def _pod_round_rank(world):
+    """One of POD_P x DIST_N ranks: the pod rounds of DIST_ROUNDS at V_MAIN
+    words a rank (its row that of global rank p·n + l), then the per-rank
+    engine over its pod's DIST_N learners (both pods run it), each with its
+    launches and walls."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import collectives, rank_world
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_pod_mesh
+    dev = world.device
+    mesh = make_pod_mesh(POD_P, DIST_N)
+    data, pod = rank_world(mesh, "data"), rank_world(mesh, "pod")
+    out = {"rounds": {}, "round_ms": {}, "round_transport_ms": {}}
+    x = dist_row(dev, world.rank)
+    build.reset_launches()
+    for name in DIST_ROUNDS:
+        mode, akw, kw = pod_round_args(name)
+        agg = make_aggregator(mode, DIST_N, device=dev, **akw)
+        dead = "alive" in kw and kw["alive"][data.rank] == 0
+        row = torch.full_like(x, float("nan")) if dead else x
+        dist.barrier()
+        sync()
+        collectives.reset_stats(timed=True)
+        t0 = time.perf_counter()
+        mean = agg.aggregate_rank(row, 2**32 - 5, world=data, pod_world=pod, **kw)
+        sync()
+        out["round_ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["round_transport_ms"][name] = collectives.stats["seconds"] * 1e3
+        out["rounds"][name] = digest(mean)
+        del mean
+    collectives.reset_stats()
+    out["round_launches"] = dict(build.launches)
+    del x
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    dist.barrier()
+    out["engine"], out["engine_steps"], out["engine_ms"] = run_engine(dev, data)
+    out["engine_launches"] = dict(build.launches)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def pod_model(dev, layers, n=POD_STEP_N):
+    """internlm2-1.8b at full width and ``layers`` layers, seed SEED; the
+    pod steps' tokens [2, P·n, B, S] and FedAvg's [P·n, k, B, S]."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=layers)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    rows = POD_P * n
+    stream = make_federated_batches(cfg, rows, TS_B, TS_S, seed=SEED)
+    steps = np.stack([stream.global_batch(i)["tokens"] for i in range(2)])
+    fed = np.stack([np.stack([stream.learner_batch(l, 10 + k)["tokens"] for k in range(DIST_K)])
+                    for l in range(rows)])
+    return model, steps, fed
+
+
+def pod_alive(n=POD_STEP_N):
+    a = np.ones(n, np.float32)
+    a[DIST_DEAD] = 0.0
+    return a
+
+
+def pod_train(model, steps, mesh=None, rank=None, on_step=None, n=POD_STEP_N, mode="safe"):
+    """Two pod train steps of ``mode`` (the second with learner DIST_DEAD
+    dead in every pod): one card on [P·n, B, S], or global rank ``rank``'s
+    over the ('pod', 'data') ``mesh``. Returns (digest of the parameters,
+    losses)."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_train_step
+    from repro_torch.train.flatten import leaves
+    dev = leaves(model.tree())[0].device
+    agg = make_aggregator(mode, n, pod_axis="pod", device=dev)
+    bundle = make_train_step(model, agg, mesh, lr=TS_LR, pod_axis="pod")
+    state = bundle.init_state_fn(model.tree())
+    losses = []
+    for i, alive in enumerate((np.ones(n, np.float32), pod_alive(n))):
+        toks = torch.from_numpy(steps[i] if rank is None else steps[i][rank]).to(dev)
+        counter = agg.reserve_round(bundle.padded_size + 2)
+        if on_step:
+            on_step("start", i, bundle, state)
+        state, m = bundle.step_fn(state, toks, counter=counter, alive=alive)
+        losses.append(float(m["loss"]))
+        if on_step:
+            on_step("end", i, bundle, state)
+    return digest(*leaves(state["params"])), losses
+
+
+def pod_fedavg(model, fed, mesh=None, rank=None):
+    """One weighted FedAvg round with pods (learner DIST_DEAD dead, learner
+    l weighted DIST_WEIGHTS[l] in every pod): (digest of the published
+    delta, digest of the new parameters, local loss)."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_federated_round, tree_size
+    from repro_torch.train.flatten import leaves
+    dev = leaves(model.tree())[0].device
+    agg = make_aggregator("safe", POD_STEP_N, weighted=True, pod_axis="pod", device=dev)
+    bundle = make_federated_round(model, agg, mesh, local_steps=DIST_K, local_lr=FED_LR,
+                                  pod_axis="pod", return_delta=True)
+    toks = torch.from_numpy(fed if rank is None else fed[rank]).to(dev)
+    counter = agg.reserve_round(tree_size(model.tree()) + 1)
+    params, m = bundle.round_fn(model.tree(), toks, weights=DIST_WEIGHTS[:POD_STEP_N],
+                                counter=counter, alive=pod_alive())
+    return digest(m["avg_delta"]), digest(*leaves(params)), float(m["local_loss"])
+
+
+def _pod_step_rank(world, layers):
+    """One of POD_P x POD_STEP_N ranks: the pod train steps and FedAvg round
+    of internlm2-1.8b at ``layers`` layers over the ('pod', 'data') mesh."""
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_pod_mesh
+    dev = world.device
+    mesh = make_pod_mesh(POD_P, POD_STEP_N)
+    out = {"step_ms": [], "step_transport_ms": []}
+    clock = {}
+
+    def on_step(when, i, bundle, state):
+        sync()
+        if when == "start":
+            collectives.reset_stats(timed=True)
+            clock["t0"] = time.perf_counter()
+        else:
+            out["step_ms"].append((time.perf_counter() - clock["t0"]) * 1e3)
+            out["step_transport_ms"].append(collectives.stats["seconds"] * 1e3)
+            out["padded_size"] = bundle.padded_size
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, steps, fed = pod_model(dev, layers)
+    out["train"] = pod_train(model, steps, mesh, world.rank, on_step)
+    collectives.reset_stats()
+    out["train_peak"] = torch.cuda.max_memory_allocated(dev)
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = pod_model(dev, layers)[0]
+    sync()
+    t0 = time.perf_counter()
+    out["fedavg"] = pod_fedavg(model, fed, mesh, world.rank)
+    sync()
+    out["fedavg_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fedavg_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["launches"] = dict(build.launches)
+    return out
+
+
+def pod_dist_paths(dev, launches, err, smi):
+    """Pods as a second mesh dimension across ranks and the engine one
+    learner a rank: POD_P x DIST_N spawned ranks run the pod rounds and the
+    per-rank engine, then POD_P x POD_STEP_N ranks the pod train step and
+    FedAvg round, each against the same work in this process on the card;
+    adds the ranks' launches to ``launches``."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import tree_size
+
+    # the same work in this process, on the card
+    t0 = time.perf_counter()
+    values = torch.stack([dist_row(dev, g) for g in range(POD_P * DIST_N)]).view(
+        POD_P, DIST_N, V_MAIN)
+    want = {}
+    for name in DIST_ROUNDS:
+        mode, akw, kw = pod_round_args(name)
+        v = values.clone()
+        if "alive" in kw:
+            v[:, torch.from_numpy(kw["alive"] == 0).to(dev)] = float("nan")
+        want[name] = digest(make_aggregator(mode, DIST_N, device=dev, **akw)
+                            .aggregate(v, 2**32 - 5, **kw))
+        del v
+    del values
+    want_engine, one_steps, one_engine_ms = run_engine(dev)
+    model, steps, fed = pod_model(dev, POD_LAYERS)
+    P = tree_size(model.tree())
+    want["train"] = pod_train(model, steps)
+    del model
+    torch.cuda.empty_cache()
+    want["fedavg"] = pod_fedavg(pod_model(dev, POD_LAYERS)[0], fed)
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+
+    how = f"sharing {torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers"
+    t0 = time.perf_counter()
+    rounds = spawn_ranks(_pod_round_rank, POD_P * DIST_N)
+    rounds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps_ = spawn_ranks(_pod_step_rank, POD_P * POD_STEP_N, (POD_LAYERS,))
+    steps_s = time.perf_counter() - t0
+    paths = {"pod_rounds": [r["round_launches"] for r in rounds],
+             "rank_engine": [r["engine_launches"] for r in rounds],
+             "pod_steps": [r["launches"] for r in steps_]}
+    counts = {p: {k: sum(c[k] for c in cs) for k in DIST_KERNELS} for p, cs in paths.items()}
+    padded = steps_[0]["padded_size"]
+    t1 = time.perf_counter()
+    kerr, checks = check_dist_kernels(dev, (padded, P + 1), err, rounds=False,
+                                      engine=(S_ENGINE, V_ENGINE))
+    say(f"phase 4 main path pod_rounds ({POD_P} pods x {DIST_N} learners = "
+        f"{POD_P * DIST_N} ranks {how}): rounds {list(DIST_ROUNDS)} at [{POD_P}, {DIST_N}, "
+        f"{V_MAIN}], the pod mean all-gathered over each learner's pod World; launches summed "
+        f"over the ranks {counts['pod_rounds']}")
+    say(f"phase 4 main path rank_engine (each pod's {DIST_N} ranks {how}): {len(want_engine)} "
+        f"sessions through {S_ENGINE} slots at {V_ENGINE} words a rank, "
+        f"{rounds[0]['engine_steps']} steps ({one_steps} on one card); launches summed over "
+        f"the {POD_P * DIST_N} ranks {counts['rank_engine']}; {rounds_s:.1f} s spawned with "
+        f"the pod rounds")
+    say(f"phase 4 main path pod_steps ({POD_P} pods x {POD_STEP_N} learners = "
+        f"{POD_P * POD_STEP_N} ranks {how}; three a pod: SAFE's rings need three members): "
+        f"{TS_ARCH} at full width, reduced: n_layers 24 -> {POD_LAYERS}; 2 train steps and a "
+        f"weighted FedAvg round of {DIST_K} local steps; padded_size {padded}, P {P}; "
+        f"{steps_s:.1f} s spawned, {one_s:.1f} s for every pod path's work in one process; "
+        f"launches summed over the ranks {counts['pod_steps']}; the kernels at the pod paths' "
+        f"shapes (V = padded_size, P + 1, chain_combine_batched [{S_ENGINE}, {V_ENGINE}]) == "
+        f"plain: {checks} comparisons in {time.perf_counter() - t1:.1f} s, max |err| {kerr}")
+    for path, c in counts.items():
+        missing = sorted(k for k in PATH_KERNELS[path] if c[k] <= 0)
+        if missing:
+            fail(f"path {path} never launched {missing} in its ranks: {c}")
+        for k, v in c.items():
+            launches[k] += v
+
+    for name in DIST_ROUNDS:
+        got = [r["rounds"][name] for r in rounds]
+        if any(g != want[name] for g in got):
+            fail(f"pod round {name}: the ranks' means differ from one process's [2, 4, V] "
+                 f"(ranks {got}, one process {want[name]})")
+    for r, res in enumerate(rounds):
+        if res["engine"] != want_engine:
+            fail(f"rank engine: rank {r}'s sessions differ from the one-card engine's")
+    for key in ("train", "fedavg"):
+        got = [r[key] for r in steps_]
+        if any(g != want[key] for g in got):
+            fail(f"pod {key}: the ranks' results differ from one process's (ranks {got}, one "
+                 f"process {want[key]})")
+    say(f"phase 5 pod_rounds: every rank's mean of {list(DIST_ROUNDS)} torch.equal to "
+        f"make_aggregator(..., pod_axis='pod').aggregate of the [{POD_P}, {DIST_N}, {V_MAIN}] "
+        f"rows on the card (sha256 {({k: want[k][:12] for k in DIST_ROUNDS})})")
+    say(f"phase 5 rank_engine: every session's published means on each of the "
+        f"{POD_P * DIST_N} ranks torch.equal to the one-card engine's "
+        f"({len(want_engine)} sessions)")
+    say(f"phase 5 pod_steps: every rank's parameters after 2 pod steps (learner {DIST_DEAD} "
+        f"dead in the second) word for word the one-process pod step's (sha256 "
+        f"{want['train'][0][:12]}; losses {[round(x, 4) for x in want['train'][1]]}); the "
+        f"FedAvg round's delta and parameters word for word (sha256 {want['fedavg'][0][:12]}, "
+        f"{want['fedavg'][1][:12]}; local loss, pod 0's, {want['fedavg'][2]:.4f})")
+
+    for name in DIST_ROUNDS:
+        walls = [r["round_ms"][name] for r in rounds]
+        tr = [r["round_transport_ms"][name] for r in rounds]
+        say(f"phase 6 pod round {name} ({POD_P * DIST_N} ranks {how}): wall {max(walls):.1f} "
+            f"ms; in collectives {[round(t, 1) for t in tr]} ms")
+    say(f"phase 6 rank_engine ({POD_P} x {DIST_N} ranks {how}): "
+        f"{max(r['engine_ms'] for r in rounds):.1f} ms for {rounds[0]['engine_steps']} steps "
+        f"({max(r['engine_ms'] for r in rounds) / rounds[0]['engine_steps']:.2f} ms a step); "
+        f"the one-card engine {one_engine_ms:.1f} ms for {one_steps}; peaks "
+        f"{[round(r['peak'] / 1e9, 2) for r in rounds]} GB a rank")
+    for i in range(2):
+        walls = [r["step_ms"][i] for r in steps_]
+        tr = [r["step_transport_ms"][i] for r in steps_]
+        say(f"phase 6 pod train step {i + 1} ({POD_P * POD_STEP_N} ranks {how}): wall "
+            f"{max(walls):.1f} ms; in collectives {[round(t, 1) for t in tr]} ms, transport "
+            f"share {[f'{t / w:.0%}' for t, w in zip(tr, walls)]}")
+    say(f"phase 6 pod fedavg ({POD_P * POD_STEP_N} ranks {how}): round wall "
+        f"{max(r['fedavg_ms'] for r in steps_):.1f} ms; peaks train step "
+        f"{[round(r['train_peak'] / 1e9, 2) for r in steps_]} GB a rank, FedAvg "
+        f"{[round(r['fedavg_peak'] / 1e9, 2) for r in steps_]} GB")
+
+
 def nccl_rounds_rank():
     """One rank of ``--nccl4``'s rounds under ``torch.distributed.run``, a
     card each over NCCL: each round of DIST_ROUNDS through
@@ -2749,12 +3373,81 @@ def nccl_rounds_rank():
     close_world()
 
 
-def nccl_paths():
-    """``python3 chip_smoke.py --nccl4``, on a host with four cards: the
-    dist rounds over NCCL, a card a rank, then the training launcher under
-    ``torch.distributed.run`` at internlm2-1.8b's full 24 layers (a card a
-    rank, NCCL_STEPS steps); each rank's peak memory and the steps' walls."""
-    import tempfile
+def nccl_pod_rank():
+    """One rank of ``--nccl4``'s pod and engine checks under
+    ``torch.distributed.run``, a card each over NCCL, each against one
+    process's on this rank's card: the pod rounds of the modes whose rings
+    take two learners (BON, INSEC) at 2 pods x 2 learners and V_MAIN words
+    a rank; the per-rank engine over the four ranks; and two BON pod train
+    steps of internlm2-1.8b at DIST_LAYERS layers."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import close_world, collectives, init_world, rank_world
+    from repro_torch.launch.mesh import make_pod_mesh
+    world = init_world()
+    dev, r, n = world.device, world.rank, 2
+    mesh = make_pod_mesh(POD_P, n)
+    data, pod = rank_world(mesh, "data"), rank_world(mesh, "pod")
+    values = torch.stack([dist_row(dev, g) for g in range(POD_P * n)]).view(POD_P, n, V_MAIN)
+    for name, akw, kw in (("bon", {}, {}), ("insec", {}, {"weights": pod_weights()[:, :n]})):
+        agg = make_aggregator(name, n, pod_axis="pod", device=dev, **akw)
+        dist.barrier()
+        sync()
+        collectives.reset_stats(timed=True)
+        t0 = time.perf_counter()
+        got = agg.aggregate_rank(values[pod.rank, data.rank], 2**32 - 5, world=data,
+                                 pod_world=pod, **kw)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = agg.aggregate(values, 2**32 - 5, **kw)
+        if not torch.equal(got, want):
+            fail(f"rank {r}: the nccl pod round {name} differs from one process's")
+        say(f"nccl rank {r} pod round {name} (2 x 2): torch.equal to one process's [2, 2, V]; "
+            f"wall {ms:.2f} ms, in collectives {collectives.stats['seconds'] * 1e3:.2f} ms")
+    collectives.reset_stats()
+    del values
+    got, steps_, ms = run_engine(dev, world)
+    want = run_engine(dev)[0]
+    if got != want:
+        fail(f"rank {r}: the nccl per-rank engine differs from one process's")
+    say(f"nccl rank {r} engine: {len(got)} sessions torch.equal to the one-card engine's; "
+        f"{ms:.1f} ms for {steps_} steps")
+    model, steps, _ = pod_model(dev, DIST_LAYERS, n)
+    t0 = time.perf_counter()
+    got = pod_train(model, steps, mesh, r, n=n, mode="bon")
+    ms = (time.perf_counter() - t0) * 1e3
+    del model
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = pod_train(pod_model(dev, DIST_LAYERS, n)[0], steps, n=n, mode="bon")
+    if got != want:
+        fail(f"rank {r}: the nccl pod train step differs from one process's")
+    say(f"nccl rank {r} pod train step (BON, 2 x 2, {DIST_LAYERS} layers): parameters word for "
+        f"word one process's; losses {[round(x, 4) for x in got[1]]}; 2 steps in {ms:.1f} ms "
+        f"with set-up; peak {peak / 1e9:.2f} GB")
+    close_world()
+
+
+def nccl_moe_layers():
+    """The most layers of qwen3-moe (full vocabulary) whose per-rank step the
+    dry run says fits a card, one learner a rank of DIST_N: (layers, the
+    record)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(get_config(EP_ARCH), ep_axis="data", ep_ranks=DIST_N)
+    shape = dict(seq_len=TS_S, global_batch=DIST_N * TS_B, kind="train")
+    kw = dict(shape=shape, learners=DIST_N, batch=TS_B, per_rank=True)
+    full = dryrun.measure(cfg, "train_4k", **kw)["peak_bytes"]
+    fit = dryrun.max_units_that_fit(cfg, "train_4k", dryrun.H100_USABLE_BYTES, full, **kw)
+    return fit["max_layers_that_fit"], fit
+
+
+def nccl_setup():
+    """(cards, nvidia-smi lines, environment, torch.distributed.run command)
+    of a four-card run, the kernels built once before the ranks."""
     cards = torch.cuda.device_count()
     if cards < 4:
         fail(f"--nccl4 needs four cards, torch sees {cards}")
@@ -2764,7 +3457,18 @@ def nccl_paths():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4"]
     from repro_torch.kernels import build
-    build.build()  # once, before the ranks
+    build.build()
+    return cards, smi, env, run
+
+
+def nccl_paths():
+    """``python3 chip_smoke.py --nccl4``, on a host with four cards: the
+    dist rounds over NCCL, a card a rank, the pod rounds, engine and pod
+    step, then the training launcher under ``torch.distributed.run`` at
+    internlm2-1.8b's full 24 layers (a card a rank, NCCL_STEPS steps) and
+    the MoE (``nccl_moe``); each rank's peak memory and the steps' walls."""
+    import tempfile
+    cards, smi, env, run = nccl_setup()
     t0 = time.perf_counter()
     proc = subprocess.run(run + [os.path.join(ROOT, "chip_smoke.py"), "--nccl-rank"], env=env,
                           capture_output=True, text=True, timeout=600)
@@ -2772,6 +3476,13 @@ def nccl_paths():
     if proc.returncode != 0:
         fail(f"nccl rounds: rc {proc.returncode}\n{proc.stderr[-3000:]}")
     say(f"nccl rounds: {time.perf_counter() - t0:.1f} s ({smi.splitlines()[0]} x{cards})")
+    t0 = time.perf_counter()
+    proc = subprocess.run(run + [os.path.join(ROOT, "chip_smoke.py"), "--nccl-pod-rank"], env=env,
+                          capture_output=True, text=True, timeout=900)
+    say("\n".join(line for line in proc.stdout.splitlines() if line.startswith("nccl rank")))
+    if proc.returncode != 0:
+        fail(f"nccl pods and engine: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    say(f"nccl pods and engine: {time.perf_counter() - t0:.1f} s ({smi.splitlines()[0]} x{cards})")
     with tempfile.TemporaryDirectory() as tmp:
         metrics = os.path.join(tmp, "m.jsonl")
         t0 = time.perf_counter()
@@ -2790,15 +3501,98 @@ def nccl_paths():
     say(f"nccl launcher ({smi.splitlines()[0]} x{cards}, nccl, a card a rank): {TS_ARCH} at 24 "
         f"layers, {NCCL_STEPS} steps in {wall:.1f} s with start-up; losses "
         f"{[round(r['loss'], 4) for r in recs]}; steps 2.. wall {steps} ms (rank 0's metrics)")
+    nccl_moe(run, env, smi, cards)
+
+
+def nccl_moe(run, env, smi, cards):
+    """``--nccl4``'s MoE: the smoke MoE through the launcher with a
+    checkpoint every step and a run resumed from step 1, whose step-2
+    checkpoint must equal the uninterrupted run's word for word; then
+    qwen3-moe with its full vocabulary, a card a rank, at the most layers
+    the dry run's per-rank step says fit a card (expert parallelism over the
+    four ranks, E/4 experts each), a layer less should that not run."""
+    import gzip
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.dryrun import H100_USABLE_BYTES
+    with tempfile.TemporaryDirectory() as tmp:
+        smoke = ["-m", "repro_torch.launch.train", "--arch", EP_ARCH, "--smoke", "--steps", "2",
+                 "--model-shards", "1", "--ckpt-every", "1", "--ckpt-dir"]
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        for where, before in ((a, None), (b, a)):
+            if before:
+                shutil.copytree(before, where)
+                shutil.rmtree(os.path.join(where, "step_00000002"))
+            proc = subprocess.run(run + smoke + [where], env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode != 0:
+                fail(f"nccl moe resume: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        same = all(gzip.open(os.path.join(a, "step_00000002", f)).read()
+                   == gzip.open(os.path.join(b, "step_00000002", f)).read()
+                   for f in ("buffers.bin.gz", "manifest.msgpack.gz"))
+        if "resumed from step 1" not in proc.stdout or not same:
+            fail("nccl moe resume: the resumed run's step 2 differs from the uninterrupted run's")
+        say("nccl moe resume (smoke, nccl): the run resumed from step 1 wrote step 2 word for "
+            "word as the uninterrupted run did (full-E checkpoint)")
+
+        t0 = time.perf_counter()
+        layers, fit = nccl_moe_layers()
+        say(f"nccl moe dry run: {EP_ARCH} (full vocabulary) one learner a rank of {DIST_N}, "
+            f"rank 0's step: {fit['bytes_at_1_unit'] / 1e9:.2f} GB at 1 layer + "
+            f"{fit['bytes_per_unit'] / 1e9:.2f} GB a layer; {layers} layers fit "
+            f"{H100_USABLE_BYTES / 1e9:.1f} GB ({time.perf_counter() - t0:.1f} s)")
+        metrics = os.path.join(tmp, "m.jsonl")
+        env = dict(env, PYTORCH_CUDA_ALLOC_CONF=DIST_ALLOC_CONF)
+        for attempt in range(2):  # should the dry run's verdict not hold, say so, a layer less
+            t0 = time.perf_counter()
+            # its own session, so that a hang ends with every rank of it
+            proc = subprocess.Popen(
+                run + ["-m", "repro_torch.launch.train", "--arch", EP_ARCH, "--n-layers",
+                       str(layers), "--steps", str(NCCL_STEPS), "--model-shards", "1",
+                       "--metrics", metrics],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True)
+            try:
+                out, err_text = proc.communicate(timeout=NCCL_MOE_TIMEOUT_S)
+                rc = proc.returncode
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)
+                out, err_text = proc.communicate()
+                rc = "timeout"
+            wall = time.perf_counter() - t0
+            say("\n".join(line for line in out.splitlines()
+                          if "rank" in line or line.startswith("done")))
+            if rc == 0:
+                break
+            why = sorted({line.strip()[-300:] for line in err_text.splitlines()
+                          if "Error" in line or "out of memory" in line})[:8]
+            say(f"nccl moe launcher: {layers} layers did not run on a card a rank against the "
+                f"dry run's verdict (rc {rc} after {wall:.1f} s): {why}; {err_text[-800:]}")
+            layers -= 1
+        if rc != 0 or layers < 1:
+            fail(f"nccl moe launcher: rc {rc}")
+        recs = [json.loads(line) for line in open(metrics) if line.strip()]
+    times = [r["time"] for r in recs]
+    steps = [round((b - a) * 1e3, 1) for a, b in zip(times, times[1:])]
+    say(f"nccl moe launcher ({smi.splitlines()[0]} x{cards}, nccl, a card a rank): {EP_ARCH} at "
+        f"{layers} layers, full vocabulary, {NCCL_STEPS} steps in {wall:.1f} s with start-up; "
+        f"losses {[round(r['loss'], 4) for r in recs]}; steps 2.. wall {steps} ms (rank 0's "
+        "metrics)")
 
 
 def main():
+    if "--nccl-pod-rank" in sys.argv:
+        return nccl_pod_rank()
     if "--dist-depth" in sys.argv:
         return dist_depth([int(a) for a in sys.argv[sys.argv.index("--dist-depth") + 1:]])
     if "--nccl-rank" in sys.argv:
         return nccl_rounds_rank()
     if "--nccl4" in sys.argv:
         return nccl_paths()
+    if "--nccl4-moe" in sys.argv:
+        cards, smi, env, run = nccl_setup()
+        return nccl_moe(run, env, smi, cards)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on a GPU")
     dev = torch.device("cuda")
@@ -2857,6 +3651,10 @@ def main():
     timed("dry run", dryrun_paths, dev, launches, smi)
     torch.cuda.empty_cache()
     timed("dist", dist_paths, dev, launches, err, smi)
+    torch.cuda.empty_cache()
+    timed("moe dist", ep_dist_path, dev, launches, err, smi)
+    torch.cuda.empty_cache()
+    timed("pod dist", pod_dist_paths, dev, launches, err, smi)
     say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
         f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")

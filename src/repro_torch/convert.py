@@ -4,18 +4,21 @@ These functions take the JAX package's objects as plain data — a
 ``ChainConfig``'s fields as a dict (``dataclasses.asdict``), its uint32 key
 arrays, an ``AggSession``'s fields, a model's parameter tree and its
 decode cache, all numpy — and build the port's objects from them.
+``shard_experts`` and ``gather_experts`` carry the full-E expert leaves
+(the reference's layout, or the one-card port's) into a rank's shard under
+expert parallelism across ranks, and back.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.session import AggSession
 from repro_torch.core.types import ChainConfig, RoundKeys
-from repro_torch.train.flatten import leaves_with_paths
+from repro_torch.train.flatten import is_expert_path, leaves_with_paths, tree_unflatten
 
 _SESSION_FIELDS = tuple(f.name for f in dataclasses.fields(AggSession))
 
@@ -47,6 +50,43 @@ def model_params(cfg, tree) -> Dict[str, torch.Tensor]:
             t = torch.from_numpy(np.array(a))
         state[path.replace("/", ".")] = t
     return state
+
+
+def _is_expert(path: str) -> bool:
+    return is_expert_path(path.replace(".", "/"))
+
+
+def shard_experts(tree: Any, rank: int, ranks: int) -> Any:
+    """``tree`` (a parameter tree, a ``model_params`` state dict, a train
+    state with its ``ep_opt``) with every expert leaf — [n_units, E, ...],
+    ``train/flatten.py::is_expert_path``, dotted keys too — cut to rank
+    ``rank``'s experts [r·E/n, (r+1)·E/n) along dim 1, as a rank's model
+    holds them (``Model(cfg, ep_world=world)``); other leaves as they are."""
+    def cut(path, leaf):
+        if not _is_expert(path):
+            return leaf
+        E = leaf.shape[1]
+        if E % ranks:
+            raise ValueError(f"{path}: {E} experts do not shard over {ranks} ranks")
+        per = E // ranks
+        return leaf[:, rank * per:(rank + 1) * per]
+    return tree_unflatten(tree, [cut(p, leaf) for p, leaf in leaves_with_paths(tree)])
+
+
+def gather_experts(shards: Sequence[Any]) -> Any:
+    """The full-E tree of the ranks' ``shards`` (trees of one structure, in
+    rank order): each expert leaf concatenated along dim 1, every other
+    leaf rank 0's."""
+    paths = leaves_with_paths(shards[0])
+    per_rank = [[leaf for _, leaf in leaves_with_paths(t)] for t in shards]
+    out = []
+    for i, (path, leaf) in enumerate(paths):
+        if _is_expert(path):
+            parts = [rank_leaves[i] for rank_leaves in per_rank]
+            leaf = (torch.cat(parts, dim=1) if isinstance(leaf, torch.Tensor)
+                    else np.concatenate(parts, axis=1))
+        out.append(leaf)
+    return tree_unflatten(shards[0], out)
 
 
 def _bf16(a: np.ndarray) -> torch.Tensor:

@@ -11,8 +11,10 @@ first.
 
 With one learner per process (``repro_torch.dist``), ``aggregate_rank``
 is the reference's per-rank ``aggregate`` and ``aggregate_sharded`` its
-``shard_map`` entry over a live process group; there is no pod axis
-across processes yet.
+``shard_map`` entry over a live process group. With a pod axis the ranks
+form a ('pod', 'data') grid (``launch/mesh.py::make_pod_mesh``): each pod
+runs the round over its learners' ``World`` and the pods' results meet
+over the pod ``World`` (``chain.pod_mean_rank``).
 
 Key provisioning (DESIGN.md §6): a ``provisioning_seed`` models the
 Round-0 out-of-band exchange (hop keys are KDF(provisioning, i, j)); each
@@ -30,13 +32,13 @@ import torch
 
 from repro_torch.core.bon import bon_aggregate, bon_rank
 from repro_torch.core.chain import (chain_aggregate_pipelined, chain_aggregate_sequential,
-                                    chain_rank_pipelined, chain_rank_sequential)
+                                    chain_rank_pipelined, chain_rank_sequential, pod_mean_rank)
 from repro_torch.core.insec import insec_aggregate, insec_rank
 from repro_torch.core.session import seed_words
 from repro_torch.core.types import ChainConfig, RoundKeys
 from repro_torch.crypto.np_impl import derive_key_np, threefry2x32_np
 from repro_torch.crypto.prf import RoundCounter
-from repro_torch.dist.world import rank_world
+from repro_torch.dist.world import pod_world_of, rank_world
 
 
 def make_round_keys(provisioning_seed: int, learner_master: int,
@@ -126,58 +128,110 @@ class SecureAggregator:
             return chain_aggregate_pipelined(values, keys, cfg, alive, weights)
         return chain_aggregate_sequential(values, keys, cfg, alive, weights, rotate)
 
-    def check_world(self, world) -> None:
+    def check_world(self, world, pod_world=None, pods=None) -> None:
         """Raise unless ``world`` holds one learner a rank of this
-        aggregator, without a pod axis (pods across ranks are not ported)."""
+        aggregator and ``pod_world`` is there exactly when the aggregator
+        has a pod axis, with one rank a pod (``pods``, when the caller's
+        data says how many)."""
         if world.size != self.cfg.num_learners:
             raise ValueError(f"{world.size} ranks for {self.cfg.num_learners} learners: one "
                              "learner a rank")
-        if self.cfg.pod_axis is not None:
-            raise ValueError("the per-rank round has no pod axis yet: run pods on one card")
+        if self.cfg.pod_axis is None:
+            if pod_world is not None:
+                raise ValueError("a pod World was given, but the aggregator has no pod axis")
+            return
+        if pod_world is None:
+            raise ValueError(f"pod_axis={self.cfg.pod_axis!r}: the per-rank round needs the "
+                             "pod World too (rank_world(mesh, 'pod') of a ('pod', 'data') "
+                             "mesh, launch/mesh.py::make_pod_mesh)")
+        if pods is not None and pods != pod_world.size:
+            raise ValueError(f"a pod World of {pod_world.size} ranks for {pods} pods: one "
+                             "pod a rank of the pod World")
+
+    def _rank_weight(self, weights, world, pod_world):
+        """This rank's scalar weight from its scalar, the f32[n] weights of
+        every learner (the same in every pod) or, with pods, f32[P, n]."""
+        if weights is None:
+            return None
+        w = torch.as_tensor(weights if isinstance(weights, torch.Tensor)
+                            else np.asarray(weights, np.float32)).reshape(-1)
+        n = self.cfg.num_learners
+        if w.numel() == 1:
+            return w.reshape(())
+        if w.numel() == n:
+            return w[world.rank]
+        if pod_world is None or w.numel() % n:
+            raise ValueError(f"weights: expected a scalar, {n} or [P, {n}] entries, got "
+                             f"{w.numel()}")
+        self.check_world(world, pod_world, w.numel() // n)
+        return w.reshape(-1, n)[pod_world.rank, world.rank]
 
     def aggregate_rank(self, values, counter_base: int = 0, alive=None, weights=None,
-                       domain: int = 0, rotate: int = 0, *, world) -> torch.Tensor:
+                       domain: int = 0, rotate: int = 0, *, world,
+                       pod_world=None) -> torch.Tensor:
         """Secure mean with one learner per rank: the reference's per-rank
         ``aggregate`` (inside ``shard_map``), over ``world``
         (``repro_torch.dist``). ``values`` is this rank's f32[V], ``alive``
-        the 0/1 [n] bitmap (the same on every rank), ``weights`` this rank's
-        scalar weight (read when ``cfg.weighted``), ``rotate`` and
-        ``domain`` as in ``aggregate``. Keys and the initiator election
-        are derived on the host from the same seeds on every rank; nothing
-        of them is sent. Returns the published f32[V] mean on every rank,
-        bit for bit ``aggregate``'s of the stacked rows."""
-        self.check_world(world)
+        the 0/1 [n] bitmap (the same on every rank, and in every pod),
+        ``weights`` this rank's scalar weight, or the f32[n] (or with pods
+        f32[P, n]) weights of every learner (read when ``cfg.weighted``),
+        ``rotate`` and ``domain`` as in ``aggregate``. With the pod axis,
+        ``pod_world`` links this learner's rank across the pods: each pod's
+        round runs over its ``world``, then the pods' results are
+        all-gathered in pod order and averaged as the one-card
+        ``pod_mean``. Keys and the initiator election are derived on the
+        host from the same seeds on every rank; nothing of them is sent.
+        Returns the published f32[V] mean on every rank, bit for bit
+        ``aggregate``'s of the stacked rows."""
+        self.check_world(world, pod_world)
         values = torch.as_tensor(values, dtype=torch.float32).to(world.device).contiguous()
         if values.dim() != 1:
             raise ValueError(f"values: expected this rank's [V] vector, got {tuple(values.shape)}")
-        cfg = self.cfg
+        weight = self._rank_weight(weights, world, pod_world)
+        cfg = dataclasses.replace(self.cfg, pod_axis=None)
         if cfg.mode == "insec":
-            return insec_rank(values, cfg, world, alive, weights)
-        keys = make_round_keys(self.provisioning_seed, self.learner_master,
-                               counter_base, cfg.num_learners, domain)
-        if cfg.mode == "bon":
-            return bon_rank(values, keys, cfg, world, alive)
-        if cfg.pipelined:
-            return chain_rank_pipelined(values, keys, cfg, world, alive, weights)
-        return chain_rank_sequential(values, keys, cfg, world, alive, weights, rotate)
+            avg = insec_rank(values, cfg, world, alive, weight)
+        else:
+            keys = make_round_keys(self.provisioning_seed, self.learner_master,
+                                   counter_base, cfg.num_learners, domain)
+            if cfg.mode == "bon":
+                avg = bon_rank(values, keys, cfg, world, alive)
+            elif cfg.pipelined:
+                avg = chain_rank_pipelined(values, keys, cfg, world, alive, weight)
+            else:
+                avg = chain_rank_sequential(values, keys, cfg, world, alive, weight, rotate)
+        return avg if pod_world is None else pod_mean_rank(avg, pod_world)
 
     def aggregate_sharded(self, mesh, global_values, counter_base: int = 0, alive=None,
                           weights=None) -> torch.Tensor:
         """The reference's ``aggregate_sharded`` on a live process group: each
         rank takes its row of the learner-major f32[n, V] ``global_values``
-        (and of the f32[n] ``weights``) and returns the published [V] mean,
-        the same on every rank. ``mesh`` is a ``repro_torch.dist.World`` or
-        a ``DeviceMesh`` over the live group (its ``cfg.axis`` dimension
-        holds the learners)."""
+        (and the f32[n] ``weights``) and returns the published [V] mean, the
+        same on every rank. ``mesh`` is a ``repro_torch.dist.World`` or a
+        ``DeviceMesh`` over the live group (its ``cfg.axis`` dimension holds
+        the learners); with the pod axis a ('pod', 'data') mesh
+        (``launch/mesh.py::make_pod_mesh``), ``global_values`` pod-major
+        f32[P, n, V] and ``weights`` f32[P, n] (or f32[n] for every pod)."""
         world = rank_world(mesh, self.cfg.axis)
         if world is None:
             raise ValueError("aggregate_sharded needs a World or a mesh over the live "
                              "process group init_world started")
-        row = torch.as_tensor(global_values)[world.rank]
-        w = None if weights is None else torch.as_tensor(
-            np.asarray(weights, np.float32) if not isinstance(weights, torch.Tensor)
-            else weights).reshape(-1)[world.rank]
-        return self.aggregate_rank(row, counter_base, alive, w, world=world)
+        values = torch.as_tensor(global_values)
+        pod_world = None
+        if self.cfg.pod_axis is not None:
+            pod_world = pod_world_of(mesh, self.cfg.pod_axis)
+            if pod_world is None:
+                raise ValueError(f"pod_axis={self.cfg.pod_axis!r} needs a ('pod', 'data') "
+                                 "mesh, not a World")
+            if values.dim() != 3:
+                raise ValueError(f"values: with pod_axis={self.cfg.pod_axis!r} expected "
+                                 f"[P, n, V], got {tuple(values.shape)}")
+            self.check_world(world, pod_world, values.shape[0])
+            row = values[pod_world.rank, world.rank]
+        else:
+            row = values[world.rank]
+        return self.aggregate_rank(row, counter_base, alive, weights, world=world,
+                                   pod_world=pod_world)
 
     def aggregate_tree(self, tree: Dict[str, torch.Tensor], counter_base: int = 0,
                        alive=None, weights=None) -> Dict[str, torch.Tensor]:

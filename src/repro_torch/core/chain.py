@@ -33,6 +33,11 @@ counter, alive bitmap, weights and rotation — with one
 ``chain_combine_batched`` launch per hop: the multi-session engine's
 substrate.
 
+With one learner per rank (``repro_torch.dist``), ``chain_rank_sequential``,
+``chain_rank_pipelined`` and ``chain_rank_batched`` are the reference's
+per-rank rounds over a ``World``, and ``pod_mean_rank`` its ``pmean`` over
+the pods across ranks.
+
 With ``cfg.pod_axis`` set (hierarchical federation, §5.10) the values are
 pod-major [P, n, V]: every pod runs the round on the same keys and alive
 bitmap (the reference derives keys from the learner-axis rank) and the
@@ -154,6 +159,30 @@ def pod_mean(pod_avgs: Sequence[torch.Tensor]) -> torch.Tensor:
     for a in pod_avgs[1:]:
         avg = avg + a
     return avg * device_scalar(np.float32(1.0) / np.float32(len(pod_avgs)), avg)
+
+
+POD_CHUNK = 1 << 26  # words of a pod mean across ranks gathered at a time
+
+
+def pod_mean_chunks(flat: torch.Tensor, pods_of: Callable, out=None) -> torch.Tensor:
+    """``pod_mean`` of the pods' values of a vector, ``POD_CHUNK`` words at
+    a time (an elementwise mean: the chunks change no bit):
+    ``pods_of(part)`` gives the pods' values of a chunk of ``flat`` in pod
+    order; the mean is written into ``out`` (``flat`` itself by default)."""
+    flat = flat.view(-1)
+    out = flat if out is None else out.view(-1)
+    for lo in range(0, flat.numel(), POD_CHUNK):
+        out[lo:lo + POD_CHUNK] = pod_mean(pods_of(flat[lo:lo + POD_CHUNK]))
+    return out
+
+
+def pod_mean_rank(avg: torch.Tensor, pod_world) -> torch.Tensor:
+    """``pod_mean`` across ranks: this pod's result ``avg`` all-gathered
+    over ``pod_world`` (one rank a pod, the same learner in each) in pod
+    order and averaged as the one-card ``pod_mean``, so its words are the
+    one-card pod mean's; written into ``avg``."""
+    return pod_mean_chunks(avg, lambda part: list(
+        collectives.all_gather(part, pod_world).unbind(0))).view(avg.shape)
 
 
 def _pod_weights(weights, pods: int, n: int) -> list:
@@ -585,3 +614,119 @@ def chain_rank_pipelined(
     posters = [g * m for g in range(cfg.subgroups)]
     return publish_rank(avg if rank in posters else None, posters, avg, cfg.subgroups,
                         world)
+
+
+def chain_rank_batched(
+    values: torch.Tensor,
+    prov_seeds,
+    learner_seeds,
+    counter_bases,
+    cfg: ChainConfig,
+    world,
+    alive,
+    weights=None,
+    rotate: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """``chain_aggregate_batched`` with one learner per rank (the reference
+    engine's ``per_rank`` program): this rank's f32[S, V] rows of S
+    sessions, each session with its own keys, counter, alive bitmap,
+    weights and rotation; every session's published mean on every rank,
+    bit for bit the one-card batch's.
+
+    The S ciphertexts move in lockstep around the ring: each session's
+    initiator posts ``mask_add`` ⊕ R into its row; then m − 1 ``ppermute``
+    steps of the [S, W] ciphertexts, after each of which this rank combines
+    the rows of the sessions whose hop order puts it there with one
+    ``chain_combine_batched`` launch (a row it does not hold at that hop
+    passes through unchanged); a last ``ppermute`` returns each session to
+    its initiator, which unmasks and decodes. The initiators' averages are
+    all-gathered and published as the one-card ``_publish``.
+
+    Args (host data the same on every rank): ``prov_seeds`` uint32[S, 2],
+    ``learner_seeds`` uint32[S, n, 2], ``counter_bases`` [S], ``alive``
+    [S, n], ``weights`` f32[S, n] (or this rank's f32[S]; read when
+    weighted), ``rotate`` [S].
+    """
+    if cfg.mode not in ("safe", "saf"):
+        raise ValueError(f"chain modes are 'safe'/'saf', got {cfg.mode!r}")
+    if cfg.pod_axis is not None:
+        raise ValueError("batched sessions run one pod each: cfg.pod_axis must be None")
+    n, m, sb = cfg.num_learners, cfg.group_size, cfg.scale_bits
+    rank, topo = world.rank, cfg.topology
+    if values.dim() != 2:
+        raise ValueError(f"values: expected this rank's [S, V], got {tuple(values.shape)}")
+    S, dev = values.shape[0], values.device
+    alive = [host_alive(a, n) for a in alive]
+    rotate = [0] * S if rotate is None else [int(r) for r in rotate]
+    bases = np.array([int(b) & 0xFFFFFFFF for b in np.asarray(counter_bases).reshape(-1)],
+                     np.uint32)
+    learner_seeds = np.asarray(learner_seeds, np.uint32).reshape(S, n, 2)
+    codec = FixedPointCodec(sb)
+    w = None
+    if cfg.weighted and weights is not None:
+        w = torch.as_tensor(weights if isinstance(weights, torch.Tensor)
+                            else np.asarray(weights, np.float32)).reshape(S, -1)
+        w = (w[:, rank] if w.shape[1] == n else w[:, 0]).reshape(S, 1)
+    x = _payload(values[:, None], cfg, w)[:, 0]
+    dead = [s for s in range(S) if alive[s][rank] <= 0]
+    if dead:  # a dead rank forwards and re-pads a zero row
+        x = x.clone()
+        x[upload(np.array(dead), dev)] = 0.0
+    W = x.shape[1]
+    zero = torch.zeros(W, dtype=torch.float32, device=dev)
+    if cfg.mode == "safe":
+        hop = [_hop_keys(p, cfg) for p in np.asarray(prov_seeds).reshape(S, 2)]
+        k_out = np.stack([h[0][rank] for h in hop])  # [S, 2]: this rank's edges
+        k_in = np.stack([h[1][rank] for h in hop])
+    grp = topo.group_of(rank)
+    orders = [topo.hop_order(alive[s], rotate[s], grp) for s in range(S)]
+    mine = [s for s in range(S) if orders[s][0] == rank]   # sessions this rank initiates
+    perm = topo.ring_permutation()
+
+    R = {s: _initiator_mask(learner_seeds[s, rank], zero, int(bases[s]), sb) for s in mine}
+    # the ciphertexts kept as their int32 view: row gathers and scatters
+    # of uint32 are not implemented for every device
+    c = torch.zeros((S, W), dtype=torch.int32, device=dev)
+    for s in mine:
+        b = int(bases[s])
+        posted = (ops.mask_add(x[s], k_out[s], b, scale_bits=sb) if cfg.mode == "safe"
+                  else codec.encode(x[s]))
+        c[s] = ring_add(posted, R[s]).view(torch.int32)
+    for t in range(1, m):
+        c = collectives.ppermute(c, perm, world)
+        here = [s for s in range(S) if orders[s][t] == rank]
+        if not here:
+            continue
+        idx = upload(np.array(here), dev)
+        held = c[idx].view(torch.uint32)
+        if cfg.mode == "safe":
+            held = ops.chain_combine_batched(held, x[idx], k_in[here], k_out[here],
+                                             bases[here], scale_bits=sb)
+        else:
+            held = ring_add(held, codec.encode(x[idx]))
+        c[idx] = held.view(torch.int32)
+    c = collectives.ppermute(c, perm, world).view(torch.uint32)
+
+    # this rank's initiated sessions unmasked; every session's group
+    # averages gathered from their initiators and published
+    like = zero[:-1] if cfg.weighted else zero
+    part = torch.zeros((S,) + like.shape, dtype=torch.float32, device=dev)
+    if mine:
+        totals = []
+        for s in mine:
+            b = int(bases[s])
+            t = c[s]
+            if cfg.mode == "safe":
+                t = ring_sub(t, ops.mask_add(zero, k_in[s], b, scale_bits=sb))
+            totals.append(ring_sub(t, R[s]))
+        counts = np.array([[_group_count(cfg, alive[s], grp)] for s in mine], np.float32)
+        counts = upload(np.maximum(counts, np.float32(1.0)), dev)
+        part[upload(np.array(mine), dev)] = _group_mean(codec, torch.stack(totals), counts,
+                                                        cfg.weighted)
+    stack = collectives.all_gather(part, world)          # [n, S, V]
+    sess = torch.arange(S, device=dev)
+    group_avgs = []
+    for g in range(cfg.subgroups):
+        init = [topo.hop_order(alive[s], rotate[s], g)[0] for s in range(S)]
+        group_avgs.append(stack[upload(np.array(init), dev), sess])
+    return _publish(group_avgs, cfg.subgroups)

@@ -12,13 +12,19 @@ over the learner axis:
   chain's hops);
 - ``all_gather(x, tiled)`` — stacked [n, ...] or, tiled, concatenated
   along dim 0; ``gather_to_host`` — the tiled gather on one rank only,
-  in host memory (a checkpoint's slices);
+  in host memory (a checkpoint's slices and expert shards);
 - ``psum`` — f32: an all-gather, then ``sum(dim=0)`` over the [n, ...]
   stack, the one-card port's sum over the learner dim on the same
   tensor, so the bits are that sum's (a backend's all-reduce adds in an
   order of its own); uint32: the sum mod 2^32;
 - ``pmean`` — f32: an all-gather, then ``mean(dim=0)``;
-- ``broadcast(x, src)`` — ``src``'s tensor on every rank.
+- ``broadcast(x, src)`` — ``src``'s tensor on every rank;
+- ``all_to_all(x, split_axis, concat_axis, tiled)`` — chunk j of ``x``
+  along ``split_axis`` to rank j, the chunks received concatenated along
+  ``concat_axis`` in rank order (untiled: the split axis, of size n,
+  removed and the received chunks stacked at ``concat_axis``). It is
+  differentiable: its backward is the exchange with the two axes swapped,
+  its transpose (the experts' dispatch and return, ``models/moe.py``).
 
 uint32 crosses the wire as its int32 view, the bits unchanged (neither
 gloo nor NCCL takes ``torch.uint32``). With the ``host`` transport a CUDA
@@ -166,18 +172,21 @@ def all_gather(x: torch.Tensor, world, tiled: bool = False) -> torch.Tensor:
     return out
 
 
-def gather_to_host(x: torch.Tensor, dst: int, world) -> Optional[torch.Tensor]:
-    """The tiled ``all_gather`` of ``x`` on rank ``dst`` only, in host
-    memory (None on the other ranks): ``dst`` receives one rank's tensor at
-    a time, so its device holds one more ``x`` at most."""
+def gather_to_host(x: torch.Tensor, dst: int, world, axis: int = 0) -> Optional[torch.Tensor]:
+    """The tiled ``all_gather`` of ``x`` along ``axis`` on rank ``dst`` only,
+    in host memory (None on the other ranks): ``dst`` receives one rank's
+    tensor at a time, so its device holds one more ``x`` at most (a
+    checkpoint's ZeRO-1 slices along dim 0, its expert shards along dim 1)."""
     if world.rank != dst:
         send(x, dst, world)
         return None
-    n = x.shape[0]
-    out = torch.empty((world.size * n,) + tuple(x.shape[1:]), dtype=x.dtype)
+    k = x.shape[axis]
+    shape = list(x.shape)
+    shape[axis] = world.size * k
+    out = torch.empty(shape, dtype=x.dtype)
     for r in range(world.size):
         part = x if r == dst else recv(x.shape, x.dtype, r, world)
-        out[r * n:(r + 1) * n].copy_(part)
+        out.narrow(axis, r * k, k).copy_(part)
     return out
 
 
@@ -212,5 +221,66 @@ def broadcast(x: torch.Tensor, src: int, world) -> torch.Tensor:
     return out
 
 
+def _exchange(x: torch.Tensor, world, split_axis: int, concat_axis: int,
+              tiled: bool) -> torch.Tensor:
+    """The all-to-all's message: one ``all_to_all_single`` over the
+    chunks, moved to dim 0."""
+    n = world.size
+    if tiled:
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} does not "
+                             f"split over {n} ranks")
+        lead = x.movedim(split_axis, 0)
+        lead = lead.reshape((n, lead.shape[0] // n) + tuple(lead.shape[1:]))
+    else:
+        if x.shape[split_axis] != n:
+            raise ValueError(f"all_to_all: untiled, dim {split_axis} of {tuple(x.shape)} must "
+                             f"be the {n} ranks")
+        lead = x.movedim(split_axis, 0)
+    with _Timed(world):
+        wire = _wire(lead, world)
+        out = _buffer(lead.shape, x.dtype, world)
+        _dist().all_to_all_single(out, wire, group=world.group)
+        out = _back(out, x.dtype, world)
+    if not tiled:  # [n (source), ...x without the split axis] -> the source axis at concat_axis
+        return out.movedim(0, concat_axis)
+    if split_axis == concat_axis == 0:
+        return out.reshape((-1,) + tuple(out.shape[2:]))
+    return torch.cat([c.movedim(0, split_axis) for c in out.unbind(0)], dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange, differentiable: the cotangent goes back by the
+    exchange with the axes swapped (for split = concat = 0, tiled, the same
+    exchange: a tiled all-to-all over dim 0 is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, world, split_axis, concat_axis, tiled):
+        ctx.args = (world, split_axis, concat_axis, tiled)
+        return _exchange(x, world, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        world, split_axis, concat_axis, tiled = ctx.args
+        return (_exchange(g.contiguous(), world, concat_axis, split_axis, tiled),
+                None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, world, split_axis: int = 0, concat_axis: int = 0,
+               tiled: bool = True) -> torch.Tensor:
+    """``jax.lax.all_to_all``: ``x`` cut into n chunks along
+    ``split_axis``, chunk j sent to rank j, and the chunks this rank
+    receives joined along ``concat_axis`` in the senders' rank order
+    (``tiled``; untiled the split axis must be n long, is removed, and the
+    received chunks are stacked at ``concat_axis``). Differentiable (see
+    ``_AllToAll``). One ``all_to_all_single`` over the learner group;
+    uint32 crosses as int32, and with the host transport through pinned
+    host buffers."""
+    split_axis, concat_axis = split_axis % x.dim(), concat_axis % x.dim()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, world, split_axis, concat_axis, tiled)
+    return _exchange(x, world, split_axis, concat_axis, tiled)
+
+
 __all__ = ["axis_index", "ppermute", "send", "recv", "all_gather", "gather_to_host", "psum",
-           "pmean", "broadcast", "stats", "reset_stats"]
+           "pmean", "broadcast", "all_to_all", "stats", "reset_stats"]

@@ -80,13 +80,16 @@ class World:
 
 
 def rank_world(mesh, axis: str = "data") -> Optional[World]:
-    """The learners' ``World`` when ``mesh`` puts one learner on each rank
-    of a live group: ``mesh`` itself when it is a ``World``; for a
-    ``DeviceMesh`` over the group ``init_world`` started
-    (``launch/mesh.py``), its ``axis`` dimension's group with this
-    process's device and transport. None for no mesh, or a mesh on a fake
-    group (the dry run's placements), where the learners are dim 0 of one
-    device."""
+    """The ``World`` of ``mesh``'s ``axis`` dimension when ``mesh`` puts one
+    learner on each rank of a live group: ``mesh`` itself when it is a
+    ``World``; for a ``DeviceMesh`` over the group ``init_world`` started
+    (``launch/mesh.py``), that dimension's group with this process's
+    device and transport. On a ('pod', 'data') mesh (``make_pod_mesh``),
+    ``axis="data"`` gives this pod's learners and ``axis="pod"`` the ranks
+    that hold the same learner in every pod, in pod order (the mesh made
+    its groups on every rank in the same order). None for no mesh, or a
+    mesh on a fake group (the dry run's placements), where the learners
+    are dim 0 of one device."""
     if mesh is None or isinstance(mesh, World):
         return mesh
     import torch.distributed as dist
@@ -98,6 +101,15 @@ def rank_world(mesh, axis: str = "data") -> Optional[World]:
     return World(rank=mesh.get_local_rank(axis), size=mesh.size(names.index(axis)),
                  device=_CURRENT.device, transport=_CURRENT.transport,
                  group=mesh.get_group(axis))
+
+
+def pod_world_of(mesh, axis: str = "pod") -> Optional[World]:
+    """The pod ``World`` of a ('pod', 'data') mesh over a live group
+    (``rank_world(mesh, axis)``); None for a ``World`` (a World is one
+    learner axis, with no pods) or no mesh."""
+    if mesh is None or isinstance(mesh, World):
+        return None
+    return rank_world(mesh, axis)
 
 
 def _pick(device: str, transport: Optional[str], local_rank: int,
@@ -235,4 +247,5 @@ def spawn(fn: Callable, world_size: int, device: str = "cuda", *,
                 for r in range(world_size)]
 
 
-__all__ = ["World", "TRANSPORTS", "init_world", "close_world", "rank_world", "spawn"]
+__all__ = ["World", "TRANSPORTS", "init_world", "close_world", "rank_world", "pod_world_of",
+           "spawn"]

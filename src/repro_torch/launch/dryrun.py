@@ -26,6 +26,13 @@ memory and cost analyses. Here, per combination and mesh:
   ``collectives`` is empty by construction: the learners' ring is a roll
   of dim 0 of a learner-major tensor.
 
+  ``--per-rank`` (train_4k): rank 0's step with one learner a rank
+  (``repro_torch.dist``) instead — its own batch, its ZeRO-1 slice of the
+  master vector and moments and, for a MoE, its E/n experts — over a fake
+  process group of n ranks whose collectives move nothing; what one card a
+  rank must hold under ``torch.distributed.run`` (rank 0 initiates the
+  round at counter 0: it holds the initiator's mask too).
+
   The count is the program's own tensors: cuBLAS's workspace (64 MiB on
   the H100, allocated at a process's first matrix product) is not in it,
   and ``H100_USABLE_BYTES`` leaves it out of the card's room instead.
@@ -51,6 +58,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape decode_32k --mesh pod256
   python -m repro_torch.launch.dryrun --all          # everything missing, serially
+  python -m repro_torch.launch.dryrun --arch qwen3-moe-235b-a22b --shape train_4k \
+      --learners 4 --batch 2 --seq-len 256 --per-rank --tag rank   # a card a rank
 """
 from __future__ import annotations
 
@@ -268,8 +277,10 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
                    "total_per_device_bytes": m["peak_bytes"]},
         "matmul_flops": m["matmul_flops"],
         "kernels": m["kernels"],
-        "collectives": {"total_bytes": 0, "note": "none by construction on one card: the "
-                        "learners' ring is a roll of dim 0 of a learner-major tensor"},
+        "collectives": {"total_bytes": 0, "note": (
+            "not counted: rank 0's collectives over a fake group move nothing"
+            if size_kw.get("per_rank") else "none by construction on one card: the "
+            "learners' ring is a roll of dim 0 of a learner-major tensor")},
         "n_units": cfg.n_units,
         "fits": m["peak_bytes"] <= cap,
         "run_s": m["run_s"],
@@ -345,6 +356,8 @@ def main(argv=None):
                     help="train_4k's learners (default: the mesh's 'data', 16)")
     ap.add_argument("--batch", type=int, default=None,
                     help="train_4k's sequences a learner (default: 256 over the learners)")
+    ap.add_argument("--per-rank", action="store_true",
+                    help="train_4k: rank 0's step with one learner a rank (a card a rank)")
     ap.add_argument("--seq-len", type=int, default=0,
                     help="the shape's sequence length, if not its own")
     ap.add_argument("--out", default=None, help=f"record directory (default {RESULTS_DIR})")
@@ -380,7 +393,8 @@ def main(argv=None):
         try:
             rec = run_one(arch, shape, mesh, args.aggregator, args.pipelined, args.subgroups,
                           args.tag, args.chain_model_sharded, args.capacity, args.smoke,
-                          args.seq_len, learners=args.learners, batch=args.batch)
+                          args.seq_len, learners=args.learners, batch=args.batch,
+                          per_rank=args.per_rank)
         except Exception as e:  # noqa: BLE001 — record the failure, go on with the rest
             rec = {"arch": arch, "shape": shape, "mesh": mesh, "status": "error",
                    "error": repr(e), "traceback": traceback.format_exc()[-4000:]}

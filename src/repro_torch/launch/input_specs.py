@@ -129,10 +129,15 @@ def params_abstract(model: Model, mesh):
 def train_spec(arch_cfg: ModelConfig, mesh, shape: dict, aggregator_mode: str = "safe",
                pipelined: bool = False, subgroups: int = 1,
                chain_model_sharded: bool = False, *, learners: Optional[int] = None,
-               batch: Optional[int] = None, device="cuda") -> DryrunSpec:
+               batch: Optional[int] = None, per_rank: bool = False,
+               device="cuda") -> DryrunSpec:
     """train_4k: the SAFE train step. ``learners`` (default: the mesh's
     'data', 16 on one card) and ``batch`` (sequences a learner; default
-    the global batch over the learners) size it."""
+    the global batch over the learners) size it. ``per_rank`` (one card,
+    ``mesh`` None): rank 0's step with one learner a rank instead — its
+    own batch, its ZeRO-1 slice and, for a MoE, its E/n experts — over a
+    fake process group of n ranks whose collectives move nothing (rank 0
+    initiates the round at counter 0)."""
     from repro_torch.core import make_aggregator
     from repro_torch.train.train_step import make_train_step
 
@@ -146,17 +151,27 @@ def train_spec(arch_cfg: ModelConfig, mesh, shape: dict, aggregator_mode: str = 
     # parameters' shapes and the SAFE partition are the same either way)
     if cfg.uses_moe and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=n)
-    model = Model(cfg, device="meta")
+    world = None
+    if per_rank:
+        if mesh is not None:
+            raise ValueError("per_rank sizes one rank of the one-card layout: mesh must be None")
+        from repro_torch.dist import World
+        from repro_torch.launch.mesh import start_fake_world
+        start_fake_world(n)
+        world = World(rank=0, size=n, device=torch.device(device), transport="gloo")
+    model = Model(cfg, device="meta", ep_world=world)
     agg = make_aggregator(aggregator_mode, n, pipelined=pipelined, subgroups=subgroups,
                           pod_axis=pod_axis, device=device)
-    bundle = make_train_step(model, agg, pod_axis=pod_axis, donate=True,
+    bundle = make_train_step(model, agg, world, pod_axis=pod_axis, donate=True,
                              chain_model_sharded=chain_model_sharded)
     B_l = batch or shape["global_batch"] // (n * pods)
     if B_l < 1:
         raise ValueError("global batch too small for the mesh")
     S = shape["seq_len"]
-    tok_shape = (n * pods, B_l) + token_shape(cfg, 1, S)[1:]
-    description = (f"train_step n={n} pods={pods} B_l={B_l} agg={aggregator_mode}"
+    lead = (B_l,) if per_rank else (n * pods, B_l)   # a rank's tokens are its own
+    tok_shape = lead + token_shape(cfg, 1, S)[1:]
+    description = (f"train_step{' rank 0 of' if per_rank else ''} n={n} pods={pods} "
+                   f"B_l={B_l} agg={aggregator_mode}"
                    f"{'+pipelined' if pipelined else ''}"
                    f"{'+msharded' if chain_model_sharded else ''}"
                    f"{f'+g{subgroups}' if subgroups > 1 else ''}")
@@ -170,7 +185,7 @@ def train_spec(arch_cfg: ModelConfig, mesh, shape: dict, aggregator_mode: str = 
             if state[k] is not None:
                 state[k] = state[k]._replace(step=torch.tensor(0, dtype=torch.int32))
         tokens = torch.zeros(tok_shape, dtype=torch.int32, device=device)
-        prefix = (torch.zeros((n * pods, B_l, cfg.prefix_embeds, cfg.d_model),
+        prefix = (torch.zeros(lead + (cfg.prefix_embeds, cfg.d_model),
                               dtype=torch.bfloat16, device=device)
                   if cfg.prefix_embeds else None)
         opt = {k: state[k] for k in ("master", "fm", "fv", "ep_opt", "sec_opt")}

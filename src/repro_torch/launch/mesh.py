@@ -15,8 +15,9 @@ standing in for every rank. On a live group started by
 1)`` is the learners' mesh: ``dist.rank_world(mesh, "data")`` gives the
 collectives its 'data' dimension's group, and ``aggregate_sharded``, the
 per-rank train step and FedAvg round take the mesh as the reference's
-take theirs. Defined as functions, so importing this module starts no
-process group.
+take theirs; ``make_pod_mesh(P, n)`` adds the pods as a second
+dimension (hierarchical federation across ranks). Defined as functions,
+so importing this module starts no process group.
 """
 from __future__ import annotations
 
@@ -77,6 +78,15 @@ def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _mesh(shape, axes, _device_type(device_type))
+
+
+def make_pod_mesh(pods: int, data: int, device_type=None):
+    """The ('pod', 'data') mesh over the first ``pods * data`` ranks, pod
+    major as the reference's batch spec ``P((pod, data))`` lays them out:
+    rank p·data + l is learner l of pod p. On a live group,
+    ``dist.rank_world(mesh, "data")`` is this pod's learners and
+    ``rank_world(mesh, "pod")`` links the same learner across pods."""
+    return _mesh((pods, data), ("pod", "data"), _device_type(device_type))
 
 
 def make_test_mesh(data: int = 4, model: int = 2, pod: int = 1, device_type=None):

@@ -39,7 +39,12 @@ map, so a resumed run continues the counters of the run it resumes.
 A configuration with expert leaves (MoE) trains its experts by expert
 parallelism over the learners (``ep_axis="data"``, ``ep_ranks`` the
 learner count), as the reference's dry run sets it for the giant MoEs;
-the train step refuses a MoE without it. FedAvg needs none.
+the train step refuses a MoE without it. FedAvg needs none. Across ranks
+each rank holds its E/n experts (``Model(cfg, ep_world=world)``) and
+exchanges tokens with the others; rank 0 gathers the expert shards and
+their ``ep_opt`` moments into host memory, a rank at a time, so the
+checkpoint has the one-process (the reference's full-E) layout, and a
+resume gives each rank its experts back.
 """
 from __future__ import annotations
 
@@ -55,6 +60,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the configuration to this many layers (a whole number of its "
+                         "pattern; the dry run's --per-rank sizes what fits a card a rank)")
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--batch-per-learner", type=int, default=2)
     ap.add_argument("--learners", type=int, default=None,
@@ -123,9 +131,12 @@ def run(args: argparse.Namespace) -> dict:
               f"{dev}; {args.learners} learners as dim 0 of one device, so the model axis "
               f"is 1 on one card (--model-shards {args.model_shards} not used)", flush=True)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if cfg.uses_moe and cfg.ep_axis is None and not args.federated:
         cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=args.learners)
-    model = Model(cfg, device=dev,
+    ep_world = world if cfg.ep_axis is not None else None  # a rank holds its E/n experts
+    model = Model(cfg, device=dev, ep_world=ep_world,
                   generator=torch.Generator(device=dev).manual_seed(args.seed))
     agg = make_aggregator(args.aggregator, args.learners, axis="data",
                           pipelined=args.pipelined, subgroups=args.subgroups,
@@ -180,7 +191,8 @@ def run(args: argparse.Namespace) -> dict:
             state = bundle.init_state_fn(model.tree())
             start = 0
             if args.ckpt_dir and (s := latest_step(args.ckpt_dir)) is not None:
-                state, extra = _restore(args.ckpt_dir, s, state, bundle, world)
+                state, extra = _restore(args.ckpt_dir, s, state, bundle, world,
+                                        model.ep_world)
                 start = int(extra.get("step", s))
                 # continue the counters of the run that wrote the checkpoint
                 agg.reserve_counters(int(extra.get("counter",
@@ -195,7 +207,7 @@ def run(args: argparse.Namespace) -> dict:
                 losses.append(float(m["loss"]))
                 log_step(step, loss=losses[-1], grad_scale=float(m["grad_scale"]))
                 if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                    _save(args.ckpt_dir, step + 1, state, bundle, world,
+                    _save(args.ckpt_dir, step + 1, state, bundle, world, model.ep_world,
                           extra={"step": step + 1,
                                  "counter": counters[-1] + agg.round_counters(words)})
             params = state["params"]
@@ -213,10 +225,12 @@ def run(args: argparse.Namespace) -> dict:
 _SLICED = ("master", "fm", "fv")  # the ZeRO-1 state a rank holds a slice of
 
 
-def _save(directory: str, step: int, state: dict, bundle, world, extra: dict) -> None:
+def _save(directory: str, step: int, state: dict, bundle, world, ep_world,
+          extra: dict) -> None:
     """One process writes its state. Across ranks, rank 0 gathers the
-    slices into host memory, a rank's slice at a time, and writes the
-    one-process state (the reference's format); the others wait until it
+    slices and (with ``ep_world``) the expert shards and their moments
+    into host memory, a rank's at a time, and writes the one-process state
+    (the reference's format and full-E layout); the others wait until it
     has."""
     from repro_torch.ckpt import save_checkpoint
     if world is None:
@@ -225,30 +239,53 @@ def _save(directory: str, step: int, state: dict, bundle, world, extra: dict) ->
     import torch.distributed as dist
 
     from repro_torch.dist import collectives
+    from repro_torch.train.flatten import is_expert_path, leaves_with_paths, tree_unflatten
     full = dict(state)
     if not bundle.leafwise:
         for k in _SLICED:
             full[k] = collectives.gather_to_host(state[k], 0, world)
+    if ep_world is not None:  # every rank walks the same leaves in the same order
+        full = tree_unflatten(full, [
+            collectives.gather_to_host(leaf, 0, ep_world, axis=1) if is_expert_path(path)
+            else leaf for path, leaf in leaves_with_paths(full)])
     if world.rank == 0:
         save_checkpoint(directory, step, full, extra=extra)
     del full
     dist.barrier()
 
 
-def _restore(directory: str, step: int, state: dict, bundle, world) -> tuple:
+def _restore(directory: str, step: int, state: dict, bundle, world, ep_world) -> tuple:
     """Restore a checkpoint; across ranks each rank reads the one-process
-    state into host memory and moves its slices to its device."""
+    state into host memory and moves its slices (and its experts) to its
+    device."""
     from repro_torch.ckpt import restore_checkpoint
-    if world is None or bundle.leafwise:
+    if world is None or (bundle.leafwise and ep_world is None):
         return restore_checkpoint(directory, step, state)
     import torch
+
+    from repro_torch.convert import shard_experts
+    from repro_torch.train.flatten import (is_expert_path, leaves, leaves_with_paths,
+                                           tree_unflatten)
     skeleton = dict(state)
-    for k in _SLICED:
-        skeleton[k] = torch.zeros(bundle.padded_size, dtype=state[k].dtype)
+    if not bundle.leafwise:
+        for k in _SLICED:
+            skeleton[k] = torch.zeros(bundle.padded_size, dtype=state[k].dtype)
+    if ep_world is not None:  # the full-E expert leaves, on the host
+        skeleton = tree_unflatten(skeleton, [
+            torch.zeros((t.shape[0], t.shape[1] * ep_world.size) + tuple(t.shape[2:]),
+                        dtype=t.dtype) if is_expert_path(path) else t
+            for path, t in leaves_with_paths(skeleton)])
     full, extra = restore_checkpoint(directory, step, skeleton)
-    n = bundle.padded_size // world.size
-    for k in _SLICED:
-        full[k] = full[k][world.rank * n:(world.rank + 1) * n].to(state[k].device, copy=True)
+    if not bundle.leafwise:
+        n = bundle.padded_size // world.size
+        for k in _SLICED:
+            full[k] = full[k][world.rank * n:(world.rank + 1) * n].to(state[k].device,
+                                                                      copy=True)
+    if ep_world is not None:
+        full = shard_experts(full, ep_world.rank, ep_world.size)
+        full = tree_unflatten(full, [
+            t.to(like.device, copy=True) if is_expert_path(path) else t
+            for (path, t), like in zip(leaves_with_paths(full), leaves(state))])
     return full, extra
 
 

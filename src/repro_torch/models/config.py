@@ -112,6 +112,18 @@ class ModelConfig:
     def uses_moe(self) -> bool:
         return any("moe" in k for k in self.pattern)
 
+    def expert_rows(self, rank: int, ranks: int) -> range:
+        """The experts rank ``rank`` of ``ranks`` holds under expert
+        parallelism, [r·E/n, (r+1)·E/n), as the reference's ``_localize``
+        template shards the stacked [n_units, E, ...] leaves; raises when n
+        does not divide E."""
+        E = self.moe.num_experts
+        if E % ranks:
+            raise ValueError(f"{self.arch_id}: {E} experts do not shard over {ranks} ranks "
+                             "(expert parallelism needs the learner count to divide E)")
+        per = E // ranks
+        return range(rank * per, (rank + 1) * per)
+
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks)."""
         d, ff, hd = self.d_model, self.d_ff, self.resolved_head_dim

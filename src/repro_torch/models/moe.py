@@ -22,12 +22,18 @@ path) at 4.
 
 Expert parallelism (``ep_axis``) in the reference shards the experts over
 the learners and exchanges the dispatch buffers with two all-to-alls.
-Rank r's output for its own tokens is then a dispatch of those tokens with
+With one learner a rank (a ``repro_torch.dist.World`` of n ranks, the
+model holding its E/n experts, ``Model(cfg, ep_world=world)``), the port
+does the same exchange: dispatch [n, E/n, C, d] → ``all_to_all`` → [E/n,
+n·C, d] → the three expert products → ``all_to_all`` back → the
+gate-weighted combine; autograd carries the cotangents back through the
+exchange (its transpose), so each rank's expert gradient sums every
+learner's tokens. On one card, where every expert is local, rank r's
+output for its own tokens is a dispatch of those tokens with
 ``_dispatch_indices``'s capacity, computed by the experts wherever they
-live; the products are row by row, so on one card, where every expert is
-local, ``_moe_apply_ep`` is that dispatch over all E experts, with nothing
-standing in for the exchange. The expert gradients the reference sums
-through the all-to-all's transpose are summed by the train step.
+live; the products are row by row, so ``_moe_apply_ep`` is that dispatch
+over all E experts, with nothing standing in for the exchange, and the
+train step sums the learners' expert gradients.
 """
 from __future__ import annotations
 
@@ -35,16 +41,38 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives
 from repro_torch.models.layers import _dense_init
 
 
-def moe_init(generator: torch.Generator, d: int, moe_cfg, device) -> dict:
+def expert_init(generator: torch.Generator, shape, device, rows: range) -> torch.Tensor:
+    """Expert matrices f32[E, a, b] drawn one expert at a time (scaled as
+    ``_dense_init`` scales [E, a, b]), of which only the experts in
+    ``rows`` are kept: a rank's shard equals those rows of the matrix drawn
+    with ``rows = range(E)`` from the same generator, and never more than
+    one other expert's matrix is alive."""
+    scale = 1.0 / np.sqrt(shape[0])
+    out = torch.empty((len(rows),) + tuple(shape[1:]), dtype=torch.float32, device=device)
+    if out.device.type == "meta":
+        return out
+    for e in range(shape[0]):
+        w = torch.randn(shape[1:], generator=generator, device=device, dtype=torch.float32)
+        if e in rows:
+            torch.mul(w, scale, out=out[e - rows.start])
+    return out
+
+
+def moe_init(generator: torch.Generator, d: int, moe_cfg, device,
+             rows: range = None) -> dict:
+    """The MoE leaves; the per-expert matrices hold the experts in ``rows``
+    (all E by default: a rank's shard under expert parallelism)."""
     E, ff = moe_cfg.num_experts, moe_cfg.expert_d_ff
+    rows = range(E) if rows is None else rows
     params = {
         "router": _dense_init(generator, (d, E), device, scale=0.02),
-        "wi": _dense_init(generator, (E, d, ff), device),
-        "wg": _dense_init(generator, (E, d, ff), device),
-        "wo": _dense_init(generator, (E, ff, d), device),
+        "wi": expert_init(generator, (E, d, ff), device, rows),
+        "wg": expert_init(generator, (E, d, ff), device, rows),
+        "wo": expert_init(generator, (E, ff, d), device, rows),
     }
     if moe_cfg.num_shared_experts:
         s = moe_cfg.num_shared_experts
@@ -99,19 +127,35 @@ def _capacity(T: int, k: int, E: int, capacity_factor: float, floor: int) -> int
     return max(floor, min(C, T))
 
 
+def _products(params: dict, xe: torch.Tensor) -> torch.Tensor:
+    """The three expert products of [E', C', d] dispatch buffers, expert by
+    expert (``torch.bmm``) with the local expert matrices [E', ...]."""
+    dt = xe.dtype
+    h = torch.bmm(xe, params["wi"].to(dt)) * F.silu(torch.bmm(xe, params["wg"].to(dt)))
+    return torch.bmm(h, params["wo"].to(dt))
+
+
+def _combine(xt: torch.Tensor, ye: torch.Tensor, dispatch_tok: torch.Tensor,
+             gate_of_slot: torch.Tensor) -> torch.Tensor:
+    """The slots' outputs [E·C, d] weighted by their gates and scatter-added
+    back to the tokens: [T, d] in the activations' dtype."""
+    T, d = xt.shape
+    contrib = ye.reshape(-1, d) * gate_of_slot[:, None]
+    return xt.new_zeros((T + 1, d)).index_add(0, dispatch_tok, contrib)[:T]
+
+
+def _dispatch(xt: torch.Tensor, dispatch_tok: torch.Tensor) -> torch.Tensor:
+    """The dispatch buffer [E·C, d]: each slot's token, zeros in an empty slot."""
+    return torch.cat([xt, xt.new_zeros((1, xt.shape[1]))], 0)[dispatch_tok]
+
+
 def _experts(params: dict, xt: torch.Tensor, dispatch_tok: torch.Tensor,
              gate_of_slot: torch.Tensor, E: int, C: int) -> torch.Tensor:
     """The [E, C, d] expert products of the dispatched tokens, weighted by
     their gates and scatter-added back to the tokens: [T, d] in the
     activations' dtype (before the shared experts)."""
-    T, d = xt.shape
-    dt = xt.dtype
-    xpad = torch.cat([xt, xt.new_zeros((1, d))], 0)
-    xe = xpad[dispatch_tok].view(E, C, d)
-    h = torch.bmm(xe, params["wi"].to(dt)) * F.silu(torch.bmm(xe, params["wg"].to(dt)))
-    ye = torch.bmm(h, params["wo"].to(dt))
-    contrib = ye.reshape(E * C, d) * gate_of_slot[:, None]
-    return xt.new_zeros((T + 1, d)).index_add(0, dispatch_tok, contrib)[:T]
+    xe = _dispatch(xt, dispatch_tok).view(E, C, xt.shape[1])
+    return _combine(xt, _products(params, xe), dispatch_tok, gate_of_slot)
 
 
 def _shared(params: dict, xt: torch.Tensor, moe_cfg, y: torch.Tensor) -> torch.Tensor:
@@ -123,11 +167,12 @@ def _shared(params: dict, xt: torch.Tensor, moe_cfg, y: torch.Tensor) -> torch.T
 
 
 def moe_apply(params: dict, x: torch.Tensor, moe_cfg, ep_axis=None,
-              ep_ranks: int = 1) -> tuple:
+              ep_ranks: int = 1, ep_world=None) -> tuple:
     """x: [B, S, d] -> (y, aux_loss). With ``ep_axis`` set, the
-    expert-parallel routing of ``_moe_apply_ep``."""
+    expert-parallel routing of ``_moe_apply_ep`` (across the ranks of
+    ``ep_world`` when given)."""
     if ep_axis is not None:
-        return _moe_apply_ep(params, x, moe_cfg, ep_ranks)
+        return _moe_apply_ep(params, x, moe_cfg, ep_ranks, ep_world)
     B, S, d = x.shape
     E, k = moe_cfg.num_experts, moe_cfg.top_k
     T = B * S
@@ -155,11 +200,16 @@ def _dispatch_indices(probs: torch.Tensor, k: int, E: int, T: int,
     return dispatch_tok, gate_of_slot, C, frac
 
 
-def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int) -> tuple:
-    """One learner's expert-parallel MoE on one card: its tokens dispatched
-    with ``_dispatch_indices``'s capacity to all E experts (see the module
-    docstring). ``n_ranks`` must divide E, as the reference's exchange
-    needs."""
+def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int,
+                  world=None) -> tuple:
+    """One learner's expert-parallel MoE: its tokens dispatched with
+    ``_dispatch_indices``'s capacity C (floor 4, from this rank's T) to the
+    E experts. ``n_ranks`` must divide E, as the reference's exchange needs.
+    Without ``world`` (or on a World of one rank) every expert is local
+    (one card, see the module docstring). With ``world`` the rank holds
+    experts [r·E/n, (r+1)·E/n) and the reference's two tiled all-to-alls
+    move the [n, E/n, C, d] dispatch buffer to the experts' ranks and the
+    products back."""
     E, k = moe_cfg.num_experts, moe_cfg.top_k
     if E % n_ranks:
         raise ValueError(f"{E} experts do not shard over {n_ranks} ranks")
@@ -170,5 +220,23 @@ def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int) -> tuple
     dispatch_tok, gate_of_slot, C, frac = _dispatch_indices(
         probs, k, E, T, moe_cfg.capacity_factor)
     aux = _aux(probs, frac, moe_cfg)
-    y = _experts(params, xt, dispatch_tok, gate_of_slot.to(x.dtype), E, C)
+    gate = gate_of_slot.to(x.dtype)
+    if world is None or world.size == 1:
+        y = _experts(params, xt, dispatch_tok, gate, E, C)
+    else:
+        n = world.size
+        if n != n_ranks:
+            raise ValueError(f"ep_ranks={n_ranks} but the expert World has {n} ranks")
+        E_loc = E // n
+        if params["wi"].shape[0] != E_loc:
+            raise ValueError(f"rank {world.rank} holds {params['wi'].shape[0]} experts, not "
+                             f"its {E_loc} of {E}: build the model with Model(cfg, "
+                             "ep_world=world)")
+        # rank r receives from every rank s the tokens s sends r's experts
+        xe = collectives.all_to_all(_dispatch(xt, dispatch_tok).view(n, E_loc, C, d), world)
+        xe = xe.view(n, E_loc, C, d).transpose(0, 1).reshape(E_loc, n * C, d)
+        ye = _products(params, xe)
+        ye = ye.view(E_loc, n, C, d).transpose(0, 1).contiguous()
+        ye = collectives.all_to_all(ye, world)  # back to the senders, global-expert major
+        y = _combine(xt, ye, dispatch_tok, gate)
     return _shared(params, xt, moe_cfg, y).reshape(B, S, d), aux

@@ -51,7 +51,8 @@ from repro_torch.models.ssm import (mamba2_apply, mamba2_init, mamba2_init_cache
 from repro_torch.train.flatten import tree_map
 
 
-def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device) -> dict:
+def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device,
+               expert_rows: Optional[range] = None) -> dict:
     p = {"ln1": rmsnorm_init(cfg.d_model, device),
          "ln2": rmsnorm_init(cfg.d_model, device)}
     if kind == "mamba2":
@@ -61,17 +62,19 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device) 
     else:  # the attention kinds, shared_attn and *_moe included
         p["attn"] = attention_init(generator, cfg, device)
     if "moe" in kind and cfg.moe is not None:
-        p["moe"] = moe_init(generator, cfg.d_model, cfg.moe, device)
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.moe, device, expert_rows)
     elif kind not in ("mamba2", "rwkv6") or cfg.recurrent_mlp:
         p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, device)
     return p  # zamba2's recurrent blocks have no channel-mix MLP
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                positions: torch.Tensor, cache: Optional[dict] = None) -> tuple:
+                positions: torch.Tensor, cache: Optional[dict] = None,
+                ep_world=None) -> tuple:
     """Pre-norm residual block. Returns (x, new_cache, aux loss): new_cache
     None without a cache, aux None for a block without MoE (the reference
-    adds a zero)."""
+    adds a zero). ``ep_world``: the learners' World of expert parallelism
+    across ranks (``models/moe.py``)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba2":
         mix, new_cache = mamba2_apply(params["mamba"], h, cfg, cache)
@@ -83,7 +86,7 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if "moe" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
         ff, aux = moe_apply(params["moe"], h, cfg.moe, ep_axis=cfg.ep_axis,
-                            ep_ranks=cfg.ep_ranks)
+                            ep_ranks=cfg.ep_ranks, ep_world=ep_world)
         return x + ff, new_cache, aux
     if "mlp" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -129,12 +132,29 @@ class Model(nn.Module):
     ``"meta"`` gives the shapes alone) from ``generator`` (a fresh one
     seeded 0 if None); bit-equality with ``jax.random`` is not a goal —
     ``convert.model_params`` carries the reference's weights across.
+
+    ``ep_world``: with ``cfg.ep_axis`` set, the learners' ``World`` of
+    expert parallelism across ranks. The model then holds rank r's E/n
+    experts, ``[n_units, E/n, ...]`` a leaf (the reference's ``_localize``
+    template), equal to rows [r·E/n, (r+1)·E/n) of the model built without
+    it from the same generator (``models/moe.py::expert_init`` draws the
+    experts one at a time and keeps the rank's), and its MoE blocks
+    exchange tokens over the World.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, ep_world=None):
         super().__init__()
         self.cfg = cfg
+        rows = None
+        if ep_world is not None and ep_world.size > 1 and cfg.moe is not None:
+            if cfg.ep_axis is None:
+                raise ValueError(f"{cfg.arch_id}: ep_world given but cfg.ep_axis is None")
+            if cfg.ep_ranks != ep_world.size:
+                raise ValueError(f"{cfg.arch_id}: ep_ranks={cfg.ep_ranks} but the expert World "
+                                 f"has {ep_world.size} ranks")
+            rows = cfg.expert_rows(ep_world.rank, ep_world.size)
+        self.ep_world = ep_world if rows is not None else None
         device = torch.device(device)
         if generator is None and device.type != "meta":  # meta: shapes only
             generator = torch.Generator(device=device).manual_seed(0)
@@ -154,7 +174,7 @@ class Model(nn.Module):
                 blocks.append({"_shared": torch.zeros(cfg.n_units, dtype=torch.float32,
                                                       device=device)})
                 continue
-            blocks.append(_stack([block_init(generator, cfg, kind, device)
+            blocks.append(_stack([block_init(generator, cfg, kind, device, rows)
                                   for _ in range(cfg.n_units)]))
         if shared is not None:
             tree["shared_attn"] = shared
@@ -208,10 +228,10 @@ class Model(nn.Module):
             for pos, kind in enumerate(cfg.pattern):
                 bp = params["shared_attn"] if kind == "shared_attn" else units[pos][u]
                 if cfg.remat:
-                    x, a = checkpoint(_block_fn(cfg, kind), x, positions, bp,
+                    x, a = checkpoint(_block_fn(cfg, kind, self.ep_world), x, positions, bp,
                                       use_reentrant=False)
                 else:
-                    x, _, a = block_apply(bp, x, cfg, kind, positions)
+                    x, _, a = block_apply(bp, x, cfg, kind, positions, ep_world=self.ep_world)
                 if a is not None:
                     aux = aux + a
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -336,8 +356,8 @@ def _clamp_vocab(tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return tokens.clamp_max(cfg.vocab - 1)
 
 
-def _block_fn(cfg: ModelConfig, kind: str):
+def _block_fn(cfg: ModelConfig, kind: str, ep_world=None):
     def fn(x, positions, bp):
-        x, _, aux = block_apply(bp, x, cfg, kind, positions)
+        x, _, aux = block_apply(bp, x, cfg, kind, positions, ep_world=ep_world)
         return x, aux
     return fn

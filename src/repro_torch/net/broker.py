@@ -37,6 +37,13 @@ The PyTorch port's copy of the JAX package's ``net/broker.py``, with the same
 semantics. The one change: the engine plane copies a finished session's
 results off the engine's device once (``_engine_results``), since
 the port's engine keeps them as torch tensors on the card.
+
+The broker stays on one card: its engine plane drives the learner-major
+``AggregationEngine`` of one process. An engine with a ``world`` (one
+learner a rank, ``serve/agg_engine.py``) needs every rank to submit its
+own row of each session in the same order, which one broker process
+cannot do for them; serving the per-rank engine over the wire is not
+ported.
 """
 from __future__ import annotations
 

@@ -31,14 +31,14 @@ same counter, weights and alive bitmap (``tests/test_torch_federated.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Any, Callable, Dict
+from typing import TYPE_CHECKING, Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.aggregators import SecureAggregator
 from repro_torch.dist import collectives
-from repro_torch.dist.world import rank_world
+from repro_torch.dist.world import pod_world_of, rank_world
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.flatten import leaves, tree_map, tree_size, tree_unflatten
 from repro_torch.train.loss import next_token_loss, param_grads
@@ -138,6 +138,7 @@ def make_federated_round(
     local_steps: int = 4,
     local_lr: float = 1e-3,
     learner_axis: str = "data",
+    pod_axis: Optional[str] = None,
     return_delta: bool = False,
 ) -> FederatedBundle:
     """Build one FedAvg round: k local AdamW steps per learner, then the
@@ -153,41 +154,63 @@ def make_federated_round(
     ``delta_norm`` and, with ``return_delta``, ``avg_delta`` (f32[P]), as
     tensors on that device.
 
+    ``pod_axis`` (the aggregator's, which it defaults to): hierarchical
+    federation, as the reference's. ``tokens`` are int[P·n, local_steps, B, S], pod-major;
+    each learner is weighted by its learner rank's entry of the f32[n]
+    ``weights`` in every pod; the aggregator publishes the mean over pods.
+    ``local_loss`` is what the reference's replicated output holds: its
+    ``pmean`` runs over the learners only, and the value it returns is pod
+    0's (``tests/test_torch_federated.py``).
+
     With a ``mesh`` that puts one learner on each rank of a live process
     group (a ``repro_torch.dist.World`` or a ``launch/mesh.py`` mesh over
-    it), the round is the reference's ``per_rank_round``: ``round_fn``
-    takes this learner's int[local_steps, B, S] ``tokens`` and the f32[n]
-    ``weights`` of every learner (or this one's scalar), and this rank's
-    delta goes through ``aggregate_rank``; ``local_loss`` is the
-    ``pmean`` of the learners' losses and ``deltas_fn`` is absent. The
-    published delta and the new parameters are the one-card round's bit for
-    bit.
+    it; with ``pod_axis`` a ('pod', 'data') mesh), the round is the
+    reference's ``per_rank_round``: ``round_fn`` takes this learner's
+    int[local_steps, B, S] ``tokens`` and the f32[n] ``weights`` of every
+    learner (or this one's scalar), and this rank's delta goes through
+    ``aggregate_rank``; ``local_loss`` is the ``pmean`` of the learners'
+    losses (pod 0's with pods) and ``deltas_fn`` is absent. The published
+    delta and the new parameters are the one-card round's bit for bit.
     """
     n = aggregator.cfg.num_learners
+    if pod_axis is not None and pod_axis != aggregator.cfg.pod_axis:
+        raise ValueError(f"pod_axis={pod_axis!r} but the aggregator's is "
+                         f"{aggregator.cfg.pod_axis!r}")
+    pod_axis = aggregator.cfg.pod_axis
     local_update = make_local_update(model, local_steps=local_steps,
                                      local_lr=local_lr)
     world = rank_world(mesh, learner_axis)
     if world is not None:
-        return _rank_round(aggregator, world, local_update, return_delta)
+        pod_world = None if pod_axis is None else pod_world_of(mesh, pod_axis)
+        return _rank_round(aggregator, world, pod_world, local_update, return_delta)
 
     def deltas_fn(params, tokens):
         tokens = torch.as_tensor(tokens)
-        if tokens.dim() < 2 or tokens.shape[0] != n:
-            raise ValueError(f"tokens: expected [{n}, {local_steps}, B, S], "
-                             f"got shape {tuple(tokens.shape)}")
+        if tokens.dim() < 2 or tokens.shape[0] % n or (pod_axis is None
+                                                      and tokens.shape[0] != n):
+            raise ValueError(f"tokens: expected [{'P·' if pod_axis else ''}{n}, "
+                             f"{local_steps}, B, S], got shape {tuple(tokens.shape)}")
         dev = leaves(params)[0].device
-        deltas = torch.empty((n, tree_size(params)), dtype=torch.float32, device=dev)
+        rows = tokens.shape[0]
+        deltas = torch.empty((rows, tree_size(params)), dtype=torch.float32, device=dev)
         losses = [local_update(params, tokens[l].to(dev), out=deltas[l])[1]
-                  for l in range(n)]
+                  for l in range(rows)]
         return deltas, torch.stack(losses)
 
     def round_fn(params, tokens, weights=None, counter=0, alive=None):
         deltas, losses = deltas_fn(params, tokens)
+        pods = deltas.shape[0] // n
+        if pod_axis is not None:
+            deltas = deltas.view(pods, n, -1)
+            if weights is not None:  # every pod's learner l weighs weights[l]
+                w = torch.as_tensor(weights if isinstance(weights, torch.Tensor)
+                                    else np.asarray(weights, np.float32))
+                weights = w.reshape(1, n).expand(pods, n)
         avg_delta = aggregator.aggregate(deltas, int(counter), alive=alive,
                                          weights=weights)
         del deltas
         out_params = apply_delta(params, avg_delta)
-        metrics = {"local_loss": losses.mean(),
+        metrics = {"local_loss": losses.view(pods, n)[0].mean(),
                    "delta_norm": torch.sqrt(torch.sum(torch.square(avg_delta)))}
         if return_delta:
             metrics["avg_delta"] = avg_delta
@@ -197,11 +220,12 @@ def make_federated_round(
                            deltas_fn=deltas_fn)
 
 
-def _rank_round(aggregator: SecureAggregator, world, local_update: Callable,
+def _rank_round(aggregator: SecureAggregator, world, pod_world, local_update: Callable,
                 return_delta: bool) -> FederatedBundle:
-    """``make_federated_round`` with one learner per rank."""
+    """``make_federated_round`` with one learner per rank (and with pods,
+    one pod a rank of ``pod_world``)."""
     n = aggregator.cfg.num_learners
-    aggregator.check_world(world)
+    aggregator.check_world(world, pod_world)
 
     def round_fn(params, tokens, weights=None, counter=0, alive=None):
         dev = leaves(params)[0].device
@@ -212,10 +236,13 @@ def _rank_round(aggregator: SecureAggregator, world, local_update: Callable,
             w = w.reshape(-1)[world.rank if w.numel() == n else 0]
         delta, loss = local_update(params, torch.as_tensor(tokens).to(dev))
         avg_delta = aggregator.aggregate_rank(delta, int(counter), alive=alive, weights=w,
-                                              world=world)
+                                              world=world, pod_world=pod_world)
         del delta
         out_params = apply_delta(params, avg_delta)
-        metrics = {"local_loss": collectives.pmean(loss, world),
+        loss = collectives.pmean(loss, world)
+        if pod_world is not None:  # the reference returns pod 0's learner mean
+            loss = collectives.broadcast(loss, 0, pod_world)
+        metrics = {"local_loss": loss,
                    "delta_norm": torch.sqrt(torch.sum(torch.square(avg_delta)))}
         if return_delta:
             metrics["avg_delta"] = avg_delta

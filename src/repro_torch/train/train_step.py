@@ -18,6 +18,7 @@ step's gradient goes through the SAFE chain instead of an all-reduce
   │    update is elementwise, so on one card it is one ``FlatAdamW`` update
   │    of the whole master vector: the same math on the same words
   ├─ the parameters rebuilt from ``master[:sec_size]`` in their dtypes
+  │    (with pods, from the reference's ``pmean`` over 'pod' of it)
   └─ with expert parallelism (``cfg.ep_axis``), the experts' update
 
 Expert parallelism. A MoE's per-expert matrices (``moe/…/{wi,wg,wo}``,
@@ -46,9 +47,16 @@ of a live process group (a ``repro_torch.dist.World``, or a
 ``per_rank_step``: this rank's forward and backward, ``aggregate_rank``,
 ZeRO-1's slice update with a master, m and v of ``padded_size / n`` words,
 and the tiled ``all_gather`` of the slices (``_rank_step``). Its
-parameters are the one-card step's word for word. A model with expert
-leaves is refused there (the experts' all-to-all over the group is a
-later slice), as is a pod axis.
+parameters are the one-card step's word for word. A MoE trains by the
+reference's expert parallelism there: the model holds the rank's E/n
+experts (``Model(cfg, ep_world=world)``) and its MoE blocks exchange
+tokens with two all-to-alls, whose transpose sums the expert gradients
+(float sums in another order than one card's, so within a bound of the
+one-card step, not word for word). With the aggregator's pod axis the
+mesh is ('pod', 'data') (``launch/mesh.py::make_pod_mesh``): the round
+publishes the mean over pods and the gathered vector and the loss are
+``pmean``'d over the pods, as the reference's ``per_rank_step`` does; its
+parameters are the one-card pod step's word for word.
 
 Options that shard over a model axis have no meaning here: a ``mesh`` on
 a fake group (the dry run's), ``chain_model_sharded`` (the reference's
@@ -67,8 +75,9 @@ from typing import TYPE_CHECKING, Any, Callable, Optional
 import torch
 
 from repro_torch.core.aggregators import SecureAggregator
+from repro_torch.core.chain import pod_mean_chunks, pod_mean_rank
 from repro_torch.dist import collectives
-from repro_torch.dist.world import rank_world
+from repro_torch.dist.world import pod_world_of, rank_world
 from repro_torch.optim.adamw import AdamState, AdamW, FlatAdamW, copied
 from repro_torch.train.flatten import (combine_trees, is_expert_path, leaf_paths, leaves,
                                        partition_tree, tree_map, tree_size,
@@ -120,6 +129,33 @@ def _rebuild(params: Any, flat: torch.Tensor, inplace: bool) -> Any:
         else:
             new.append(src.to(leaf.dtype, copy=True))
     return tree_unflatten(params, new)
+
+
+def _init_state(params: Any, n: int, padded_size: int, leafwise: bool, sec_opt: AdamW,
+                ep_opt: Optional[AdamW], rows: Optional[tuple] = None) -> dict:
+    """A train step's state from a parameter tree (its tensors, detached):
+    the f32 master vector of the SAFE partition — words ``rows`` = (lo, hi)
+    of it alone for a ZeRO-1 rank — and its moments, or leafwise the tree
+    AdamW's state; the expert AdamW's state with ``ep_opt``."""
+    params = tree_map(lambda t: t.detach(), params)
+    sec_p, ep_p = _split(params)
+    dev = leaves(params)[0].device
+    sec_state = ep_state = None
+    if leafwise:
+        flat = torch.zeros(n, dtype=torch.float32, device=dev)  # placeholder
+        s = sec_opt.init(sec_p)
+        sec_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
+    else:
+        flat = torch.zeros(padded_size, dtype=torch.float32, device=dev)
+        _write_flat(sec_p, flat)
+        if rows is not None:
+            flat = flat[rows[0]:rows[1]].clone()
+    if ep_opt is not None:
+        s = ep_opt.init(ep_p)
+        ep_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
+    return {"params": params, "master": flat, "fm": torch.zeros_like(flat),
+            "fv": torch.zeros_like(flat), "fstep": torch.zeros((), dtype=torch.int32),
+            "ep_opt": ep_state, "sec_opt": sec_state, "step": 0}
 
 
 def _split(params: Any) -> tuple:
@@ -179,7 +215,8 @@ def _learner_grads(model: Model, params: Any, tokens: torch.Tensor, prefix, mark
                 _write_flat(sec_g, mat[l])
             ep_g = [g for g, e in zip(grads, is_ep) if e]
             if ep_sum is None:  # the reference's all-to-all transpose sums them
-                ep_sum = [g.float() if g.dtype != torch.float32 else g for g in ep_g]
+                ep_sum = [g.float() if g.dtype != torch.float32 and rows > 1 else g
+                          for g in ep_g]
             else:
                 for acc, g in zip(ep_sum, ep_g):
                     acc.add_(g)
@@ -222,13 +259,6 @@ def make_train_step(
     cfg = model.cfg
     use_ep = cfg.ep_axis is not None
     world = rank_world(mesh, learner_axis)
-    if world is not None and world.size > 1 and (
-            use_ep or any(map(is_expert_path, leaf_paths(model.tree())))):
-        raise ValueError(
-            f"{cfg.arch_id}: a model with per-expert matrices (moe/wi, wg, wo) across "
-            f"{world.size} ranks needs the experts' all-to-all over the learner group, "
-            "which the port has not yet; train it on one card (the learners as dim 0, "
-            "ep_axis='data') or by FedAvg, whose payload carries every leaf.")
     if not use_ep and any(map(is_expert_path, leaf_paths(model.tree()))):
         raise ValueError(
             f"{cfg.arch_id}: the model has per-expert matrices (moe/wi, wg, wo) but "
@@ -253,31 +283,29 @@ def make_train_step(
     if leafwise is None:
         leafwise = sec_size * 4 > LEAFWISE_BYTES
     if world is not None:
-        aggregator.check_world(world)
-        return _rank_step(model, aggregator, world, flat_opt, sec_opt, sec_size,
-                          padded_size, leafwise, donate)
+        pod_world = None if agg_pods is None else pod_world_of(mesh, agg_pods)
+        aggregator.check_world(world, pod_world)
+        if use_ep and world.size > 1:
+            ew = model.ep_world
+            if ew is None or (ew.rank, ew.size) != (world.rank, world.size):
+                raise ValueError(
+                    f"{cfg.arch_id}: expert parallelism across {world.size} ranks needs the "
+                    "model to hold this rank's experts: build it with Model(cfg, "
+                    "ep_world=world) on the learners' World")
+            if pod_world is not None:
+                raise ValueError(
+                    f"{cfg.arch_id}: expert parallelism with a pod axis: the reference "
+                    "keeps a copy of each pod's experts that its step never reconciles "
+                    "across pods (no pmean over 'pod' of the expert update); train pods "
+                    "on a model without experts, or one pod")
+        return _rank_step(model, aggregator, world, pod_world, flat_opt, sec_opt, ep_opt,
+                          sec_size, padded_size, leafwise, donate, use_ep)
 
     def init_state_fn(params):
         """The step's state from a parameter tree. The state's parameters
         are the tree's tensors (detached), so a donating step updates them
         where they are."""
-        params = tree_map(lambda t: t.detach(), params)
-        sec_p, ep_p = _split(params)
-        dev = leaves(params)[0].device
-        sec_state = ep_state = None
-        if leafwise:
-            flat = torch.zeros(n, dtype=torch.float32, device=dev)  # placeholder
-            s = sec_opt.init(sec_p)
-            sec_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
-        else:
-            flat = torch.zeros(padded_size, dtype=torch.float32, device=dev)
-            _write_flat(sec_p, flat)
-        if use_ep:
-            s = ep_opt.init(ep_p)
-            ep_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
-        return {"params": params, "master": flat, "fm": torch.zeros_like(flat),
-                "fv": torch.zeros_like(flat), "fstep": torch.zeros((), dtype=torch.int32),
-                "ep_opt": ep_state, "sec_opt": sec_state, "step": 0}
+        return _init_state(params, n, padded_size, leafwise, sec_opt, ep_opt if use_ep else None)
 
     def step_fn(state, tokens, prefix=None, weights=None, counter=0, alive=None,
                 mark: Optional[Callable[[str], None]] = None):
@@ -331,7 +359,12 @@ def make_train_step(
             del ep_sum
             mark("expert_optimizer")
         if not leafwise:
-            new_sec = _rebuild(sec_p, master[:sec_size], inplace=donate)
+            # the reference's pmean of the gathered vector over the pods, whose
+            # copies are equal: computed all the same (not an identity for every P)
+            src = master if pods == 1 else pod_mean_chunks(
+                master, lambda part: [part] * pods, out=torch.empty_like(master))
+            new_sec = _rebuild(sec_p, src[:sec_size], inplace=donate)
+            del src
         new = combine_trees(new_sec, new_ep) if use_ep else new_sec
         mark("rebuild")
         metrics = {"loss": losses.view(pods, n).mean(dim=1).mean(),
@@ -345,52 +378,55 @@ def make_train_step(
                            sec_size=sec_size, padded_size=padded_size, leafwise=leafwise)
 
 
-def _rank_step(model: Model, aggregator: SecureAggregator, world, flat_opt: FlatAdamW,
-               sec_opt: AdamW, sec_size: int, padded_size: int, leafwise: bool,
-               donate: bool) -> TrainStepBundle:
+def _rank_step(model: Model, aggregator: SecureAggregator, world, pod_world,
+               flat_opt: FlatAdamW, sec_opt: AdamW, ep_opt: AdamW, sec_size: int,
+               padded_size: int, leafwise: bool, donate: bool,
+               use_ep: bool) -> TrainStepBundle:
     """The train step with one learner per rank (the reference's
     ``per_rank_step``): this rank's forward and backward, its padded flat
     gradient through ``aggregate_rank``, then ZeRO-1 — ``FlatAdamW`` on
     this rank's slice [rank·shard_len, (rank + 1)·shard_len) of the master
     vector, whose state (master, m, v) holds that slice alone, and a tiled
-    ``all_gather`` of the updated slices, from which every rank rebuilds
-    the parameters. The loss is ``pmean``'d. Leafwise, each leaf is its own
-    round and the tree ``AdamW`` updates every leaf on every rank, as on
-    one card.
+    ``all_gather`` of the updated slices over the learners, from which
+    every rank rebuilds the parameters. The loss is ``pmean``'d. Leafwise,
+    each leaf is its own round and the tree ``AdamW`` updates every leaf on
+    every rank, as on one card.
+
+    Expert parallelism (``use_ep``, the model holding this rank's E/n
+    experts): the forward and backward exchange tokens and cotangents with
+    the other ranks (``models/moe.py``), so the expert gradient autograd
+    gives is the sum over every learner's tokens (the reference's
+    all-to-all transpose); the tree ``AdamW`` without clipping updates the
+    rank's experts, its m and v (``state["ep_opt"]``) this rank's slice. A
+    dead learner still takes part in both exchanges: ``alive`` touches SAFE
+    alone.
+
+    Pods (``pod_world``, one rank a pod for this learner): the round
+    publishes the mean over pods (``aggregate_rank``), the gathered vector
+    is ``pmean``'d over the pods as the reference does, and so is the loss
+    after its mean over the learners.
 
     ``step_fn(state, tokens, prefix=None, weights=None, counter=0,
     alive=None, mark=None)``: ``tokens`` this learner's int[B, S],
     ``prefix`` its prefix embeddings, ``weights`` the f32[n] weights of
     every learner (or this one's scalar; returned as the ``weight``
     metric), ``counter`` and ``alive`` the same on every rank. Everything
-    else is the one-card step's, and the parameters are the one-card
-    step's word for word."""
+    else is the one-card step's, and without experts the parameters are the
+    one-card step's word for word."""
     n, r = world.size, world.rank
     shard_len = padded_size // n
     lo, hi = r * shard_len, (r + 1) * shard_len
 
     def init_state_fn(params):
         """The step's state, the master vector's slice of this rank only."""
-        params = tree_map(lambda t: t.detach(), params)
-        dev = leaves(params)[0].device
-        sec_state = None
-        if leafwise:
-            flat = torch.zeros(n, dtype=torch.float32, device=dev)  # placeholder
-            s = sec_opt.init(params)
-            sec_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
-        else:
-            full = torch.zeros(padded_size, dtype=torch.float32, device=dev)
-            _write_flat(params, full)
-            flat = full[lo:hi].clone()
-            del full
-        return {"params": params, "master": flat, "fm": torch.zeros_like(flat),
-                "fv": torch.zeros_like(flat), "fstep": torch.zeros((), dtype=torch.int32),
-                "ep_opt": None, "sec_opt": sec_state, "step": 0}
+        return _init_state(params, n, padded_size, leafwise, sec_opt,
+                           ep_opt if use_ep else None, (lo, hi))
 
     def step_fn(state, tokens, prefix=None, weights=None, counter=0, alive=None,
                 mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
         params = state["params"]
+        sec_p, ep_p = _split(params)
         dev = leaves(params)[0].device
         tokens = torch.as_tensor(tokens).to(dev)
         if tokens.dim() < 2:
@@ -402,26 +438,25 @@ def _rank_step(model: Model, aggregator: SecureAggregator, world, flat_opt: Flat
         w = w.reshape(-1)[r if w.numel() == n else 0]
         counter = int(counter) & 0xFFFFFFFF
         rotate = counter % (2 * n + 1)  # §8: rotate the initiator every round
+        agg = dict(alive=alive, rotate=rotate, world=world, pod_world=pod_world)
 
-        losses, grads, _ = _learner_grads(model, params, tokens[None], prefix, mark,
-                                          leafwise, sec_size, padded_size)
+        losses, grads, ep_g = _learner_grads(model, params, tokens[None], prefix, mark,
+                                             leafwise, sec_size, padded_size)
         if leafwise:
-            avg = [aggregator.aggregate_rank(m[0], counter, alive=alive, domain=idx + 1,
-                                             rotate=rotate, world=world).view(leaf.shape)
-                   for idx, (m, leaf) in enumerate(zip(grads, leaves(params)))]
+            avg = [aggregator.aggregate_rank(m[0], counter, domain=idx + 1, **agg)
+                   .view(leaf.shape) for idx, (m, leaf) in enumerate(zip(grads, leaves(sec_p)))]
             del grads
             mark("aggregate")
             grad_norm = torch.sqrt(sum(torch.sum(torch.square(a)) for a in avg))
             s = state["sec_opt"]
             update = sec_opt.update_ if donate else sec_opt.update
-            new, s = update(tree_unflatten(params, avg), AdamState(int(s.step), s.m, s.v),
-                            params)
+            new_sec, s = update(tree_unflatten(sec_p, avg), AdamState(int(s.step), s.m, s.v),
+                                sec_p)
             sec_state = AdamState(torch.tensor(s.step, dtype=torch.int32), s.m, s.v)
             master, fm, fv, fstep = state["master"], state["fm"], state["fv"], state["fstep"]
             mark("optimizer")
         else:
-            avg = aggregator.aggregate_rank(grads[0], counter, alive=alive, rotate=rotate,
-                                            world=world)
+            avg = aggregator.aggregate_rank(grads[0], counter, **agg)
             del grads
             mark("aggregate")
             grad_norm = torch.sqrt(torch.sum(torch.square(avg[:sec_size])))
@@ -432,14 +467,25 @@ def _rank_step(model: Model, aggregator: SecureAggregator, world, flat_opt: Flat
             sec_state = None
             mark("optimizer")
             flat = collectives.all_gather(master, world, tiled=True)  # ZeRO-1's gather
+            if pod_world is not None:  # the reference's pmean of it over the pods
+                flat = pod_mean_rank(flat, pod_world)
             mark("all_gather")
-            new = _rebuild(params, flat[:sec_size], inplace=donate)
+            new_sec = _rebuild(sec_p, flat[:sec_size], inplace=donate)
             del flat
+        ep_state = None
+        if use_ep:  # the experts' gradients, summed by the exchange's transpose
+            new_ep, ep_state = _ep_update(ep_opt, ep_g, state["ep_opt"], ep_p, donate)
+            del ep_g
+            mark("expert_optimizer")
+        new = combine_trees(new_sec, new_ep) if use_ep else new_sec
         mark("rebuild")
-        metrics = {"loss": collectives.pmean(losses[0], world), "grad_scale": grad_norm,
+        loss = collectives.pmean(losses[0], world)
+        if pod_world is not None:
+            loss = collectives.pmean(loss, pod_world)
+        metrics = {"loss": loss, "grad_scale": grad_norm,
                    "weight": w.to(device=dev, dtype=torch.float32)}
         new_state = {"params": new, "master": master, "fm": fm, "fv": fv, "fstep": fstep,
-                     "ep_opt": None, "sec_opt": sec_state, "step": state["step"] + 1}
+                     "ep_opt": ep_state, "sec_opt": sec_state, "step": state["step"] + 1}
         return new_state, metrics
 
     return TrainStepBundle(step_fn=step_fn, init_state_fn=init_state_fn,

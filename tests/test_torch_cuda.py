@@ -524,3 +524,86 @@ def test_cuda_ranks_sharing_the_card_equal_one_process(cuda, n):
                                             "chain_combine_batched")
     for k in kernels:
         assert sum(res["launches"][k] for res in ranks) > 0, k
+
+
+A2A_N = 4
+
+
+def _exchange_rank(world):
+    """The tiled all-to-all on the card, there and back, in three dtypes,
+    and its gradient under autograd."""
+    from repro_torch.dist import collectives
+    dev, r = world.device, world.rank
+    x = torch.arange(A2A_N * 6 * 5, dtype=torch.float32, device=dev).reshape(-1, 5) + 1000 * r
+    out = {}
+    for name, t in (("f32", x), ("bf16", x.to(torch.bfloat16)),
+                    ("u32", x.to(torch.int32).view(torch.uint32))):
+        y = collectives.all_to_all(t, world)
+        out[name] = (y.cpu(), collectives.all_to_all(y, world).cpu())
+    xg = x.clone().requires_grad_(True)
+    c = torch.arange(x.numel(), dtype=torch.float32, device=dev).reshape(x.shape) * (r + 1)
+    (collectives.all_to_all(xg, world) * c).sum().backward()
+    out["grad"] = xg.grad.cpu()
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_all_to_all_round_trip_on_the_card(cuda):
+    """Four ranks sharing the card (``transport="host"``): the exchange of
+    f32, bf16 and uint32 tensors equals the exchange written in one process
+    (rank r's output: every rank's chunk r, in rank order), a second
+    exchange brings each tensor back, and the gradient is the exchange of
+    the cotangents."""
+    from repro_torch.dist import spawn
+    ranks = [r["result"] for r in spawn(_exchange_rank, A2A_N, "cuda", transport="host")]
+    xs = [torch.arange(A2A_N * 6 * 5, dtype=torch.float32).reshape(-1, 5) + 1000 * r
+          for r in range(A2A_N)]
+    cs = [torch.arange(xs[0].numel(), dtype=torch.float32).reshape(xs[0].shape) * (r + 1)
+          for r in range(A2A_N)]
+    for r, res in enumerate(ranks):
+        for name, cast in (("f32", lambda t: t), ("bf16", lambda t: t.to(torch.bfloat16)),
+                           ("u32", lambda t: t.to(torch.int32).view(torch.uint32))):
+            y, back = res[name]
+            want = torch.cat([cast(x).chunk(A2A_N)[r] for x in xs])
+            assert torch.equal(y.view(torch.int8), want.view(torch.int8)), (r, name)
+            assert torch.equal(back.view(torch.int8), cast(xs[r]).view(torch.int8)), (r, name)
+        assert torch.equal(res["grad"], torch.cat([c.chunk(A2A_N)[r] for c in cs])), r
+
+
+ENGINE_N, ENGINE_V, ENGINE_SLOTS = 3, 1000, 2
+
+
+def _engine_sessions():
+    rng = np.random.RandomState(5)
+    return [(rng.uniform(-2, 2, (ENGINE_N, ENGINE_V)).astype(np.float32),
+             [1, 0, 1] if s == 1 else None, 2 if s == 0 else 1, s) for s in range(3)]
+
+
+def _run_engine(dev, world=None):
+    from repro_torch.core import ChainConfig
+    from repro_torch.serve.agg_engine import AggregationEngine
+    eng = AggregationEngine(ChainConfig(num_learners=ENGINE_N, mode="safe"), ENGINE_SLOTS,
+                            ENGINE_V, device=dev, world=world)
+    sess = [eng.submit(v if world is None else v[world.rank], rounds=rounds, alive=alive,
+                       rotate0=rot) for v, alive, rounds, rot in _engine_sessions()]
+    eng.run_until_done()
+    return [torch.stack(s.results).cpu() for s in sess]
+
+
+def _engine_rank(world):
+    return _run_engine(world.device, world)
+
+
+@pytest.mark.cuda
+def test_cuda_rank_engine_equals_cpu(cuda):
+    """The multi-session engine one learner a rank on the card (three ranks
+    sharing it): every session-round equals the learner-major engine's on
+    the CPU, and the ranks launched the batched hop."""
+    from repro_torch.dist import spawn
+    build.build()
+    ranks = spawn(_engine_rank, ENGINE_N, "cuda", transport="host")
+    want = _run_engine("cpu")
+    for r, res in enumerate(ranks):
+        for got, w in zip(res["result"], want):
+            assert torch.equal(got, w), r
+    assert sum(res["launches"]["chain_combine_batched"] for res in ranks) > 0

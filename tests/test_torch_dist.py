@@ -115,18 +115,22 @@ for name in t.CELLS:
 n = 4
 mesh = Mesh(np.array(jax.devices()[:n]), ("data",))
 x, u = t._collective_inputs(n)
+xa, ua = t._a2a_inputs(n)
 perm = [(r, (r + 1) % n) for r in range(n)]
-def coll(x, u):
-    x, u = x.reshape(-1), u.reshape(-1)
+def coll(x, u, xa, ua):
+    x, u, xa, ua = x.reshape(-1), u.reshape(-1), xa[0], ua[0]
     i = jax.lax.axis_index("data")
     return (jax.lax.ppermute(x, "data", perm)[None], jax.lax.ppermute(u, "data", perm)[None],
             jax.lax.psum(x, "data")[None], jax.lax.psum(u, "data")[None],
             jax.lax.pmean(x, "data")[None], jax.lax.all_gather(u, "data", tiled=True)[None],
-            jnp.full((1, 1), i, jnp.int32))
-f = jax.shard_map(coll, mesh=mesh, in_specs=(P("data"), P("data")), out_specs=P("data"),
+            jnp.full((1, 1), i, jnp.int32),
+            jax.lax.all_to_all(xa, "data", 0, 0, tiled=True)[None],
+            jax.lax.all_to_all(ua, "data", 1, 0, tiled=True)[None],
+            jax.lax.all_to_all(xa.reshape(n, -1, 3), "data", 0, 2, tiled=False)[None])
+f = jax.shard_map(coll, mesh=mesh, in_specs=(P("data"),) * 4, out_specs=P("data"),
                   axis_names=frozenset({"data"}), check_vma=False)
 with jax.set_mesh(mesh):
-    res = jax.jit(f)(jnp.asarray(x), jnp.asarray(u))
+    res = jax.jit(f)(jnp.asarray(x), jnp.asarray(u), jnp.asarray(xa), jnp.asarray(ua))
 for k, r in zip(t.COLLECTIVES, res):
     out["coll/" + k] = np.asarray(r)
 np.savez("@OUT@", **out)
@@ -134,7 +138,8 @@ print("REF_OK")
 """
 
 COLLECTIVES = ("ppermute_f32", "ppermute_u32", "psum_f32", "psum_u32", "pmean_f32",
-               "all_gather_u32", "axis_index")
+               "all_gather_u32", "axis_index", "all_to_all_f32", "all_to_all_u32_axis1",
+               "all_to_all_f32_untiled")
 
 
 def _collective_inputs(n):
@@ -142,6 +147,14 @@ def _collective_inputs(n):
     x = rng.uniform(-3, 3, (n, 129)).astype(np.float32)
     u = rng.randint(0, 2**32, (n, 129), dtype=np.uint64).astype(np.uint32)
     return x, u
+
+
+def _a2a_inputs(n):
+    """Each rank's f32[2n, 3] and uint32[3, 2n] for the all-to-alls."""
+    rng = np.random.RandomState(8)
+    xa = rng.uniform(-3, 3, (n, 2 * n, 3)).astype(np.float32)
+    ua = rng.randint(0, 2**32, (n, 3, 2 * n), dtype=np.uint64).astype(np.uint32)
+    return xa, ua
 
 
 def _ranks(world, names):
@@ -169,6 +182,11 @@ def _ranks(world, names):
                collectives.psum(x, world), collectives.psum(u, world),
                collectives.pmean(x, world), collectives.all_gather(u, world, tiled=True),
                torch.tensor([collectives.axis_index(world)], dtype=torch.int32))
+        xa, ua = (torch.from_numpy(a[world.rank]) for a in _a2a_inputs(world.size))
+        got += (collectives.all_to_all(xa, world),
+                collectives.all_to_all(ua, world, split_axis=1, concat_axis=0),
+                collectives.all_to_all(xa.reshape(world.size, -1, 3), world, 0, 2,
+                                       tiled=False))
         out.update({"coll/" + k: v for k, v in zip(COLLECTIVES, got)})
         out["gather_to_host"] = collectives.gather_to_host(u, 2, world)
         collectives.reset_stats()
@@ -245,7 +263,8 @@ def test_aggregate_sharded_on_live_mesh(ranks, n):
 def test_collectives_match_jax_lax(ranks, reference, op):
     """Each collective on each rank equals ``jax.lax``'s on that device, bit
     for bit (an f32 psum here is the one-card sum over the learner dim; at
-    n = 4 it adds in XLA's order too)."""
+    n = 4 it adds in XLA's order too; the all-to-alls tiled over dim 0 and
+    from dim 1 to dim 0, and untiled into dim 2)."""
     want = reference["coll/" + op]
     for r, res in enumerate(ranks[4]):
         got = res["coll/" + op].numpy()

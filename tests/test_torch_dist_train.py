@@ -258,18 +258,40 @@ def test_launcher_resume_equals_one_process_run(runs):
             assert a == b
 
 
-def test_moe_across_ranks_is_refused():
+def test_moe_experts_must_divide_the_ranks():
+    """What stays refused of expert parallelism across ranks: a learner
+    count that does not divide E (the reference's exchange needs equal
+    shards), and a model that holds every expert on a rank of several."""
+    cpu = torch.device("cpu")
+    three = World(rank=0, size=3, device=cpu, transport="gloo")
     cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"), dtype="float32",
-                              ep_axis="data", ep_ranks=N)
-    world = World(rank=0, size=N, device=torch.device("cpu"), transport="gloo")
-    with pytest.raises(ValueError, match="all-to-all"):
+                              ep_axis="data", ep_ranks=3)
+    with pytest.raises(ValueError, match="4 experts do not shard over 3 ranks"):
+        Model(cfg, device="cpu", ep_world=three)
+    world = World(rank=0, size=N, device=cpu, transport="gloo")
+    cfg = dataclasses.replace(cfg, ep_ranks=N)
+    with pytest.raises(ValueError, match="ep_world=world"):
         make_train_step(Model(cfg, device="cpu"), make_aggregator("safe", N, device="cpu"),
                         world)
 
 
-def test_pod_axis_across_ranks_is_refused():
-    world = World(rank=0, size=N, device=torch.device("cpu"), transport="gloo")
-    with pytest.raises(ValueError, match="pod axis"):
+def test_pod_world_must_match_the_pods():
+    """What stays refused with pods across ranks: weights of more pods than
+    the pod World has ranks, a pod axis without a pod World, a pod World
+    without a pod axis, and expert parallelism with pods."""
+    cpu = torch.device("cpu")
+    data = World(rank=0, size=N, device=cpu, transport="gloo")
+    pod = World(rank=0, size=2, device=cpu, transport="gloo")
+    agg = make_aggregator("safe", N, weighted=True, pod_axis="pod", device="cpu")
+    with pytest.raises(ValueError, match="pod World of 2 ranks for 3 pods"):
+        agg.aggregate_rank(torch.zeros(8), weights=np.ones((3, N), np.float32), world=data,
+                           pod_world=pod)
+    with pytest.raises(ValueError, match="needs the pod World"):
+        agg.aggregate_rank(torch.zeros(8), world=data)
+    with pytest.raises(ValueError, match="no pod axis"):
+        make_aggregator("safe", N, device="cpu").aggregate_rank(torch.zeros(8), world=data,
+                                                               pod_world=pod)
+    with pytest.raises(ValueError, match="needs the pod World"):
         make_train_step(Model(_cfg(), device="cpu"),
-                        make_aggregator("safe", N, pod_axis="pod", device="cpu"), world,
+                        make_aggregator("safe", N, pod_axis="pod", device="cpu"), data,
                         pod_axis="pod")
