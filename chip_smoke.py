@@ -84,6 +84,13 @@ no CPU fallback):
    sessions through 8 slots of 2^20 words a rank); ``pod_steps``, 2 pods x
    3 learners = 6 ranks (SAFE's rings need three), two pod train steps and
    a weighted FedAvg round of internlm2-1.8b at full width and 1 layer;
+   ``tp_dist``, the 'model' axis across ranks in the reference launcher's
+   default layout, 4 learners x 2 model shards = 8 ranks sharing the card
+   (``dist.grid_worlds``: rank l·2 + j is learner l's shard j): the rounds
+   above on each model rank's chunk of 2^23 words (``aggregate_rank(...,
+   model_world=)``), then internlm2-1.8b at full width and 1 layer with
+   Megatron tensor parallelism over each learner's two ranks (``Model(cfg,
+   tp_world=)``), two train steps and a weighted FedAvg round;
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -146,6 +153,15 @@ no CPU fallback):
    equal to the same work in this process on the card (sha256); the
    kernels at those paths' shapes (their padded_size and P + 1,
    chain_combine_batched on [8, 2^20] with per-row keys and bases);
+   tp_dist: every ring's chunk equal to its words of the one-card mean
+   (sha256), the ZeRO-1 parts after two steps word for word the one-card
+   FlatAdamW of the whole master vector on the published means and rank
+   0's shards their cast; the losses, the parameters' change, FedAvg's
+   loss, published delta and change within TP_LOSS_RTOL and TP_CHANGE_REL
+   of the one-card port's on the same weights; rank 0's first-step peak
+   within DRY_TOL of the dry run's ``--per-rank --model-shards 2``; each
+   kernel at the path's chunk lengths and start words (the counter base
+   moved by start / 2) equal to its plain version;
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -175,7 +191,7 @@ no CPU fallback):
    spent in collectives (the transport's share), each rank's peak memory,
    and each kernel timed by CUDA events in each rank, one rank at a time;
    the same walls, transport shares and peaks for moe_dist, the pod rounds,
-   the per-rank engine's steps and the pod steps.
+   the per-rank engine's steps, the pod steps and tp_dist.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -191,8 +207,11 @@ launcher at the most layers the dry run's per-rank step says fit a card,
 and the smoke MoE resumed from a full-E checkpoint; then the training
 launcher under ``torch.distributed.run`` with internlm2-1.8b at all 24
 layers, a card a rank, and prints each rank's peak memory and the steps'
-walls. ``--nccl4-moe`` runs its MoE part alone. It is not part of the
-one-card run. Nor is
+walls. ``--nccl4-moe`` runs its MoE part alone. ``--nccl4-tp`` runs the
+launcher at 2 learners x 2 model shards, a card a rank, internlm2-1.8b at
+24 layers with BON and INSEC, each rank's steps' peak against the dry
+run's, and a smoke run resumed from its checkpoint word for word. None of
+these is part of the one-card run. Nor is
 
     python3 chip_smoke.py --dist-depth 5 6 7
 
@@ -388,6 +407,23 @@ EP_LOSS_RTOL, EP_MASTER_REL, EP_EXPERT_REL = 1e-3, 0.25, 0.2
 # layer, 10.72 at 2, before FedAvg's local copy and six CUDA contexts).
 POD_P, POD_STEP_N, POD_LAYERS = 2, 3, 1
 ENGINE_RANK_ROUNDS = 2
+# The 'model' axis across ranks (tp_dist): the reference launcher's default
+# layout, TP_N learners x TP_M model shards = 8 ranks sharing the card (rank
+# l·m + j is learner l's model shard j): the dist rounds at V_MAIN words a
+# learner, each model rank's ring on its chunk of V_MAIN / TP_M words; then
+# internlm2-1.8b at full width and TP_LAYERS of its 24 layers (the dry run's
+# --per-rank --model-shards: 4.17 GB a rank at 1 layer before FedAvg's local
+# copy and eight CUDA contexts), Megatron tensor parallelism over each
+# learner's two ranks, two train steps and a weighted FedAvg round. The
+# float math (bf16) is not one card's: each row-parallel product is two
+# bf16 partial sums added, and AdamW's first steps move a word by about lr
+# whatever its gradient's size. Measured on an H100 80GB HBM3 at 700 W
+# (PERF.md §6) against the one-card step on the same weights: the
+# losses 3.4e-5 relative, the parameters' change over the two steps 5.3e-2
+# relative L2, FedAvg's local loss 1.5e-6, its published delta 4.7e-2 and its
+# parameters' change 5.0e-2; the bounds sit ~3x above.
+TP_N, TP_M, TP_LAYERS = 4, 2, 1
+TP_LOSS_RTOL, TP_CHANGE_REL = 1e-4, 0.15
 
 
 def say(*parts):
@@ -3581,6 +3617,503 @@ def nccl_moe(run, env, smi, cards):
         "metrics)")
 
 
+
+# ---- the 'model' axis across ranks: tensor parallelism and sharded chains ---------
+
+def tp_model(dev, layers, tp=None):
+    """internlm2-1.8b at full width and ``layers`` layers from seed SEED (the
+    one-card model, or model rank tp.rank's shards of it: the same
+    generator draws), and the tp path's tokens: the train steps' [2, n, B,
+    S] and the FedAvg round's [n, k, B, S]."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=layers)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),
+                  tp_world=tp)
+    stream = make_federated_batches(cfg, TP_N, TS_B, TS_S, seed=SEED)
+    steps = np.stack([stream.global_batch(i)["tokens"] for i in range(2)])
+    fed = np.stack([np.stack([stream.learner_batch(l, 10 + k)["tokens"] for k in range(DIST_K)])
+                    for l in range(TP_N)])
+    return model, steps, fed
+
+
+def tp_shape():
+    return dict(seq_len=TS_S, global_batch=TP_N * TS_B, kind="train")
+
+
+def _full_leaves(params, layout, ring, tp):
+    """The full leaves of a model split over ``tp`` on global rank 0 (host
+    memory), gathered over learner 0's model group; None elsewhere."""
+    from repro_torch.dist import collectives
+    from repro_torch.train.flatten import leaves
+    if ring.rank != 0:
+        return None
+    out = [collectives.gather_to_host(x.detach(), 0, tp, axis=sh.dim) if sh.dim is not None
+           else x.detach().cpu() for x, sh in zip(leaves(params), layout)]
+    return out if tp.rank == 0 else None
+
+
+def _tp_rank(world, layers):
+    """One rank of the tp_dist path (spawned), learner l's model shard j of
+    the TP_N x TP_M grid: the rounds on chunk j of learner l's row; two
+    TP train steps of the model at ``layers`` layers (learner DIST_DEAD dead
+    in the second) and a weighted FedAvg round, through the entry points;
+    the launch counts read after them. Then, outside the timed parts, the
+    ZeRO-1 check's gathers to global rank 0: the published means, the
+    initial and final master vector and moments (rank 0 runs the one-card
+    FlatAdamW on them) and the full leaves."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import collectives, grid_worlds
+    from repro_torch.kernels import build
+    from repro_torch.optim.adamw import AdamState, FlatAdamW
+    from repro_torch.train import make_federated_round, make_train_step
+    from repro_torch.train.flatten import leaves
+    dev = world.device
+    ring, tp = grid_worlds(world, TP_M)
+    l, j = ring.rank, tp.rank
+    out = {"rounds": {}, "round_ms": {}, "round_transport_ms": {}, "step_ms": [],
+           "step_transport_ms": [], "losses": []}
+    build.reset_launches()
+    L = V_MAIN // TP_M
+    x = dist_row(dev, l)[j * L:(j + 1) * L].clone()
+    for name in DIST_ROUNDS:
+        mode, akw, kw, dead = dist_round_args(name, l)
+        agg = make_aggregator(mode, TP_N, device=dev, **akw)
+        row = torch.full_like(x, float("nan")) if dead else x
+        w = kw.pop("weights", None)
+        dist.barrier()
+        sync()
+        collectives.reset_stats(timed=True)
+        t0 = time.perf_counter()
+        mean = agg.aggregate_rank(row, 2**32 - 5, weights=w, world=ring, model_world=tp, **kw)
+        sync()
+        out["round_ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["round_transport_ms"][name] = collectives.stats["seconds"] * 1e3
+        out["rounds"][name] = digest(mean)
+        del mean
+    collectives.reset_stats()
+    del x, row
+    torch.cuda.empty_cache()
+
+    # the train steps; the memory above what the rank held before the model,
+    # cuBLAS's workspace already allocated (the dry run does not count it)
+    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)
+    sync()
+    base = torch.cuda.memory_allocated(dev)
+    model, steps, fed = tp_model(dev, layers, tp)
+    agg = make_aggregator("safe", TP_N, device=dev)
+    published = []
+    aggregate_rank = agg.aggregate_rank
+
+    def record(*args, **kw):  # the published chunk, to the host (learner 0's ranks)
+        mean = aggregate_rank(*args, **kw)
+        if l == 0:
+            published.append(mean.to("cpu", copy=True))
+        return mean
+
+    agg.aggregate_rank = record
+    bundle = make_train_step(model, agg, ring, lr=TS_LR)
+    state = bundle.init_state_fn(model.tree())
+    layout = model.shard_layout()
+    master0 = state["master"].to("cpu", copy=True)
+    out["padded_size"], out["sec_size"] = bundle.padded_size, bundle.sec_size
+    out["master_words"] = state["master"].numel()
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, alive in enumerate((np.ones(TP_N, np.float32), dist_alive())):
+        toks = torch.from_numpy(steps[i][l]).to(dev)
+        counter = agg.reserve_round(bundle.padded_size + 2)
+        dist.barrier()
+        sync()
+        collectives.reset_stats(timed=True)
+        t0 = time.perf_counter()
+        state, m = bundle.step_fn(state, toks, counter=counter, alive=alive)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["step_transport_ms"].append(collectives.stats["seconds"] * 1e3)
+        out["losses"].append(float(m["loss"]))
+        if i == 0:
+            out["step1_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    collectives.reset_stats()
+    out["train_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    out["train_reserved"] = torch.cuda.max_memory_reserved(dev)
+    launches = dict(build.launches)
+
+    # ZeRO-1 word for word: the one-card FlatAdamW on the published means
+    gathered = {k: collectives.gather_to_host(state[k], 0, world) for k in ("master", "fm", "fv")}
+    gathered["master0"] = collectives.gather_to_host(master0.to(dev), 0, world)
+    means = [collectives.gather_to_host(p.to(dev), 0, tp) for p in published] if l == 0 else []
+    out["train_leaves"] = _full_leaves(state["params"], layout, ring, tp)
+    if world.rank == 0:
+        flat = {k: v.view(TP_N, TP_M, -1).transpose(0, 1).reshape(-1)
+                for k, v in gathered.items()}
+        master = flat["master0"].to(dev)
+        zero = torch.zeros_like(master)
+        opt, st = FlatAdamW(lr=TS_LR, weight_decay=0.1), AdamState(0, zero, zero.clone())
+        for mean in means:
+            master, st = opt.update(mean.to(dev), st, master, inplace=True)
+        out["zero1"] = (digest(master, st.m, st.v),
+                        digest(*(flat[k].to(dev) for k in ("master", "fm", "fv"))))
+        out["rebuild"] = all(torch.equal(sh.of(master).to(p.dtype), p)
+                             for sh, p in zip(layout, leaves(state["params"])))
+        del master, zero, st
+    del gathered, means, published, model, state
+    torch.cuda.empty_cache()
+
+    # the FedAvg round
+    model = tp_model(dev, layers, tp)[0]
+    agg = make_aggregator("safe", TP_N, weighted=True, device=dev)
+    bundle = make_federated_round(model, agg, ring, local_steps=DIST_K, local_lr=FED_LR,
+                                  return_delta=True)
+    counter = agg.reserve_round(bundle.padded_size + 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    params, m = bundle.round_fn(model.tree(), torch.from_numpy(fed[l]).to(dev),
+                                weights=DIST_WEIGHTS, counter=counter, alive=dist_alive())
+    sync()
+    out["fedavg_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fedavg_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    out["fed_padded"] = bundle.padded_size
+    out["launches"] = {k: launches[k] + build.launches[k] for k in launches}
+    out["fed_loss"] = float(m["local_loss"])
+    out["fed_delta"] = m["avg_delta"].cpu() if world.rank == 0 else None
+    out["fed_leaves"] = _full_leaves(params, layout, ring, tp)
+    dist.barrier()
+    return out
+
+
+def tp_dryrun(layers, n, m, mode):
+    """The dry run's rank 0 of the n x m grid (meta tensors): its record,
+    the fake group it starts destroyed afterwards."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=layers)
+    try:
+        return dryrun.measure(cfg, "train_4k", shape=dict(seq_len=TS_S, global_batch=n * TS_B,
+                                                          kind="train"),
+                              learners=n, batch=TS_B, per_rank=True, model_shards=m,
+                              aggregator_mode=mode)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def check_tp_kernels(dev, chunks, err):
+    """Each kernel at the tp path's chunks, against its plain version: for
+    each (length, start word) mask_add and chain_combine at the counter
+    base moved by start / 2 (== the pads from that word, ``offset``),
+    bon_mask the same, and chain_combine_batched on the pipelined chunk's
+    rows of seg words from start + s·seg. Folds the differences into
+    ``err``; returns ({kernel: max |err|}, comparisons)."""
+    from repro_torch.kernels import bon_mask as bm
+    from repro_torch.kernels import chain_combine as cc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import threefry_mask_add as tma
+    g = torch.Generator(device=dev).manual_seed(SEED + 300)
+    rng = np.random.RandomState(SEED + 300)
+    base = 2**32 - 5
+
+    def keys(m):
+        return rng.randint(0, 2**32, (m, 2), dtype=np.uint64).astype(np.uint32)
+
+    got = {k: 0 for k in DIST_KERNELS}
+    checks = 0
+    for V, start in chunks:
+        moved = (base + start // 2) & 0xFFFFFFFF
+        x = torch.rand(V, generator=g, device=dev) * 4 - 2
+        c = torch.randint(-2**31, 2**31, (V,), generator=g, device=dev,
+                          dtype=torch.int32).view(torch.uint32)
+        key, kin, kout = keys(1)[0], keys(1)[0], keys(1)[0]
+        got["mask_add"] = max(got["mask_add"], u32_diff(
+            tma.mask_add(x, key, moved), ref.mask_add_ref(x, key, base, offset=start)))
+        got["chain_combine"] = max(got["chain_combine"], u32_diff(
+            cc.chain_combine(c, x, kin, kout, moved),
+            ref.chain_combine_ref(c, x, kin, kout, base, offset=start)))
+        k = keys(TP_N)
+        signs = [1, -1, 1, 1][:TP_N]
+        got["bon_mask"] = max(got["bon_mask"], u32_diff(
+            bm.bon_mask(x, k, signs, moved), ref.bon_mask_ref(x, k, signs, moved)))
+        seg = -(-V // TP_N)
+        for s in range(TP_N):
+            n = min(seg, V - s * seg)
+            if n <= 0:
+                continue
+            kin, kout = keys(1), keys(1)
+            got["chain_combine_batched"] = max(got["chain_combine_batched"], u32_diff(
+                cc.chain_combine_batched(c[None, :n], x[None, :n], kin, kout, [moved],
+                                         starts=[s * seg]),
+                ref.chain_combine_batched_ref(c[None, :n], x[None, :n], kin, kout, [moved],
+                                              starts=[s * seg])))
+        checks += 3 + TP_N
+        del x, c
+    sync()
+    for k, v in got.items():
+        err[k] = max(err[k], v)
+    if any(got.values()):
+        fail(f"a kernel differs from its plain version at the tp path's chunks: {got}")
+    return got, checks
+
+
+def _rel_change(got, want, init):
+    """Relative L2 of (got - init) against (want - init), leaf lists, f64."""
+    num = den = 0.0
+    for a, b, c in zip(got, want, init):
+        a, b, c = a.double(), b.double(), c.double()
+        num += float(torch.sum(torch.square((a - c) - (b - c))))
+        den += float(torch.sum(torch.square(b - c)))
+    return math.sqrt(num / den)
+
+
+def tp_dist_path(dev, launches, err, smi):
+    """The tp_dist path: the reference launcher's layout, TP_N learners x
+    TP_M model shards = 8 spawned ranks sharing the card (``transport=
+    "host"``), internlm2-1.8b at full width and TP_LAYERS layers, against
+    the same work in this process on the card: the rounds' chunks and the
+    ZeRO-1 update exactly, the TP steps' and the FedAvg round's float math
+    within bounds; the dry run's rank 0 against the ranks' peaks; adds the
+    ranks' launches to ``launches`` and the kernels' checks at the path's
+    chunks to ``err``."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_federated_round, make_train_step
+    from repro_torch.train.flatten import leaves
+
+    t0 = time.perf_counter()
+    pred = tp_dryrun(TP_LAYERS, TP_N, TP_M, "safe")
+    dry_s = time.perf_counter() - t0
+
+    # the same work in one process, on the card
+    t0 = time.perf_counter()
+    L = V_MAIN // TP_M
+    values = torch.stack([dist_row(dev, r) for r in range(TP_N)])
+    want = {}
+    for name in DIST_ROUNDS:
+        mode, akw, kw, _ = dist_round_args(name)
+        v = values.clone()
+        if "alive" in kw:
+            v[torch.from_numpy(kw["alive"] == 0).to(dev)] = float("nan")
+        mean = make_aggregator(mode, TP_N, device=dev, **akw).aggregate(v, 2**32 - 5, **kw)
+        want[name] = [digest(mean[j * L:(j + 1) * L]) for j in range(TP_M)]
+        del v, mean
+    del values
+    model, steps, fed = tp_model(dev, TP_LAYERS)
+    init = [p.detach().to("cpu", copy=True) for p in leaves(model.tree())]
+    agg = make_aggregator("safe", TP_N, device=dev)
+    bundle = make_train_step(model, agg, lr=TS_LR)
+    state = bundle.init_state_fn(model.tree())
+    one_losses = []
+    for i, alive in enumerate((np.ones(TP_N, np.float32), dist_alive())):
+        state, m = bundle.step_fn(state, torch.from_numpy(steps[i]).to(dev),
+                                  counter=agg.reserve_round(bundle.padded_size + 2),
+                                  alive=alive)
+        one_losses.append(float(m["loss"]))
+    one_train = [p.detach().cpu() for p in leaves(state["params"])]
+    del model, state, bundle
+    torch.cuda.empty_cache()
+    model = tp_model(dev, TP_LAYERS)[0]
+    agg = make_aggregator("safe", TP_N, weighted=True, device=dev)
+    fb = make_federated_round(model, agg, local_steps=DIST_K, local_lr=FED_LR,
+                              return_delta=True)
+    params, m = fb.round_fn(model.tree(), torch.from_numpy(fed).to(dev), weights=DIST_WEIGHTS,
+                            counter=agg.reserve_round(tree_size_of(model) + 1),
+                            alive=dist_alive())
+    one_fed = ([p.detach().cpu() for p in leaves(params)], m["avg_delta"].cpu(),
+               float(m["local_loss"]))
+    P = m["avg_delta"].numel()
+    del model, params, m, fb
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+
+    held = (torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_tp_rank, TP_N * TP_M, (TP_LAYERS,))
+    ranks_s = time.perf_counter() - t0
+    how = (f"{TP_N} learners x {TP_M} model shards = {TP_N * TP_M} ranks sharing "
+           f"{torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers")
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
+    padded, fed_padded = ranks[0]["padded_size"], ranks[0]["fed_padded"]
+    chunks = [(L, j * L) for j in range(TP_M)] + [(L + 1, (TP_M - 1) * L)]
+    chunks += [(padded // TP_M, j * padded // TP_M) for j in range(TP_M)]
+    chunks += [(fed_padded // TP_M + (j == TP_M - 1), j * fed_padded // TP_M)
+               for j in range(TP_M)]
+    t1 = time.perf_counter()
+    kerr, checks = check_tp_kernels(dev, chunks, err)
+    say(f"phase 4 main path tp_dist ({how}): rounds {list(DIST_ROUNDS)} on chunks of "
+        f"{L} words (V = {V_MAIN} over {TP_M} model ranks, one ring a model rank), "
+        f"{TS_ARCH} at full width, reduced: n_layers 24 -> {TP_LAYERS}, Megatron tensor "
+        f"parallelism over the model ranks: two train steps (learner {DIST_DEAD} dead in the "
+        f"second) and a weighted FedAvg round of {DIST_K} local steps; padded_size {padded} "
+        f"(chunks of {padded // TP_M}), the FedAvg round's {fed_padded}; {ranks_s:.1f} s "
+        f"spawned, {one_s:.1f} s for the same in one process; launches summed over the ranks "
+        f"{counts}; the kernels at the path's chunks (length, start word) {chunks} == plain: "
+        f"{checks} comparisons in {time.perf_counter() - t1:.1f} s, max |err| {kerr}")
+    missing = sorted(k for k in DIST_KERNELS if counts[k] <= 0)
+    if missing:
+        fail(f"path tp_dist never launched {missing} in its ranks: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    # phase 5: the exact checks
+    for name in DIST_ROUNDS:
+        for r, res in enumerate(ranks):
+            if res["rounds"][name] != want[name][r % TP_M]:
+                fail(f"tp round {name}: rank {r}'s chunk differs from words of the one-card "
+                     f"aggregate ({res['rounds'][name]} vs {want[name][r % TP_M]})")
+    zero1 = ranks[0]["zero1"]
+    if zero1[0] != zero1[1] or not ranks[0]["rebuild"]:
+        fail(f"tp train step: ZeRO-1 is not the one-card FlatAdamW on the published means "
+             f"(sha256 {zero1}, rebuild {ranks[0]['rebuild']})")
+    say(f"phase 5 tp_dist rounds: every ring's published chunk torch.equal to words "
+        f"[j*{L}, (j+1)*{L}) of make_aggregator(...).aggregate of the stacked rows on the card "
+        f"(sha256 {({k: [d[:12] for d in v] for k, v in want.items()})})")
+    say(f"phase 5 tp_dist ZeRO-1: the {TP_N * TP_M} ranks' master parts ({ranks[0]['master_words']} "
+        f"words a rank of padded_size {padded}) after two steps word for word the one-card "
+        f"FlatAdamW of the whole master vector on the published means (sha256 "
+        f"{zero1[0][:12]}), rank 0's shards the cast of its words")
+    # the float math against one card's
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        fail(f"tp train step: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], one_losses))
+    change = _rel_change(ranks[0]["train_leaves"], one_train, init)
+    fed_loss_rel = abs(ranks[0]["fed_loss"] - one_fed[2]) / abs(one_fed[2])
+    d1, d2 = ranks[0]["fed_delta"][:P].double(), one_fed[1].double()
+    delta_rel = float(torch.linalg.vector_norm(d1 - d2) / torch.linalg.vector_norm(d2))
+    fed_change = _rel_change(ranks[0]["fed_leaves"], one_fed[0], init)
+    floats = (f"losses {[round(x, 5) for x in ranks[0]['losses']]} vs one card's "
+              f"{[round(x, 5) for x in one_losses]} ({loss_rel:.2e} relative, bound "
+              f"{TP_LOSS_RTOL}); the parameters' change over two steps {change:.3e} relative "
+              f"L2 (bound {TP_CHANGE_REL}); FedAvg: local loss {fed_loss_rel:.2e} relative, the "
+              f"published delta {delta_rel:.3e} and the parameters' change {fed_change:.3e} "
+              f"relative L2 (bound {TP_CHANGE_REL})")
+    if (loss_rel > TP_LOSS_RTOL or change > TP_CHANGE_REL or fed_loss_rel > TP_LOSS_RTOL
+            or delta_rel > TP_CHANGE_REL or fed_change > TP_CHANGE_REL):
+        fail(f"tp_dist: the float math left its bounds: {floats}")
+    say(f"phase 5 tp_dist against the one-card port's step on the same weights (bf16): {floats}")
+    p, r = pred["peak_bytes"], ranks[0]["step1_peak"]
+    dry = (f"rank 0's first step: dry run (--per-rank --model-shards {TP_M}) {p / 1e9:.3f} GB "
+           f"against max_memory_allocated {r / 1e9:.3f} GB, off by {abs(p - r) / r:.2%}")
+    if abs(p - r) / r > DRY_TOL:
+        fail(f"tp_dist {dry}, over {DRY_TOL:.0%}")
+    say(f"phase 5 tp_dist dry run {dry} (<= {DRY_TOL:.0%}; {dry_s:.1f} s on meta tensors)")
+
+    # phase 6: walls, the transport's share, peaks
+    for name in DIST_ROUNDS:
+        walls = [r["round_ms"][name] for r in ranks]
+        tr = [r["round_transport_ms"][name] for r in ranks]
+        say(f"phase 6 tp round {name} ({how}): wall {max(walls):.1f} ms; in collectives "
+            f"{[round(t, 1) for t in tr]} ms")
+    for i in range(2):
+        walls = [r["step_ms"][i] for r in ranks]
+        tr = [r["step_transport_ms"][i] for r in ranks]
+        say(f"phase 6 tp train step {i + 1} ({how}): wall {max(walls):.1f} ms; in collectives "
+            f"{[round(t, 1) for t in tr]} ms, transport share "
+            f"{[f'{t / w:.0%}' for t, w in zip(tr, walls)]}")
+    say(f"phase 6 tp fedavg ({how}): round wall {max(r['fedavg_ms'] for r in ranks):.1f} ms")
+    say(f"phase 6 tp peak memory ({how}): train steps "
+        f"{[round(r['train_peak'] / 1e9, 2) for r in ranks]} GB a rank (the dry run's rank 0 "
+        f"{p / 1e9:.2f} GB, by category {json.dumps({k: round(v / 1e9, 3) for k, v in pred['peak_by_category'].items()})}), "
+        f"FedAvg {[round(r['fedavg_peak'] / 1e9, 2) for r in ranks]} GB a rank (allocated "
+        f"above the rank's start; reserved {[round(r['train_reserved'] / 1e9, 2) for r in ranks]}"
+        f" GB, {DIST_ALLOC_CONF}); this process held {held[0] / 1e9:.2f} GB allocated, "
+        f"{held[1] / 1e9:.2f} GB reserved while they ran")
+
+
+def tree_size_of(model):
+    from repro_torch.train import tree_size
+    return tree_size(model.tree())
+
+
+def nccl_tp_paths():
+    """``python3 chip_smoke.py --nccl4-tp``, on a host with four cards: the
+    launcher under ``torch.distributed.run`` with ``--learners 2
+    --model-shards 2`` (2 learners x 2 model shards, a card a rank, nccl),
+    internlm2-1.8b at all 24 layers, BON then INSEC (SAFE's rings need 3
+    learners), after the dry run sizes rank 0's step; each rank's steps'
+    peak against it; then the smoke model through the same layout with a
+    checkpoint every step and a run resumed from step 1, whose step-2
+    checkpoint must equal the uninterrupted run's word for word."""
+    import gzip
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.dryrun import H100_USABLE_BYTES
+    cards, smi, env, run = nccl_setup()
+    line = smi.splitlines()[0]
+    layout = ["--learners", "2", "--model-shards", "2", "--seq-len", str(TS_S),
+              "--batch-per-learner", str(TS_B), "--lr", str(TS_LR)]
+    for mode in ("bon", "insec"):
+        t0 = time.perf_counter()
+        pred = tp_dryrun(24, 2, 2, mode)
+        p = pred["peak_bytes"]
+        say(f"nccl tp dry run ({mode}): {TS_ARCH} at 24 layers, rank 0 of 2 learners x 2 model "
+            f"shards: {p / 1e9:.3f} GB (by category "
+            f"{json.dumps({k: round(v / 1e9, 3) for k, v in pred['peak_by_category'].items()})}); "
+            f"{'fits' if p <= H100_USABLE_BYTES else 'does not fit'} "
+            f"{H100_USABLE_BYTES / 1e9:.1f} GB ({time.perf_counter() - t0:.1f} s)")
+        if p > H100_USABLE_BYTES:
+            fail(f"nccl tp: the dry run says 24 layers do not fit a card ({mode})")
+        with tempfile.TemporaryDirectory() as tmp:
+            metrics = os.path.join(tmp, "m.jsonl")
+            t0 = time.perf_counter()
+            proc = subprocess.run(run + ["-m", "repro_torch.launch.train", "--arch", TS_ARCH,
+                                         "--steps", str(NCCL_STEPS), "--aggregator", mode,
+                                         *layout, "--metrics", metrics],
+                                  env=env, capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            lines = proc.stdout.splitlines()
+            say("\n".join(ln for ln in lines if "rank" in ln or ln.startswith("done")))
+            if proc.returncode != 0:
+                fail(f"nccl tp launcher ({mode}): rc {proc.returncode}\n{proc.stderr[-3000:]}")
+            recs = [json.loads(ln) for ln in open(metrics) if ln.strip()]
+        peaks = [float(ln.split("steps' peak ")[1].split(" GB")[0]) * 1e9 for ln in lines
+                 if "steps' peak " in ln]
+        times = [r["time"] for r in recs]
+        walls = [round((b - a) * 1e3, 1) for a, b in zip(times, times[1:])]
+        off = [abs(p - r) / r for r in peaks]
+        say(f"nccl tp launcher ({line} x{cards}, nccl, a card a rank, 2 learners x 2 model "
+            f"shards, {mode}): {TS_ARCH} at 24 layers, {NCCL_STEPS} steps in {wall:.1f} s with "
+            f"start-up; losses {[round(r['loss'], 4) for r in recs]}; steps 2.. wall {walls} ms "
+            f"(rank 0's metrics); the steps' peak a rank {[round(r / 1e9, 3) for r in peaks]} GB "
+            f"against the dry run's rank 0 {p / 1e9:.3f} GB, off by "
+            f"{[f'{o:.2%}' for o in off]}")
+        if len(peaks) != 4 or not all(math.isfinite(r["loss"]) for r in recs):
+            fail(f"nccl tp launcher ({mode}): {len(peaks)} ranks reported, losses {recs}")
+        if off[0] > DRY_TOL:
+            fail(f"nccl tp ({mode}): the dry run is {off[0]:.2%} off rank 0's peak")
+    with tempfile.TemporaryDirectory() as tmp:
+        smoke = ["-m", "repro_torch.launch.train", "--arch", TS_ARCH, "--smoke", "--steps", "2",
+                 "--aggregator", "bon", "--learners", "2", "--model-shards", "2",
+                 "--ckpt-every", "1", "--ckpt-dir"]
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        for where, before in ((a, None), (b, a)):
+            if before:
+                shutil.copytree(before, where)
+                shutil.rmtree(os.path.join(where, "step_00000002"))
+            proc = subprocess.run(run + smoke + [where], env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode != 0:
+                fail(f"nccl tp resume: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        same = all(gzip.open(os.path.join(a, "step_00000002", f)).read()
+                   == gzip.open(os.path.join(b, "step_00000002", f)).read()
+                   for f in ("buffers.bin.gz", "manifest.msgpack.gz"))
+        if "resumed from step 1" not in proc.stdout or not same:
+            fail("nccl tp resume: the resumed run's step 2 differs from the uninterrupted run's")
+        say(f"nccl tp resume ({line} x{cards}, smoke, 2 learners x 2 model shards, BON, nccl): "
+            "the run resumed from step 1 wrote step 2 word for word as the uninterrupted run "
+            "did (the one-process checkpoint: full leaves, whole vectors)")
+
+
 def main():
     if "--nccl-pod-rank" in sys.argv:
         return nccl_pod_rank()
@@ -3590,6 +4123,8 @@ def main():
         return nccl_rounds_rank()
     if "--nccl4" in sys.argv:
         return nccl_paths()
+    if "--nccl4-tp" in sys.argv:
+        return nccl_tp_paths()
     if "--nccl4-moe" in sys.argv:
         cards, smi, env, run = nccl_setup()
         return nccl_moe(run, env, smi, cards)
@@ -3655,6 +4190,8 @@ def main():
     timed("moe dist", ep_dist_path, dev, launches, err, smi)
     torch.cuda.empty_cache()
     timed("pod dist", pod_dist_paths, dev, launches, err, smi)
+    torch.cuda.empty_cache()
+    timed("tp dist", tp_dist_path, dev, launches, err, smi)
     say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
         f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")

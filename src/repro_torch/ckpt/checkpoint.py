@@ -25,6 +25,13 @@ The port needs neither ``msgpack``, ``ml_dtypes`` nor ``zstandard``:
 Leaves restore onto the skeleton leaf's device, in the dtype the
 checkpoint recorded; a Python number in the skeleton (the train state's
 ``step``) restores as a Python number.
+
+A train step on ('data', 'model') ranks (tensor parallelism,
+``train/train_step.py::_tp_step``) writes the one-process state:
+``gather_tp_state`` brings the full leaves and the whole master vector
+and moments to global rank 0, and ``shard_tp_state`` gives each rank its
+shards and its ZeRO-1 part back, so a checkpoint of m model shards
+restores in the one-process launcher, and the reverse.
 """
 from __future__ import annotations
 
@@ -317,3 +324,95 @@ def latest_step(directory: str) -> Optional[int]:
     steps = [int(m.group(1)) for name in os.listdir(directory)
              if (m := re.match(r"step_(\d+)$", name))]
     return max(steps) if steps else None
+
+
+# ---- train states of model-sharded ranks ---------------------------------------
+
+_SLICED = ("master", "fm", "fv")  # the ZeRO-1 vectors a rank holds a part of
+
+
+def one_process_size(sec_size: int, learners: int) -> int:
+    """The one-process step's flat length: ``sec_size`` padded to n words."""
+    return -(-int(sec_size) // learners) * learners
+
+
+def gather_tp_state(state: dict, layout: list, sec_size: int, ring, tp,
+                    world) -> Optional[dict]:
+    """The one-process train state of a model-sharded rank's ``state``, in
+    host memory on global rank 0 (learner 0's model rank 0), None on the
+    other ranks; every rank calls it. ``layout``: the rank's
+    ``shard_layout`` (leaf by leaf, the parameters' and, leafwise, the
+    moments'); ``ring``/``tp``/``world``: the learners' ring, the model
+    group and the whole group (rank l·m + j). A split leaf is gathered over
+    learner 0's model group along its split dim, one rank at a time; the
+    ZeRO-1 parts of the master vector, m and v over the whole group (rank
+    order is (l, j), so the parts come back chunk-major), cut to the
+    tree's words and padded to ``one_process_size`` (both layouts' pad
+    words are zeros)."""
+    from repro_torch.dist import collectives
+    lead = world.rank == 0
+
+    def gather_tree(tree):
+        if ring.rank != 0:
+            return None
+        return tree_unflatten(tree, [
+            collectives.gather_to_host(x, 0, tp, axis=sh.dim) if sh.dim is not None
+            else (x.detach().cpu() if tp.rank == 0 else None)
+            for x, sh in zip(leaves(tree), layout)])
+
+    full = dict(state)
+    full["params"] = gather_tree(state["params"])
+    if state.get("sec_opt") is not None:
+        s = state["sec_opt"]
+        full["sec_opt"] = type(s)(s.step, gather_tree(s.m), gather_tree(s.v))
+    else:
+        n, m = ring.size, tp.size
+        size = one_process_size(sec_size, n)
+        for k in _SLICED:
+            parts = collectives.gather_to_host(state[k], 0, world)
+            if lead:
+                flat = parts.view(n, m, -1).transpose(0, 1).reshape(-1)[:sec_size]
+                full[k] = torch.cat([flat, flat.new_zeros(size - sec_size)])
+    return full if lead else None
+
+
+def tp_skeleton(state: dict, layout: list, sec_size: int, learners: int) -> dict:
+    """A host skeleton of the one-process state that a model-sharded
+    rank's ``state`` restores from: full leaves, whole vectors."""
+    def full(tree):
+        return tree_unflatten(tree, [torch.zeros(sh.shape, dtype=x.dtype)
+                                     for x, sh in zip(leaves(tree), layout)])
+    out = dict(state)
+    out["params"] = full(state["params"])
+    if state.get("sec_opt") is not None:
+        s = state["sec_opt"]
+        out["sec_opt"] = type(s)(s.step, full(s.m), full(s.v))
+    else:
+        for k in _SLICED:
+            out[k] = torch.zeros(one_process_size(sec_size, learners), dtype=state[k].dtype)
+    return out
+
+
+def shard_tp_state(full: dict, state: dict, layout: list, sec_size: int, padded: int,
+                   ring, tp) -> dict:
+    """This rank's train state from a restored one-process ``full`` state:
+    its shards of the leaves, and its part of chunk j of the master vector
+    and moments (the tree's words padded to ``padded``), on the devices of
+    ``state``'s tensors."""
+    def shards(tree, like):
+        return tree_unflatten(tree, [sh.cut(x).to(y.device, copy=True).contiguous()
+                                     for x, sh, y in zip(leaves(tree), layout, leaves(like))])
+    out = dict(full)
+    out["params"] = shards(full["params"], state["params"])
+    if state.get("sec_opt") is not None:
+        s, like = full["sec_opt"], state["sec_opt"]
+        out["sec_opt"] = type(s)(s.step, shards(s.m, like.m), shards(s.v, like.v))
+    else:
+        L = padded // tp.size
+        part = L // ring.size
+        lo = tp.rank * L + ring.rank * part
+        for k in _SLICED:
+            flat = torch.zeros(padded, dtype=full[k].dtype)
+            flat[:sec_size] = full[k][:sec_size]
+            out[k] = flat[lo:lo + part].to(state[k].device, copy=True)
+    return out

@@ -6,7 +6,8 @@ arrays, an ``AggSession``'s fields, a model's parameter tree and its
 decode cache, all numpy — and build the port's objects from them.
 ``shard_experts`` and ``gather_experts`` carry the full-E expert leaves
 (the reference's layout, or the one-card port's) into a rank's shard under
-expert parallelism across ranks, and back.
+expert parallelism across ranks, and back; ``shard_model`` cuts a
+``model_params`` state to a model rank's tensor-parallel shards.
 """
 from __future__ import annotations
 
@@ -50,6 +51,17 @@ def model_params(cfg, tree) -> Dict[str, torch.Tensor]:
             t = torch.from_numpy(np.array(a))
         state[path.replace("/", ".")] = t
     return state
+
+
+def shard_model(cfg, state: Dict[str, torch.Tensor], rank: int,
+                ranks: int) -> Dict[str, torch.Tensor]:
+    """``model_params``'s state (the full leaves) cut to model rank
+    ``rank`` of ``ranks``'s shards (``models/sharding.py::shard_leaf``), for
+    ``Model(cfg, tp_world=...).load_state_dict``: the tests start both
+    packages from the same weights."""
+    from repro_torch.models.sharding import check_tp, shard_leaf
+    check_tp(cfg, ranks)
+    return {k: shard_leaf(k.replace(".", "/"), v, cfg, rank, ranks) for k, v in state.items()}
 
 
 def _is_expert(path: str) -> bool:

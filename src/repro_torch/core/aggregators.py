@@ -11,7 +11,17 @@ first.
 
 With one learner per process (``repro_torch.dist``), ``aggregate_rank``
 is the reference's per-rank ``aggregate`` and ``aggregate_sharded`` its
-``shard_map`` entry over a live process group. With a pod axis the ranks
+``shard_map`` entry over a live process group. With model shards
+(``model_world``, the reference's ``chain_model_sharded``) the vector is
+cut into m equal chunks of even length L, and model rank j's ring — the
+ranks holding shard j of each learner — runs the round over words
+[s_j, s_j + L), s_j = j·L, of the vector: the same round with the counter
+base moved by s_j/2, which gives every word the pad of its place in the
+whole vector (word i is lane i & 1 of counter base + i // 2, and s_j is
+even). So the published chunk is the one-card mean's words, the
+sequential and BON ciphertexts are the one-card round's words, and no
+pad of the reserved range is used twice. A weighted round's weight word
+rides with the last chunk. With a pod axis the ranks
 form a ('pod', 'data') grid (``launch/mesh.py::make_pod_mesh``): each pod
 runs the round over its learners' ``World`` and the pods' results meet
 over the pod ``World`` (``chain.pod_mean_rank``).
@@ -168,7 +178,7 @@ class SecureAggregator:
 
     def aggregate_rank(self, values, counter_base: int = 0, alive=None, weights=None,
                        domain: int = 0, rotate: int = 0, *, world,
-                       pod_world=None) -> torch.Tensor:
+                       pod_world=None, model_world=None) -> torch.Tensor:
         """Secure mean with one learner per rank: the reference's per-rank
         ``aggregate`` (inside ``shard_map``), over ``world``
         (``repro_torch.dist``). ``values`` is this rank's f32[V], ``alive``
@@ -182,11 +192,28 @@ class SecureAggregator:
         ``pod_mean``. Keys and the initiator election are derived on the
         host from the same seeds on every rank; nothing of them is sent.
         Returns the published f32[V] mean on every rank, bit for bit
-        ``aggregate``'s of the stacked rows."""
+        ``aggregate``'s of the stacked rows.
+
+        ``model_world`` (the model group of a ('data', 'model') grid,
+        ``dist.grid_worlds``): ``values`` is chunk j (its model rank) of
+        the vector, every chunk of one even length L; ``world`` is the ring
+        of the ranks holding chunk j, and the result is words [j·L,
+        (j + 1)·L) of the published mean (see the module docstring). Every
+        rank of the grid calls it at once."""
         self.check_world(world, pod_world)
         values = torch.as_tensor(values, dtype=torch.float32).to(world.device).contiguous()
         if values.dim() != 1:
             raise ValueError(f"values: expected this rank's [V] vector, got {tuple(values.shape)}")
+        if model_world is not None and model_world.size > 1:
+            if pod_world is not None:
+                raise ValueError("pods with model shards: the ('pod', 'data', 'model') round "
+                                 "is the dry run's production-mesh slice")
+            if values.shape[0] % 2:
+                raise ValueError(f"a chunk of {values.shape[0]} words: model-sharded chunks "
+                                 "have an even length, so each starts on a counter")
+            counter_base = int(counter_base) + model_world.rank * (values.shape[0] // 2)
+        else:
+            model_world = None
         weight = self._rank_weight(weights, world, pod_world)
         cfg = dataclasses.replace(self.cfg, pod_axis=None)
         if cfg.mode == "insec":
@@ -197,9 +224,11 @@ class SecureAggregator:
             if cfg.mode == "bon":
                 avg = bon_rank(values, keys, cfg, world, alive)
             elif cfg.pipelined:
-                avg = chain_rank_pipelined(values, keys, cfg, world, alive, weight)
+                avg = chain_rank_pipelined(values, keys, cfg, world, alive, weight,
+                                           model_world)
             else:
-                avg = chain_rank_sequential(values, keys, cfg, world, alive, weight, rotate)
+                avg = chain_rank_sequential(values, keys, cfg, world, alive, weight, rotate,
+                                            model_world)
         return avg if pod_world is None else pod_mean_rank(avg, pod_world)
 
     def aggregate_sharded(self, mesh, global_values, counter_base: int = 0, alive=None,

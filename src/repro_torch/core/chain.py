@@ -473,12 +473,40 @@ def chain_aggregate_batched(
 
 # ---- one learner per rank (torch.distributed) ---------------------------------------
 
-def _rank_payload(values: torch.Tensor, cfg: ChainConfig, weight) -> torch.Tensor:
-    """This rank's payload: ``_payload`` of its [V] row and scalar weight."""
+def _rank_payload(values: torch.Tensor, cfg: ChainConfig, weight,
+                  model_world=None) -> torch.Tensor:
+    """This rank's payload: ``_payload`` of its [V] row and scalar weight;
+    with model shards, chunks other than the last without the weight word
+    (``_carries_weight``)."""
     if cfg.mode not in ("safe", "saf"):
         raise ValueError(f"chain modes are 'safe'/'saf', got {cfg.mode!r}")
     w = None if weight is None else torch.as_tensor(weight, dtype=torch.float32).reshape(1)
-    return _payload(values[None], cfg, w)[0]
+    payload = _payload(values[None], cfg, w)[0]
+    return payload if _carries_weight(cfg, model_world) or not cfg.weighted else payload[:-1]
+
+
+def _carries_weight(cfg: ChainConfig, model_world) -> bool:
+    """Whether this rank's weighted payload ends in the weight word. With
+    model shards (ring j rounds words [s_j, e_j) of the vector) only the
+    last chunk's does: the weight word is word V of the whole payload,
+    right after that chunk, so its pads are the one-card round's and no
+    two rings pad one word."""
+    return cfg.weighted and (model_world is None or model_world.rank == model_world.size - 1)
+
+
+def _chunk_mean(codec: FixedPointCodec, total: torch.Tensor, count, cfg: ChainConfig,
+                model_world) -> torch.Tensor:
+    """``_group_mean`` of a ring's total; weighted with model shards, the
+    last chunk's ring decodes the weight sum and broadcasts it over the
+    model group (whose ranks hold the same learner, so the same role in
+    their rings), and each chunk divides by it as the one-card mean does."""
+    if not cfg.weighted or model_world is None:
+        return _group_mean(codec, total, count, cfg.weighted)
+    s = codec.decode(total)
+    last = model_world.size - 1
+    w = s[-1:] if model_world.rank == last else torch.empty_like(s[:1])
+    w = collectives.broadcast(w.contiguous(), last, model_world)
+    return (s[:-1] if model_world.rank == last else s) / torch.clamp_min(w, 1e-12)
 
 
 def publish_rank(avg: Optional[torch.Tensor], posters: Sequence[int], like: torch.Tensor,
@@ -500,10 +528,13 @@ def chain_rank_sequential(
     alive=None,
     weight=None,
     rotate: int = 0,
+    model_world=None,
 ) -> torch.Tensor:
     """``chain_aggregate_sequential`` with one learner per rank: this rank's
     f32[V] ``values`` (and scalar ``weight``), the published mean on every
-    rank, bit for bit the one-card round's.
+    rank, bit for bit the one-card round's. With ``model_world`` the
+    values are one chunk of the vector, the keys' counter base already the
+    chunk's (``SecureAggregator.aggregate_rank``).
 
     The masked vector goes point to point along the group's hop order, one
     message a hop: the initiator posts ``mask_add`` ⊕ R to its successor,
@@ -517,7 +548,7 @@ def chain_rank_sequential(
     rank, topo = world.rank, cfg.topology
     alive = host_alive(alive, n)
     codec = FixedPointCodec(sb)
-    payload = _rank_payload(values, cfg, weight)
+    payload = _rank_payload(values, cfg, weight, model_world)
     zero = torch.zeros(payload.shape[0], dtype=torch.float32, device=payload.device)
     row = payload if alive[rank] > 0 else zero
     base = int(keys.counter_base) & 0xFFFFFFFF
@@ -538,8 +569,8 @@ def chain_rank_sequential(
         c = collectives.recv(shape, torch.uint32, prev, world)
         if cfg.mode == "safe":
             c = ring_sub(c, ops.mask_add(zero, k_in[rank], base, scale_bits=sb))
-        avg = _group_mean(codec, ring_sub(c, R), _group_count(cfg, alive, grp),
-                          cfg.weighted)
+        avg = _chunk_mean(codec, ring_sub(c, R), _group_count(cfg, alive, grp), cfg,
+                          model_world)
     else:
         c = collectives.recv(shape, torch.uint32, prev, world)
         if cfg.mode == "safe":
@@ -547,7 +578,7 @@ def chain_rank_sequential(
         else:
             c = ring_add(c, codec.encode(row))
         collectives.send(c, nxt, world)
-    like = zero[:-1] if cfg.weighted else zero
+    like = zero[:-1] if _carries_weight(cfg, model_world) else zero
     return publish_rank(avg, topo.elect_initiators(alive, rotate), like, cfg.subgroups,
                         world)
 
@@ -559,9 +590,12 @@ def chain_rank_pipelined(
     world,
     alive=None,
     weight=None,
+    model_world=None,
 ) -> torch.Tensor:
     """``chain_aggregate_pipelined`` with one learner per rank, bit for bit
-    the one-card round's.
+    the one-card round's. With ``model_world`` the values are one chunk of
+    the vector, pipelined in segments of its own, the keys' counter base
+    already the chunk's (``SecureAggregator.aggregate_rank``).
 
     This rank (local index l) starts segment l, masked with its R and its
     outgoing pad from word l·seg; then m − 1 lockstep ``ppermute`` steps
@@ -575,7 +609,7 @@ def chain_rank_pipelined(
     rank, topo = world.rank, cfg.topology
     alive = host_alive(alive, n)
     codec = FixedPointCodec(sb)
-    payload = _rank_payload(values, cfg, weight)
+    payload = _rank_payload(values, cfg, weight, model_world)
     W = payload.shape[0]
     seg = -(-W // m)
     x = payload.new_zeros(m * seg)
@@ -607,8 +641,8 @@ def chain_rank_pipelined(
             c = ring_add(c, codec.encode(x[(lrank - t) % m]))
         c = collectives.ppermute(c, perm, world)
     total = collectives.all_gather(ring_sub(c, R), world, tiled=True)
-    avg = _group_mean(codec, total[g0 * seg:(g0 + m) * seg][:W],
-                      _group_count(cfg, alive, topo.group_of(rank)), cfg.weighted)
+    avg = _chunk_mean(codec, total[g0 * seg:(g0 + m) * seg][:W],
+                      _group_count(cfg, alive, topo.group_of(rank)), cfg, model_world)
     if cfg.subgroups == 1:  # every member already holds it: no psum
         return avg
     posters = [g * m for g in range(cfg.subgroups)]

@@ -26,6 +26,22 @@ over the learner axis:
   differentiable: its backward is the exchange with the two axes swapped,
   its transpose (the experts' dispatch and return, ``models/moe.py``).
 
+Megatron's three operators over the model group (tensor parallelism,
+``models/layers.py``), each differentiable:
+
+- ``copy_to_model`` — identity forward, ``psum`` backward: where a
+  replicated activation (or weight) enters a column-parallel product, the
+  ranks' partial cotangents are summed;
+- ``reduce_from_model`` — ``psum`` forward, identity backward: a
+  row-parallel product's partial outputs summed. Its f32 psum is the
+  all-gather and ``sum(dim=0)`` in rank order below, so the result does
+  not depend on the transport; a bf16 psum sums the m bf16 partials the
+  same way, which accumulates in f32 and rounds once to bf16;
+- ``gather_from_model`` — tiled all-gather along a dim forward, this
+  rank's slice of the cotangent backward (not a reduce-scatter: the loss
+  after it is computed alike on every model rank, so a summed backward
+  would count the gradient m times).
+
 uint32 crosses the wire as its int32 view, the bits unchanged (neither
 gloo nor NCCL takes ``torch.uint32``). With the ``host`` transport a CUDA
 tensor is copied to a pinned host buffer before the message and back to
@@ -282,5 +298,67 @@ def all_to_all(x: torch.Tensor, world, split_axis: int = 0, concat_axis: int = 0
     return _exchange(x, world, split_axis, concat_axis, tiled)
 
 
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, world):
+        ctx.world = world
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.world), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, world):
+        return psum(x, world)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, world, dim):
+        ctx.args = (world, dim, x.shape[dim])
+        return torch.cat(all_gather(x, world).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        world, dim, k = ctx.args
+        return g.narrow(dim, world.rank * k, k).contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, world) -> torch.Tensor:
+    """Megatron's f: ``x`` unchanged; its gradient ``psum``'d over ``world``."""
+    if world is None or world.size == 1:
+        return x
+    return _CopyToModel.apply(x, world)
+
+
+def reduce_from_model(x: torch.Tensor, world) -> torch.Tensor:
+    """Megatron's g: the ``psum`` of ``x`` over ``world``; the gradient
+    passes unchanged."""
+    if world is None or world.size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x, world)
+    return psum(x, world)
+
+
+def gather_from_model(x: torch.Tensor, world, dim: int = -1) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order; the
+    gradient is this rank's slice of the cotangent."""
+    if world is None or world.size == 1:
+        return x
+    dim = dim % x.dim()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherFromModel.apply(x, world, dim)
+    return torch.cat(all_gather(x, world).unbind(0), dim=dim)
+
+
 __all__ = ["axis_index", "ppermute", "send", "recv", "all_gather", "gather_to_host", "psum",
-           "pmean", "broadcast", "all_to_all", "stats", "reset_stats"]
+           "pmean", "broadcast", "all_to_all", "copy_to_model", "reduce_from_model",
+           "gather_from_model", "stats", "reset_stats"]

@@ -112,6 +112,46 @@ def pod_world_of(mesh, axis: str = "pod") -> Optional[World]:
     return rank_world(mesh, axis)
 
 
+def model_world_of(mesh, axis: str = "model") -> Optional[World]:
+    """The model group of a ('data', 'model') mesh over a live group
+    (``rank_world(mesh, axis)``: the ranks holding one learner's model
+    shards, consecutive in the reference's order, rank l·m + j being
+    learner l's shard j); None for a ``World``, no mesh, or a mesh without
+    a model dimension or with one of size 1."""
+    if mesh is None or isinstance(mesh, World):
+        return None
+    if axis not in tuple(mesh.mesh_dim_names or ()):
+        return None
+    world = rank_world(mesh, axis)
+    return world if world is not None and world.size > 1 else None
+
+
+def grid_worlds(world: World, model_shards: int) -> tuple:
+    """(learner ring, model group) of the ('data', 'model') grid over the
+    ``world.size`` ranks of ``world``, without a ``DeviceMesh``: rank
+    r = l·m + j is learner l's model shard j (the reference's device
+    order), its ring the n ranks with the same j and its model group the m
+    consecutive ranks l·m .. l·m + m − 1. Every rank must call it (each
+    ``new_group`` is collective, in one order everywhere). With
+    ``model_shards`` 1 it returns (``world``, None)."""
+    m = int(model_shards)
+    if m < 1 or world.size % m:
+        raise ValueError(f"{world.size} ranks do not split into model groups of {m}")
+    if m == 1:
+        return world, None
+    import torch.distributed as dist
+    n = world.size // m
+    base = [world.global_rank(r) for r in range(world.size)]
+    rings = [dist.new_group([base[l * m + j] for l in range(n)]) for j in range(m)]
+    models = [dist.new_group(base[l * m:(l + 1) * m]) for l in range(n)]
+    l, j = divmod(world.rank, m)
+    ring = World(rank=l, size=n, device=world.device, transport=world.transport,
+                 group=rings[j])
+    model = World(rank=j, size=m, device=world.device, transport=world.transport,
+                  group=models[l])
+    return ring, model
+
+
 def _pick(device: str, transport: Optional[str], local_rank: int,
           local_size: int) -> tuple:
     """(transport, torch.device) for a rank, or raise."""
@@ -248,4 +288,4 @@ def spawn(fn: Callable, world_size: int, device: str = "cuda", *,
 
 
 __all__ = ["World", "TRANSPORTS", "init_world", "close_world", "rank_world", "pod_world_of",
-           "spawn"]
+           "model_world_of", "grid_worlds", "spawn"]

@@ -31,7 +31,10 @@ memory and cost analyses. Here, per combination and mesh:
   master vector and moments and, for a MoE, its E/n experts — over a fake
   process group of n ranks whose collectives move nothing; what one card a
   rank must hold under ``torch.distributed.run`` (rank 0 initiates the
-  round at counter 0: it holds the initiator's mask too).
+  round at counter 0: it holds the initiator's mask too). With
+  ``--model-shards m`` rank 0 of the ('data', 'model') grid of n·m ranks:
+  learner 0's model shard 0, with its tensor-parallel shards, its chunk's
+  round and its ZeRO-1 part of that chunk.
 
   The count is the program's own tensors: cuBLAS's workspace (64 MiB on
   the H100, allocated at a process's first matrix product) is not in it,
@@ -48,7 +51,8 @@ memory and cost analyses. Here, per combination and mesh:
   (``launch/mesh.py``). The arguments carry the reference's placements,
   and the record holds ``argument_bytes`` per device with ``status:
   "placements_only"``: temporary bytes and collectives on these meshes
-  need the port's multi-card train step, which does not exist yet.
+  need the production meshes' ('pod', 'data', 'model') program (ROADMAP
+  Queue 1 item 3).
 
 The reference's ``_shape_bytes`` and ``parse_collectives`` read XLA's HLO
 text and have no counterpart here. Records go to
@@ -60,6 +64,8 @@ Usage:
   python -m repro_torch.launch.dryrun --all          # everything missing, serially
   python -m repro_torch.launch.dryrun --arch qwen3-moe-235b-a22b --shape train_4k \
       --learners 4 --batch 2 --seq-len 256 --per-rank --tag rank   # a card a rank
+  python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k \
+      --learners 4 --batch 2 --seq-len 256 --per-rank --model-shards 2 --tag rank_tp2
 """
 from __future__ import annotations
 
@@ -225,21 +231,27 @@ def _placements_only(cfg, shape_name: str, mesh_name: str, spec_kw: dict) -> dic
             "argument_bytes": int(sum(a.local_bytes(mesh) for a in args)),
             "global_argument_bytes": int(sum(a.dtype.itemsize * math.prod(a.shape)
                                              for a in args)),
-            "not_measured": "temporary bytes and collectives: they need the port's "
-                            "multi-card train step (not ported yet)"}
+            "not_measured": "temporary bytes and collectives: the port's train step "
+                            "across ranks exists (--per-rank, with --model-shards for the "
+                            "('data', 'model') grid); running the production meshes' "
+                            "program is ROADMAP Queue 1 item 3"}
 
 
 def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str = "safe",
             pipelined: bool = False, subgroups: int = 1, tag: str = "",
             chain_model_sharded: bool = False, capacity_factor: float = 0.0,
-            smoke: bool = False, seq_len: int = 0, **size_kw) -> dict:
+            smoke: bool = False, seq_len: int = 0, n_layers: int = 0, **size_kw) -> dict:
     """The record of one (arch × shape) on ``mesh`` (``smoke``: the arch's
     smoke configuration; ``seq_len``: the shape's sequence length, if not
-    its own). ``size_kw`` (``learners``, ``batch``) size the train step."""
+    its own; ``n_layers``: the depth, if not the configuration's).
+    ``size_kw`` (``learners``, ``batch``, ``per_rank``, ``model_shards``)
+    size the train step."""
     from repro_torch.launch.input_specs import INPUT_SHAPES
     from repro_torch.configs import get_config, get_smoke_config
 
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if capacity_factor and cfg.moe is not None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
@@ -249,6 +261,8 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
               "status": "pending"}
     if smoke:
         record["config"] = cfg.arch_id
+    if n_layers:
+        record["n_layers"] = n_layers
     spec_kw = dict(aggregator_mode=aggregator_mode, pipelined=pipelined,
                     subgroups=subgroups, chain_model_sharded=chain_model_sharded,
                     **{k: v for k, v in size_kw.items() if v}) if shape_name == "train_4k" else {}
@@ -358,6 +372,12 @@ def main(argv=None):
                     help="train_4k's sequences a learner (default: 256 over the learners)")
     ap.add_argument("--per-rank", action="store_true",
                     help="train_4k: rank 0's step with one learner a rank (a card a rank)")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="with --per-rank: rank 0 of the ('data', 'model') grid, its model "
+                         "split over this many ranks")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the configuration to this many layers (a whole number of its "
+                         "pattern)")
     ap.add_argument("--seq-len", type=int, default=0,
                     help="the shape's sequence length, if not its own")
     ap.add_argument("--out", default=None, help=f"record directory (default {RESULTS_DIR})")
@@ -393,8 +413,8 @@ def main(argv=None):
         try:
             rec = run_one(arch, shape, mesh, args.aggregator, args.pipelined, args.subgroups,
                           args.tag, args.chain_model_sharded, args.capacity, args.smoke,
-                          args.seq_len, learners=args.learners, batch=args.batch,
-                          per_rank=args.per_rank)
+                          args.seq_len, args.n_layers, learners=args.learners, batch=args.batch,
+                          per_rank=args.per_rank, model_shards=args.model_shards)
         except Exception as e:  # noqa: BLE001 — record the failure, go on with the rest
             rec = {"arch": arch, "shape": shape, "mesh": mesh, "status": "error",
                    "error": repr(e), "traceback": traceback.format_exc()[-4000:]}

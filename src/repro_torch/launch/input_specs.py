@@ -19,8 +19,11 @@ kinds of mesh:
   ``_with_sharding`` attaches them — parameters by ``param_pspecs``, flat
   vectors over 'data', the experts' AdamW state mirroring their weights,
   caches by ``cache_pspecs`` with the pod re-spec, tokens over the batch
-  axes. The port has no multi-card step yet, so ``fn`` is None there: the
-  dry run reports the arguments' bytes per device, not a run.
+  axes. ``fn`` is None there: the dry run reports the arguments' bytes per
+  device, not a run. The port's train step across ranks exists (one
+  learner a rank, pods, and the ('data', 'model') grid: ``per_rank`` runs
+  rank 0's step); running the production meshes' ('pod', 'data',
+  'model') program is ROADMAP Queue 1 item 3.
 
 Where the program reads a value on the host (the train step's optimizer
 step counters, ``int(state["fstep"])``), the spec hands it a real 0-d
@@ -130,14 +133,16 @@ def train_spec(arch_cfg: ModelConfig, mesh, shape: dict, aggregator_mode: str = 
                pipelined: bool = False, subgroups: int = 1,
                chain_model_sharded: bool = False, *, learners: Optional[int] = None,
                batch: Optional[int] = None, per_rank: bool = False,
-               device="cuda") -> DryrunSpec:
+               model_shards: int = 1, device="cuda") -> DryrunSpec:
     """train_4k: the SAFE train step. ``learners`` (default: the mesh's
     'data', 16 on one card) and ``batch`` (sequences a learner; default
     the global batch over the learners) size it. ``per_rank`` (one card,
     ``mesh`` None): rank 0's step with one learner a rank instead — its
     own batch, its ZeRO-1 slice and, for a MoE, its E/n experts — over a
     fake process group of n ranks whose collectives move nothing (rank 0
-    initiates the round at counter 0)."""
+    initiates the round at counter 0). With ``model_shards`` m > 1, rank 0
+    of the ('data', 'model') grid of n·m ranks: learner 0's model shard 0,
+    its tensor-parallel shards, its chunk's round and its ZeRO-1 part."""
     from repro_torch.core import make_aggregator
     from repro_torch.train.train_step import make_train_step
 
@@ -151,15 +156,22 @@ def train_spec(arch_cfg: ModelConfig, mesh, shape: dict, aggregator_mode: str = 
     # parameters' shapes and the SAFE partition are the same either way)
     if cfg.uses_moe and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=n)
-    world = None
+    world = tp = None
+    if model_shards > 1 and not per_rank:
+        raise ValueError("model_shards sizes one rank of the ('data', 'model') grid: per_rank")
     if per_rank:
         if mesh is not None:
             raise ValueError("per_rank sizes one rank of the one-card layout: mesh must be None")
         from repro_torch.dist import World
-        from repro_torch.launch.mesh import start_fake_world
-        start_fake_world(n)
+        from repro_torch.launch.mesh import make_test_mesh, start_fake_world
+        start_fake_world(n * model_shards)
         world = World(rank=0, size=n, device=torch.device(device), transport="gloo")
-    model = Model(cfg, device="meta", ep_world=world)
+        if model_shards > 1:
+            grid = make_test_mesh(n, model_shards, device_type="cpu")
+            world = dataclasses.replace(world, group=grid.get_group("data"))
+            tp = World(rank=0, size=model_shards, device=torch.device(device),
+                       transport="gloo", group=grid.get_group("model"))
+    model = Model(cfg, device="meta", ep_world=world, tp_world=tp)
     agg = make_aggregator(aggregator_mode, n, pipelined=pipelined, subgroups=subgroups,
                           pod_axis=pod_axis, device=device)
     bundle = make_train_step(model, agg, world, pod_axis=pod_axis, donate=True,
@@ -170,7 +182,8 @@ def train_spec(arch_cfg: ModelConfig, mesh, shape: dict, aggregator_mode: str = 
     S = shape["seq_len"]
     lead = (B_l,) if per_rank else (n * pods, B_l)   # a rank's tokens are its own
     tok_shape = lead + token_shape(cfg, 1, S)[1:]
-    description = (f"train_step{' rank 0 of' if per_rank else ''} n={n} pods={pods} "
+    description = (f"train_step{' rank 0 of' if per_rank else ''} n={n}"
+                   f"{f' m={model_shards}' if model_shards > 1 else ''} pods={pods} "
                    f"B_l={B_l} agg={aggregator_mode}"
                    f"{'+pipelined' if pipelined else ''}"
                    f"{'+msharded' if chain_model_sharded else ''}"

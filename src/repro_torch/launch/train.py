@@ -11,22 +11,32 @@ Examples:
   # on the CPU
   ... --device cpu
 
-  # one learner a process: W ranks, a card each (nccl), or on the CPU (gloo)
-  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
-      --arch internlm2-1.8b --smoke --steps 50 --model-shards 1
+  # across processes: W ranks, a card each (nccl), or on the CPU (gloo);
+  # the reference's default layout, 4 learners x 2 model shards
+  python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.train \
+      --arch internlm2-1.8b --smoke --steps 50 --learners 4 --model-shards 2
+  ... --model-shards 1              # one learner a rank
   ... --device cpu                  # gloo
 
 On one process the learners are dim 0 of one device, so the model axis is
 1: ``--model-shards`` is accepted, so the reference's command lines run,
 and does nothing. Under ``torch.distributed.run`` (``RANK`` and
-``WORLD_SIZE`` in the environment) each rank is one learner, as in the
-reference: ``--learners`` is the world size (given, it must equal it) and
-``--model-shards`` must be 1 (the model axis across ranks is a later
-slice). Each rank makes only its own learner's batches, steps with the
-per-rank train step (ZeRO-1: it holds its slice of the master vector and
-moments) or FedAvg round, and prints the same lines with its rank; rank 0
-writes the checkpoint, its slices gathered from every rank into the
-one-process format, and a resume gives each rank its slice back. Every aggregation round takes fresh counter space from
+``WORLD_SIZE`` in the environment) the ranks form the reference's
+('data', 'model') grid: ``WORLD_SIZE`` must be learners · m (m =
+``--model-shards``, the reference's default 2) and is refused otherwise;
+the learners are ``WORLD_SIZE / m`` (``--learners``, given, must say so),
+and rank l·m + j is learner l's model shard j. With m = 1 each rank is
+one learner. With m > 1 each learner's model is split over its m ranks
+by Megatron tensor parallelism (``Model(cfg, tp_world=...)``; the dense
+configurations: a MoE, Mamba2, RWKV6 or zamba2 raises) and SAFE runs one
+ring per model shard over its chunk of the gradient (the reference's
+``chain_model_sharded``). Each rank makes only its own learner's
+batches, steps with the per-rank train step (ZeRO-1: it holds its part
+of the master vector and moments) or FedAvg round, and prints the same
+lines with its rank; rank 0 writes the checkpoint, its parts gathered
+from every rank into the one-process format (full leaves, whole
+vectors), and a resume gives each rank its part back, so a checkpoint
+restores across m = 2 and one process. Every aggregation round takes fresh counter space from
 ``SecureAggregator.reserve_round``, given the round's words:
 ``padded_size + 2`` a train step and ``P + 1`` a weighted FedAvg round
 (half as many Threefry counters: each counter pads two words), where the
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Optional, Sequence
 
@@ -68,8 +79,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--learners", type=int, default=None,
                     help="learners (default 4; the world size under torch.distributed.run)")
     ap.add_argument("--model-shards", type=int, default=2,
-                    help="accepted for the reference's command lines; one process has "
-                         "no model axis, and across ranks it must be 1")
+                    help="model ranks a learner under torch.distributed.run (WORLD_SIZE = "
+                         "learners x model shards); accepted and unused in one process")
     ap.add_argument("--aggregator", default="safe",
                     choices=["safe", "saf", "insec", "bon"])
     ap.add_argument("--pipelined", action="store_true")
@@ -89,8 +100,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def _distributed() -> bool:
-    """True under torch.distributed.run (one learner a rank)."""
-    import os
+    """True under torch.distributed.run (a rank a learner's model shard)."""
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
@@ -109,21 +119,24 @@ def run(args: argparse.Namespace) -> dict:
     from repro_torch.train import (MetricsLogger, make_federated_round,
                                    make_train_step, tree_size)
 
-    world = None
+    world = grid = tp = None
     if _distributed():
-        from repro_torch.dist import init_world
-        world = init_world(device=args.device)
-        if args.learners not in (None, world.size):
-            raise SystemExit(f"--learners {args.learners}: under torch.distributed.run the "
-                             f"learners are the {world.size} ranks")
-        if args.model_shards != 1:
-            raise SystemExit(f"--model-shards {args.model_shards}: across ranks the model "
-                             "axis must be 1 (pass --model-shards 1)")
+        from repro_torch.dist import grid_worlds, init_world
+        m = args.model_shards
+        size = int(os.environ["WORLD_SIZE"])
+        if m < 1 or size % m or args.learners not in (None, size // m):
+            raise SystemExit(
+                f"WORLD_SIZE {size} with --model-shards {m}"
+                + (f" and --learners {args.learners}" if args.learners else "")
+                + ": under torch.distributed.run WORLD_SIZE must be learners x model shards")
+        grid = init_world(device=args.device)
+        world, tp = grid_worlds(grid, m)
         args.learners = world.size
-        dev = world.device
+        dev = grid.device
         print(f"repro_torch.launch.train: {args.arch}{' (smoke)' if args.smoke else ''}; "
-              f"rank {world.rank} of {world.describe()}; learner {world.rank} on {dev}",
-              flush=True)
+              f"rank {grid.rank} of {grid.describe()}; learner {world.rank} of "
+              f"{world.size} (WORLD_SIZE {size} / {m} model shards), model shard "
+              f"{0 if tp is None else tp.rank} of {m}, on {dev}", flush=True)
     else:
         args.learners = 4 if args.learners is None else args.learners
         dev = torch.device(args.device)
@@ -136,14 +149,16 @@ def run(args: argparse.Namespace) -> dict:
     if cfg.uses_moe and cfg.ep_axis is None and not args.federated:
         cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=args.learners)
     ep_world = world if cfg.ep_axis is not None else None  # a rank holds its E/n experts
-    model = Model(cfg, device=dev, ep_world=ep_world,
+    cuda = dev.type == "cuda"
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    model = Model(cfg, device=dev, ep_world=ep_world, tp_world=tp,
                   generator=torch.Generator(device=dev).manual_seed(args.seed))
     agg = make_aggregator(args.aggregator, args.learners, axis="data",
                           pipelined=args.pipelined, subgroups=args.subgroups,
                           weighted=args.federated, device=dev)
     stream = make_federated_batches(cfg, args.learners, args.batch_per_learner,
                                     args.seq_len, seed=args.seed)
-    lead = world is None or world.rank == 0  # logs the metrics, writes checkpoints
+    lead = grid is None or grid.rank == 0  # logs the metrics, writes checkpoints
     log = MetricsLogger((args.metrics or None) if lead else None)
     log_step = log.log if lead else (lambda step, **metrics: None)
     dead = {int(x) for x in args.fail_learners.split(",") if x}
@@ -170,8 +185,11 @@ def run(args: argparse.Namespace) -> dict:
             bundle = make_federated_round(model, agg, world, local_steps=args.local_steps,
                                           local_lr=args.lr)
             params = model.tree()
-            words = tree_size(params) + 1  # the words a weighted round pads
+            # the words a weighted round pads
+            words = (bundle.padded_size or tree_size(params)) + 1
             mine = range(args.learners) if world is None else [world.rank]
+            if cuda:  # the rounds' peak, after the set-up's
+                torch.cuda.reset_peak_memory_stats(dev)
             for r in range(args.steps):
                 toks = np.stack([
                     np.stack([stream.learner_batch(l, r * args.local_steps + k)
@@ -192,12 +210,14 @@ def run(args: argparse.Namespace) -> dict:
             start = 0
             if args.ckpt_dir and (s := latest_step(args.ckpt_dir)) is not None:
                 state, extra = _restore(args.ckpt_dir, s, state, bundle, world,
-                                        model.ep_world)
+                                        model.ep_world, grid, model)
                 start = int(extra.get("step", s))
                 # continue the counters of the run that wrote the checkpoint
                 agg.reserve_counters(int(extra.get("counter",
                                                    start * agg.round_counters(words))))
                 print(f"resumed from step {start}", flush=True)
+            if cuda:  # the steps' peak, after the set-up's
+                torch.cuda.reset_peak_memory_stats(dev)
             for step in range(start, args.steps):
                 toks = (stream.global_batch(step)["tokens"] if world is None
                         else stream.learner_batch(world.rank, step)["tokens"])
@@ -208,7 +228,7 @@ def run(args: argparse.Namespace) -> dict:
                 log_step(step, loss=losses[-1], grad_scale=float(m["grad_scale"]))
                 if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
                     _save(args.ckpt_dir, step + 1, state, bundle, world, model.ep_world,
-                          extra={"step": step + 1,
+                          grid, model, extra={"step": step + 1,
                                  "counter": counters[-1] + agg.round_counters(words)})
             params = state["params"]
     finally:
@@ -216,8 +236,10 @@ def run(args: argparse.Namespace) -> dict:
         if world is not None:
             from repro_torch.dist import close_world
             close_world()
-    peak = (f"; peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
-            if dev.type == "cuda" else "")
+    # the steps' (or rounds') peak above what the process held before the
+    # model: what the dry run's --per-rank record sizes
+    peak = (f"; peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, the steps' "
+            f"peak {(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.3f} GB" if cuda else "")
     print(f"done in {time.time() - t0:.1f}s{peak}", flush=True)
     return {"losses": losses, "counters": counters, "params": params, "state": state}
 
@@ -225,13 +247,13 @@ def run(args: argparse.Namespace) -> dict:
 _SLICED = ("master", "fm", "fv")  # the ZeRO-1 state a rank holds a slice of
 
 
-def _save(directory: str, step: int, state: dict, bundle, world, ep_world,
+def _save(directory: str, step: int, state: dict, bundle, world, ep_world, grid, model,
           extra: dict) -> None:
     """One process writes its state. Across ranks, rank 0 gathers the
-    slices and (with ``ep_world``) the expert shards and their moments
-    into host memory, a rank's at a time, and writes the one-process state
-    (the reference's format and full-E layout); the others wait until it
-    has."""
+    slices, (with ``ep_world``) the expert shards and their moments, and
+    (with model shards) the leaves' shards into host memory, a rank's at a
+    time, and writes the one-process state (the reference's format and
+    full-E layout); the others wait until it has."""
     from repro_torch.ckpt import save_checkpoint
     if world is None:
         save_checkpoint(directory, step, state, extra=extra)
@@ -239,6 +261,15 @@ def _save(directory: str, step: int, state: dict, bundle, world, ep_world,
     import torch.distributed as dist
 
     from repro_torch.dist import collectives
+    if model.tp_world is not None:
+        from repro_torch.ckpt.checkpoint import gather_tp_state
+        full = gather_tp_state(state, model.shard_layout(), bundle.sec_size, world,
+                               model.tp_world, grid)
+        if grid.rank == 0:
+            save_checkpoint(directory, step, full, extra=extra)
+        del full
+        dist.barrier()
+        return
     from repro_torch.train.flatten import is_expert_path, leaves_with_paths, tree_unflatten
     full = dict(state)
     if not bundle.leafwise:
@@ -254,11 +285,19 @@ def _save(directory: str, step: int, state: dict, bundle, world, ep_world,
     dist.barrier()
 
 
-def _restore(directory: str, step: int, state: dict, bundle, world, ep_world) -> tuple:
+def _restore(directory: str, step: int, state: dict, bundle, world, ep_world, grid,
+             model) -> tuple:
     """Restore a checkpoint; across ranks each rank reads the one-process
-    state into host memory and moves its slices (and its experts) to its
-    device."""
+    state into host memory and moves its slices (its experts, its shards)
+    to its device."""
     from repro_torch.ckpt import restore_checkpoint
+    if model.tp_world is not None:
+        from repro_torch.ckpt.checkpoint import shard_tp_state, tp_skeleton
+        layout = model.shard_layout()
+        full, extra = restore_checkpoint(directory, step, tp_skeleton(
+            state, layout, bundle.sec_size, world.size))
+        return shard_tp_state(full, state, layout, bundle.sec_size, bundle.padded_size,
+                              world, model.tp_world), extra
     if world is None or (bundle.leafwise and ep_world is None):
         return restore_checkpoint(directory, step, state)
     import torch

@@ -23,6 +23,18 @@ pageable value makes the host wait for the card's queue to drain. Above
 blockwise online softmax (``_flash_attention``), loops over q and k
 blocks in its order.
 
+Tensor parallelism (``tp``, the model group's ``World``; the reference's
+GSPMD over its 'model' axis, Megatron's layout): each rank holds its
+shards (``models/sharding.py``). Attention takes the replicated input
+through ``copy_to_model``, projects to its whole q heads and the kv heads
+they read (wq/wk/wv column-parallel; fewer kv heads than ranks are
+replicated and each rank takes the one its q heads share), runs qk-norm
+(its scales through ``copy_to_model``, since each rank normalizes only
+its heads), RoPE, the masks, the softcap and flash or dense attention on
+them, and wo row-parallel behind ``reduce_from_model``; the MLP splits ff
+the same way. Norms stay replicated. The train path only: serving over a
+model axis is a later slice.
+
 The decode cache follows the reference's dtypes, which a plain port
 would not: ``attention_init_cache`` makes bf16 k and v whatever the
 model's dtype, a prefill writes its k and v cast to the cache's dtype,
@@ -40,6 +52,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.dist.collectives import copy_to_model, reduce_from_model
 
 FLASH_THRESHOLD = 4096  # dense attention above this many tokens would not fit
 FLASH_QBLOCK = 2048
@@ -200,27 +214,48 @@ def attention_apply(
     kind: str = "global",
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
+    tp=None,
 ) -> tuple:
     """GQA attention. x: [B, S, D].
 
     Train and prefill: S tokens, attended among themselves; a given cache
     (assumed empty) is filled with the last S_c of them. Decode: S == 1
     against ``cache`` = {"k", "v": [B, S_c, nkv, hd], "pos": int32[B]}.
-    Returns (y, new_cache), new_cache None without a cache."""
+    ``tp``: the model group's World (this rank's heads; see the module
+    docstring). Returns (y, new_cache), new_cache None without a cache."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
-    groups = nh // nkv
     base_kind = _base_kind(kind)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
 
+    wk, wv = params["wk"].to(x.dtype), params["wv"].to(x.dtype)
+    q_norm, k_norm = params.get("q_norm"), params.get("k_norm")
+    if tp is not None and tp.size > 1:
+        if cache is not None:
+            raise ValueError("serving over a model axis is a later slice: decode and "
+                             "prefill run on an unsplit model")
+        m = tp.size
+        x = copy_to_model(x, tp)
+        nh //= m
+        if nkv % m:  # fewer kv heads than ranks: replicated, one used here
+            kv = tp.rank * nkv // m
+            wk = copy_to_model(wk, tp)[:, kv * hd:(kv + 1) * hd]
+            wv = copy_to_model(wv, tp)[:, kv * hd:(kv + 1) * hd]
+            nkv = 1
+        else:
+            nkv //= m
+        if cfg.qk_norm:
+            q_norm, k_norm = copy_to_model(q_norm, tp), copy_to_model(k_norm, tp)
+    groups = nh // nkv
+
     q = (x @ params["wq"].to(x.dtype)).reshape(B, S, nh, hd)
-    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, nkv, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, nkv, hd)
+    k = (x @ wk).reshape(B, S, nkv, hd)
+    v = (x @ wv).reshape(B, S, nkv, hd)
     if cfg.qk_norm:
-        q = rmsnorm_head(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm_head(params["k_norm"], k, cfg.norm_eps)
+        q = rmsnorm_head(q_norm, q, cfg.norm_eps)
+        k = rmsnorm_head(k_norm, k, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -272,7 +307,7 @@ def attention_apply(
     else:
         out = _dense_attention(qg, k_all, v_all, q_pos, k_pos, valid, cfg, base_kind)
     y = out.reshape(B, S, nh * hd) @ params["wo"].to(x.dtype)
-    return y, new_cache
+    return reduce_from_model(y, tp), new_cache
 
 
 def attention_init_cache(cfg, kind: str, batch: int, seq_len: int,
@@ -307,7 +342,10 @@ def mlp_init(generator: torch.Generator, d: int, ff: int, device) -> dict:
     }
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU; with ``tp`` (the model group's World) wi/wg column-parallel
+    over ff and wo row-parallel."""
+    x = copy_to_model(x, tp)
     h = (x @ params["wi"].to(x.dtype)) * torch.nn.functional.silu(
         x @ params["wg"].to(x.dtype))
-    return h @ params["wo"].to(x.dtype)
+    return reduce_from_model(h @ params["wo"].to(x.dtype), tp)

@@ -22,11 +22,30 @@ gives a device's shard.
 On one card the learner axis is dim 0 of a learner-major tensor and none
 of this applies; the dry run (``launch/dryrun.py``) reads these specs for
 the pod meshes.
+
+Tensor parallelism across ranks (``Model(cfg, tp_world=...)``): model rank
+j of m holds ``shard_leaf`` of each leaf, slice j of m along the dim
+``tp_dim`` names, which is where ``_spec_for`` puts 'model' after
+``sanitize_spec``: a dim that m does not divide stays replicated, as
+the reference's (internvl2's vocabulary of 151,655 at m = 2). Attention
+is split on whole heads only. The q heads and wo split when m divides
+them. The kv heads split when m divides them, and stay replicated when
+they divide m (fewer kv heads than ranks: each rank's q heads then share
+one kv head, ``j·n_kv/m``). Any other split would cut a head in two and
+raises ``ValueError``. The reference's ``sanitize_spec`` looks only at the
+column count there, so GSPMD cuts a head (14 q heads of 64 at m = 4:
+896 columns divide by 4) and reshards around it
+(``tests/test_torch_dist_tp.py``). Only the dense blocks split (the
+attention kinds and the MLP); ``check_tp`` refuses the others.
 """
 from __future__ import annotations
 
+from typing import Any, Optional
+
+import torch
+
 from repro_torch.models.config import ModelConfig
-from repro_torch.train.flatten import tree_map_with_path
+from repro_torch.train.flatten import leaves_with_paths, tree_map_with_path
 
 _COL = {"wq", "wk", "wv", "wi", "wg", "w_proj", "in_proj",
         "wr", "shared_wi", "shared_wg"}
@@ -101,3 +120,77 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(Shard(where[a]) if a in where else Replicate()
                  for a in mesh.mesh_dim_names)
 
+
+
+_ATTN = {"wq", "wk", "wv", "wo"}
+DENSE_KINDS = ("global", "local", "chunked")
+
+
+def check_tp(cfg: ModelConfig, m: int) -> None:
+    """Raise unless ``cfg`` splits over ``m`` model ranks: dense blocks only
+    (the attention kinds with their MLP), and whole heads."""
+    if m == 1:
+        return
+    other = sorted({k for k in cfg.pattern if k not in DENSE_KINDS})
+    if cfg.moe is not None or other:
+        raise ValueError(
+            f"{cfg.arch_id}: the 'model' axis across ranks covers the dense blocks; "
+            f"{', '.join(other) or 'moe'} over {m} model shards (MoE expert-ff, Mamba2, "
+            "RWKV6 and zamba2's shared block) is the next slice. Pass --model-shards 1.")
+    _heads(cfg, "wq", m)
+    _heads(cfg, "wk", m)
+
+
+def _heads(cfg: ModelConfig, name: str, m: int) -> bool:
+    """Whether attention leaf ``name`` splits over ``m`` ranks (False: kv
+    replicated), or ``ValueError`` where a split would cut a head."""
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    if name in ("wq", "wo"):
+        if nh % m:
+            raise ValueError(f"{cfg.arch_id}: {nh} q heads over {m} model shards would cut a "
+                             f"head in two (the reference's GSPMD splits the {nh}·"
+                             f"{cfg.resolved_head_dim} columns and reshards); pick m dividing "
+                             f"{nh}")
+        return True
+    if nkv % m == 0:
+        return True
+    if m % nkv == 0:
+        return False  # fewer kv heads than ranks: replicated, each rank uses one
+    raise ValueError(f"{cfg.arch_id}: {nkv} kv heads over {m} model shards would cut a head "
+                     "in two; pick m dividing them or divisible by them")
+
+
+def tp_dim(path: str, leaf, cfg: ModelConfig, m: int) -> Optional[int]:
+    """The dim of ``leaf`` (a leaf of the full tree, stacked or one unit's)
+    split over ``m`` model ranks, or None for a replicated leaf."""
+    if m == 1:
+        return None
+    name = path.rsplit("/", 1)[-1]
+    if "attn/" in path and name in _ATTN and not _heads(cfg, name, m):
+        return None
+    spec = sanitize_spec(_spec_for(path, leaf, cfg), tuple(leaf.shape), {"model": m})
+    dims = [d for d, part in enumerate(spec)
+            if part is not None and "model" in _names(part)]
+    return dims[0] if dims else None
+
+
+def shard_leaf(path: str, leaf, cfg: ModelConfig, j: int, m: int):
+    """Model rank ``j``'s slice of ``leaf`` (its own memory), or the leaf
+    itself where it is replicated."""
+    d = tp_dim(path, leaf, cfg, m)
+    if d is None:
+        return leaf
+    k = leaf.shape[d] // m
+    return leaf.narrow(d, j * k, k).clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(params: Any, cfg: ModelConfig, j: int, m: int) -> Any:
+    """Model rank ``j``'s shards of a full parameter tree (``Model.tree()``'s
+    structure)."""
+    check_tp(cfg, m)
+    return tree_map_with_path(lambda path, x: shard_leaf(path, x, cfg, j, m), params)
+
+
+def tree_dims(params: Any, cfg: ModelConfig, m: int) -> list:
+    """``tp_dim`` of each leaf of a full tree, in the flat order."""
+    return [tp_dim(path, x, cfg, m) for path, x in leaves_with_paths(params)]

@@ -48,7 +48,8 @@ from repro_torch.models.layers import (attention_apply, attention_init,
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (mamba2_apply, mamba2_init, mamba2_init_cache, rwkv6_apply,
                                     rwkv6_init, rwkv6_init_cache)
-from repro_torch.train.flatten import tree_map
+from repro_torch.dist.collectives import copy_to_model, gather_from_model, reduce_from_model
+from repro_torch.train.flatten import shard_layout, tree_map, tree_map_with_path
 
 
 def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device,
@@ -70,18 +71,20 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device,
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, cache: Optional[dict] = None,
-                ep_world=None) -> tuple:
+                ep_world=None, tp_world=None) -> tuple:
     """Pre-norm residual block. Returns (x, new_cache, aux loss): new_cache
     None without a cache, aux None for a block without MoE (the reference
     adds a zero). ``ep_world``: the learners' World of expert parallelism
-    across ranks (``models/moe.py``)."""
+    across ranks (``models/moe.py``); ``tp_world``: the model group's
+    World of tensor parallelism (``models/layers.py``)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba2":
         mix, new_cache = mamba2_apply(params["mamba"], h, cfg, cache)
     elif kind == "rwkv6":
         mix, new_cache = rwkv6_apply(params["rwkv"], h, cfg, cache)
     else:
-        mix, new_cache = attention_apply(params["attn"], h, cfg, kind, positions, cache)
+        mix, new_cache = attention_apply(params["attn"], h, cfg, kind, positions, cache,
+                                         tp=tp_world)
     x = x + mix
     if "moe" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -90,7 +93,7 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         return x + ff, new_cache, aux
     if "mlp" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-        return x + mlp_apply(params["mlp"], h), new_cache, None
+        return x + mlp_apply(params["mlp"], h, tp=tp_world), new_cache, None
     return x, new_cache, None  # a recurrent block without channel-mix (zamba2): x + 0
 
 
@@ -140,12 +143,36 @@ class Model(nn.Module):
     it from the same generator (``models/moe.py::expert_init`` draws the
     experts one at a time and keeps the rank's), and its MoE blocks
     exchange tokens over the World.
+
+    ``tp_world``: the model group's ``World`` of tensor parallelism (rank j
+    of m; the reference's 'model' axis). The model then holds model rank
+    j's shards of every leaf (``models/sharding.py::shard_leaf``): each
+    full leaf is drawn from the generator in the one-card order, a unit at
+    a time, and only its slice kept, so the shards are slices of the model
+    built without it from the same generator. ``tp_dims`` lists each
+    leaf's split dim in the flat order (None: replicated). The embedding
+    is vocab-parallel (ids outside the shard read zeros, then
+    ``reduce_from_model``: one non-zero among zeros, so the embeddings are
+    the one-card ones word for word) and the logits column-parallel over
+    the vocabulary, gathered before the loss. Dense configurations only
+    (``sharding.check_tp``); the train path only.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 generator: Optional[torch.Generator] = None, ep_world=None):
+                 generator: Optional[torch.Generator] = None, ep_world=None, tp_world=None):
         super().__init__()
         self.cfg = cfg
+        self.tp_world = tp_world if tp_world is not None and tp_world.size > 1 else None
+        self.tp_dims = None
+        shard = (lambda path, t: t)  # noqa: E731
+        if self.tp_world is not None:
+            from repro_torch.models.sharding import check_tp, shard_leaf, tree_dims
+            m, j = self.tp_world.size, self.tp_world.rank
+            check_tp(cfg, m)
+            self.tp_dims = tree_dims(Model(cfg, device="meta").tree(), cfg, m)
+
+            def shard(path, t):
+                return shard_leaf(path, t, cfg, j, m)
         rows = None
         if ep_world is not None and ep_world.size > 1 and cfg.moe is not None:
             if cfg.ep_axis is None:
@@ -160,11 +187,12 @@ class Model(nn.Module):
             generator = torch.Generator(device=device).manual_seed(0)
         embed_shape = ((cfg.num_codebooks, cfg.vocab, cfg.d_model)
                        if cfg.num_codebooks > 1 else (cfg.vocab, cfg.d_model))
-        tree = {"embed": torch.randn(embed_shape, generator=generator, device=device) * 0.02,
+        tree = {"embed": shard("embed", torch.randn(embed_shape, generator=generator,
+                                                    device=device) * 0.02),
                 "final_norm": rmsnorm_init(cfg.d_model, device)}
         if not cfg.tie_embeddings:
-            tree["lm_head"] = torch.randn(embed_shape, generator=generator,
-                                          device=device) * 0.02
+            tree["lm_head"] = shard("lm_head", torch.randn(embed_shape, generator=generator,
+                                                           device=device) * 0.02)
         blocks, shared = [], None
         for kind in cfg.pattern:
             if kind == "shared_attn":
@@ -174,7 +202,9 @@ class Model(nn.Module):
                 blocks.append({"_shared": torch.zeros(cfg.n_units, dtype=torch.float32,
                                                       device=device)})
                 continue
-            blocks.append(_stack([block_init(generator, cfg, kind, device, rows)
+            # a unit at a time, each full leaf cut to this rank's shard
+            blocks.append(_stack([tree_map_with_path(shard, block_init(generator, cfg, kind,
+                                                                        device, rows))
                                   for _ in range(cfg.n_units)]))
         if shared is not None:
             tree["shared_attn"] = shared
@@ -205,6 +235,12 @@ class Model(nn.Module):
             out["shared_attn"] = plain(self.shared_attn)
         return out
 
+    def shard_layout(self) -> list:
+        """Where each leaf of this rank's tree sits in the full tree's flat
+        vector (``train/flatten.py::shard_layout``); with ``tp_world``
+        only."""
+        return shard_layout(self.tree(), self.tp_dims, self.tp_world.rank, self.tp_world.size)
+
     def forward(self, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None):
         return self.apply(self.tree(), tokens, prefix_embeds)
 
@@ -228,10 +264,11 @@ class Model(nn.Module):
             for pos, kind in enumerate(cfg.pattern):
                 bp = params["shared_attn"] if kind == "shared_attn" else units[pos][u]
                 if cfg.remat:
-                    x, a = checkpoint(_block_fn(cfg, kind, self.ep_world), x, positions, bp,
-                                      use_reentrant=False)
+                    x, a = checkpoint(_block_fn(cfg, kind, self.ep_world, self.tp_world), x,
+                                      positions, bp, use_reentrant=False)
                 else:
-                    x, _, a = block_apply(bp, x, cfg, kind, positions, ep_world=self.ep_world)
+                    x, _, a = block_apply(bp, x, cfg, kind, positions, ep_world=self.ep_world,
+                                          tp_world=self.tp_world)
                 if a is not None:
                     aux = aux + a
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -288,6 +325,9 @@ class Model(nn.Module):
         leaf written in place is the caller's tensor, changed. Returns
         (last position's logits, new cache)."""
         cfg = self.cfg
+        if self.tp_world is not None:
+            raise ValueError("serving over a model axis is a later slice: prefill and "
+                             "decode_step run on a model built without tp_world")
         units = [None if kind == "shared_attn" else _unbind(b, cfg.n_units)
                  for kind, b in zip(cfg.pattern, params["blocks"])]
         slices = [{k: [v[u] for u in range(cfg.n_units)] for k, v in c.items()}
@@ -311,7 +351,13 @@ class Model(nn.Module):
         emb = params["embed"].to(torch.bfloat16 if cfg.dtype == "bfloat16"
                                  else torch.float32)
         tokens = tokens.long()
-        if cfg.num_codebooks > 1:
+        if self.tp_world is not None and emb.shape[-2] != cfg.vocab:  # vocab-parallel
+            x = reduce_from_model(self._embed_shard(emb, tokens), self.tp_world)
+            if cfg.num_codebooks > 1:  # the codebooks summed in the one-card order
+                parts, x = x, torch.zeros_like(x[0])
+                for part in parts:
+                    x = x + part
+        elif cfg.num_codebooks > 1:
             # musicgen: sum the per-codebook embeddings; a token row without
             # its codebook axis (the serving engine's [B, 1]) reads its last
             # column for every codebook, as JAX clamps a static index
@@ -325,14 +371,34 @@ class Model(nn.Module):
         # does, on the host (a value made on the card would stall the host)
         return x * float(torch.tensor(float(cfg.d_model), dtype=x.dtype) ** 0.5)
 
+    def _embed_shard(self, emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the embeddings ([B, S, d], or [nc, B, S, d] a
+        codebook each): a token outside the rank's vocabulary shard reads
+        zeros."""
+        V = emb.shape[-2]
+        local = tokens - self.tp_world.rank * V
+        inside = ((local >= 0) & (local < V))[..., None]
+        local = local.clamp(0, V - 1)
+        if self.cfg.num_codebooks == 1:
+            return torch.where(inside, emb[local], 0)
+        last = tokens.shape[-1] - 1
+        return torch.stack([torch.where(inside[..., min(c, last), :],
+                                        emb[c][local[..., min(c, last)]], 0)
+                            for c in range(self.cfg.num_codebooks)])
+
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         head = head.to(x.dtype)
+        split = self.tp_world is not None and head.shape[-2] != cfg.vocab
+        if split:  # column-parallel over the vocabulary, gathered for the loss
+            x = copy_to_model(x, self.tp_world)
         if cfg.num_codebooks > 1:
             logits = torch.einsum("bsd,cvd->bscv", x, head)
         else:
             logits = torch.einsum("bsd,vd->bsv", x, head)
+        if split:
+            logits = gather_from_model(logits, self.tp_world, dim=-1)
         logits = logits.float()
         if cfg.logit_softcap is not None:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -356,8 +422,9 @@ def _clamp_vocab(tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return tokens.clamp_max(cfg.vocab - 1)
 
 
-def _block_fn(cfg: ModelConfig, kind: str, ep_world=None):
+def _block_fn(cfg: ModelConfig, kind: str, ep_world=None, tp_world=None):
     def fn(x, positions, bp):
-        x, _, aux = block_apply(bp, x, cfg, kind, positions, ep_world=ep_world)
+        x, _, aux = block_apply(bp, x, cfg, kind, positions, ep_world=ep_world,
+                                tp_world=tp_world)
         return x, aux
     return fn

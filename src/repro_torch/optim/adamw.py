@@ -48,25 +48,28 @@ class AdamW:
                                                device=p.device), params)
         return AdamState(0, zeros, tree_map(torch.clone, zeros))
 
-    def update(self, grads, state: AdamState, params):
+    def update(self, grads, state: AdamState, params, gnorm=None):
         """One step: returns (new_params, new_state); the inputs are not
         modified. ``grads`` and ``params`` are trees of one structure.
         ``update_`` on copies of the moments and parameters."""
         return self.update_(grads, AdamState(state.step, copied(state.m), copied(state.v)),
-                            copied(params))
+                            copied(params), gnorm)
 
     @torch.no_grad()
-    def update_(self, grads, state: AdamState, params):
+    def update_(self, grads, state: AdamState, params, gnorm=None):
         """One step in place: the new moments and parameters are written into
         ``state.m``, ``state.v`` and ``params`` (contiguous tensors), leaf by
         leaf and ``_CHUNK`` words at a time, so the temporaries are a
         chunk's, not a tree's (the update is elementwise). Returns (params,
-        new state)."""
+        new state). ``gnorm``: the norm the clip reads, where the tree
+        holds only part of the gradient (a model rank's shards; the caller
+        gives the norm over every rank's), else the tree's own."""
         step = state.step + 1
         scale = None
         if self.grad_clip is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in leaves(grads)))
+            if gnorm is None:
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                       for g in leaves(grads)))
             scale = torch.clamp_max(self.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
         b1, b2 = self.b1, self.b2
         # bias corrections in f32 on the host, as the reference computes

@@ -24,6 +24,11 @@ Two runtimes consume the same local update (``make_local_update``):
   The callables run the local steps on the model's device and hand the
   delta back as f32[P] numpy, so ``repro_torch.net`` stays numpy-only.
 
+With model shards (a model built with ``tp_world``, the model group of a
+('data', 'model') grid) the local steps run tensor-parallel, their clip
+reading the norm over every rank's shards, and the delta's chunk goes
+through the sharded round (``_tp_round``).
+
 The two share the local update and one fixed-point and PRF substrate, so
 a wire round's published delta is bit-identical to ``round_fn``'s for the
 same counter, weights and alive bitmap (``tests/test_torch_federated.py``).
@@ -40,8 +45,9 @@ from repro_torch.core.aggregators import SecureAggregator
 from repro_torch.dist import collectives
 from repro_torch.dist.world import pod_world_of, rank_world
 from repro_torch.optim.adamw import AdamW
-from repro_torch.train.flatten import leaves, tree_map, tree_size, tree_unflatten
+from repro_torch.train.flatten import leaves, tree_map, tree_size, tree_unflatten, write_chunk
 from repro_torch.train.loss import next_token_loss, param_grads
+from repro_torch.train.train_step import tp_norm, tp_padded_size
 
 if TYPE_CHECKING:  # the model package imports this package's flatten
     from repro_torch.models.transformer import Model
@@ -59,6 +65,7 @@ class FederatedBundle:
     round_fn: Any
     init_state_fn: Any
     deltas_fn: Any
+    padded_size: Optional[int] = None  # with model shards: the words a round pads, less the weight
 
 
 def make_local_update(
@@ -77,6 +84,7 @@ def make_local_update(
     """
     cfg = model.cfg
     local_opt = AdamW(lr=local_lr, weight_decay=0.0, grad_clip=1.0)
+    tp = model.tp_world
 
     def local_update(params, tokens, out=None):
         if tokens.shape[0] != local_steps:
@@ -92,7 +100,8 @@ def make_local_update(
                 loss = next_token_loss(logits, batch, cfg.prefix_embeds) + aux
                 grads = param_grads(loss, leaves(p))
             del logits
-            p, state = local_opt.update(tree_unflatten(p, grads), state, p)
+            gnorm = None if tp is None else tp_norm(grads, model.tp_dims, tp)
+            p, state = local_opt.update(tree_unflatten(p, grads), state, p, gnorm)
             del grads
             p = tree_map(lambda t: t.requires_grad_(True), p)
             losses.append(loss.detach())
@@ -180,6 +189,11 @@ def make_federated_round(
     local_update = make_local_update(model, local_steps=local_steps,
                                      local_lr=local_lr)
     world = rank_world(mesh, learner_axis)
+    if model.tp_world is not None:
+        if world is None or pod_axis is not None:
+            raise ValueError(f"{model.cfg.arch_id}: a model split over model ranks runs one "
+                             "learner a ring rank (grid_worlds), without pods")
+        return _tp_round(model, aggregator, world, local_update, return_delta)
     if world is not None:
         pod_world = None if pod_axis is None else pod_world_of(mesh, pod_axis)
         return _rank_round(aggregator, world, pod_world, local_update, return_delta)
@@ -249,6 +263,66 @@ def _rank_round(aggregator: SecureAggregator, world, pod_world, local_update: Ca
         return out_params, metrics
 
     return FederatedBundle(round_fn=round_fn, init_state_fn=lambda p: p, deltas_fn=None)
+
+
+def _tp_round(model: Model, aggregator: SecureAggregator, world, local_update: Callable,
+              return_delta: bool) -> FederatedBundle:
+    """``make_federated_round`` on ('data', 'model'): learner ``world.rank``'s
+    model shard ``tp.rank``. The local steps run tensor-parallel; the
+    delta's chunk j of the full flat vector, padded to a multiple of 2·n·m
+    (``train_step.tp_padded_size``), is assembled from the group's shards
+    and goes through ring j's round (the weight word with the last chunk);
+    the published chunks are all-gathered over the group and each rank adds
+    its shards' words, as ``apply_delta`` adds the whole vector. The round
+    reserves ``padded_size + 1`` words."""
+    n = aggregator.cfg.num_learners
+    aggregator.check_world(world)
+    tp = model.tp_world
+    m, j = tp.size, tp.rank
+    layout = model.shard_layout()
+    size = sum(sh.numel for sh in layout)
+    padded = tp_padded_size(size, n, m)
+    L = padded // m
+
+    def round_fn(params, tokens, weights=None, counter=0, alive=None):
+        dev = leaves(params)[0].device
+        w = None
+        if weights is not None:
+            w = torch.as_tensor(np.asarray(weights, np.float32)
+                                if not isinstance(weights, torch.Tensor) else weights)
+            w = w.reshape(-1)[world.rank if w.numel() == n else 0]
+        delta, loss = local_update(params, torch.as_tensor(tokens).to(dev))
+        chunk = torch.zeros(L, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            write_chunk(layout, _split(delta, params), tp, chunk, j * L)
+        del delta
+        avg = aggregator.aggregate_rank(chunk, int(counter), alive=alive, weights=w,
+                                        world=world, model_world=tp)
+        del chunk
+        full = collectives.all_gather(avg, tp, tiled=True)[:size]
+        del avg
+        with torch.no_grad():
+            out_params = tree_unflatten(params, [
+                (leaf.detach().float() + sh.of(full)).to(leaf.dtype)
+                for leaf, sh in zip(leaves(params), layout)])
+        metrics = {"local_loss": collectives.pmean(loss, world),
+                   "delta_norm": torch.sqrt(torch.sum(torch.square(full)))}
+        if return_delta:
+            metrics["avg_delta"] = full
+        return out_params, metrics
+
+    return FederatedBundle(round_fn=round_fn, init_state_fn=lambda p: p, deltas_fn=None,
+                           padded_size=padded)
+
+
+def _split(flat: torch.Tensor, params: Any) -> list:
+    """``flat`` (a tree's ``tree_to_flat`` layout) as views shaped as the
+    tree's leaves."""
+    out, off = [], 0
+    for leaf in leaves(params):
+        out.append(flat[off:off + leaf.numel()].view(leaf.shape))
+        off += leaf.numel()
+    return out
 
 
 @dataclasses.dataclass

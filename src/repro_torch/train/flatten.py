@@ -14,6 +14,14 @@ row-major. For the dense decoder that order is::
 (the stacked units inside each leaf). ``nn.Module.named_parameters()``
 gives another order; ``leaf_paths`` gives this one.
 
+A model split over m model ranks (tensor parallelism, ``Model(cfg,
+tp_world=...)``) holds shards of the leaves; ``shard_layout`` says which
+words of the full tree's flat vector each shard occupies (a leaf split on
+dim d is ``prod(shape[:d])`` runs of ``shape[d]/m · prod(shape[d+1:])``
+words), ``write_chunk`` assembles words [start, start + len) of the full
+tree's flat vector from the model group's shards, and ``LeafShard.of``
+cuts a shard out of a full flat vector.
+
 ``partition_tree``, ``combine_trees`` and ``is_expert_path`` split a tree
 by leaf path, as the reference's do: the expert-parallel train step keeps
 the per-expert matrices out of the SAFE partition. A leaf that is not
@@ -22,8 +30,9 @@ skips.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -150,3 +159,73 @@ def _rebuild(tree: Any, take) -> Any:
     if tree is None:
         return None
     return take(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """Where model rank ``rank`` of ``ranks``'s shard of one leaf sits in the
+    full tree's flat vector: the full leaf has ``shape`` and starts at word
+    ``offset``; the shard is slice ``rank`` along ``dim`` (None: the whole
+    leaf, replicated)."""
+
+    offset: int
+    shape: tuple
+    dim: Optional[int]
+    rank: int
+    ranks: int
+
+    @property
+    def numel(self) -> int:
+        """Words of the full leaf."""
+        return math.prod(self.shape)
+
+    def of(self, flat: torch.Tensor) -> torch.Tensor:
+        """The shard's words of the full flat vector ``flat``, shaped as the
+        shard (a strided view)."""
+        return self.cut(flat[self.offset:self.offset + self.numel].view(self.shape))
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """The shard of the full leaf ``full`` (a view)."""
+        if self.dim is None:
+            return full
+        k = self.shape[self.dim] // self.ranks
+        return full.narrow(self.dim, self.rank * k, k)
+
+    def words(self) -> torch.Tensor:
+        """int64 indices of the shard's words in the full flat vector, in the
+        shard's own row-major order."""
+        return self.of(torch.arange(self.offset + self.numel)).reshape(-1)
+
+
+def shard_layout(shards: Any, dims: list, rank: int, ranks: int) -> List[LeafShard]:
+    """The ``LeafShard`` of each leaf of model rank ``rank``'s shard tree, in
+    the flat order; ``dims`` gives each leaf's split dim (None where the
+    leaf is replicated), as ``Model.tp_dims`` does."""
+    out, off = [], 0
+    for leaf, d in zip(leaves(shards), dims):
+        shape = tuple(leaf.shape)
+        if d is not None:
+            shape = shape[:d] + (shape[d] * ranks,) + shape[d + 1:]
+        out.append(LeafShard(off, shape, d, rank, ranks))
+        off += math.prod(shape)
+    return out
+
+
+def write_chunk(layout: List[LeafShard], shard_leaves: list, model_world, out: torch.Tensor,
+                start: int) -> None:
+    """Words [start, start + len(out)) of the full tree's flat vector into
+    ``out`` (f32), assembled from the shards ``shard_leaves`` of every rank
+    of ``model_world`` (the model group, which must all call it with their
+    own shards): a split leaf is all-gathered over the group, one leaf at a
+    time, a replicated one is this rank's. Words past the tree are left as
+    they are."""
+    from repro_torch.dist import collectives
+    end = start + out.numel()
+    for sh, x in zip(layout, shard_leaves):
+        lo, hi = max(start, sh.offset), min(end, sh.offset + sh.numel)
+        if sh.dim is not None:  # every rank gathers, whether or not it keeps a word
+            x = torch.cat(collectives.all_gather(x.detach().contiguous(), model_world)
+                          .unbind(0), dim=sh.dim)
+        if lo < hi:
+            out[lo - start:hi - start].copy_(x.detach().reshape(-1)[lo - sh.offset:
+                                                                    hi - sh.offset])

@@ -58,11 +58,24 @@ publishes the mean over pods and the gathered vector and the loss are
 ``pmean``'d over the pods, as the reference's ``per_rank_step`` does; its
 parameters are the one-card pod step's word for word.
 
-Options that shard over a model axis have no meaning here: a ``mesh`` on
-a fake group (the dry run's), ``chain_model_sharded`` (the reference's
-per-model-shard chains, whose published mean is the same) and the
-reference's Megatron output anchors (``models/sharding.py``) change no
-arithmetic, so they are accepted and do nothing. The reference's buffer
+Model shards: a model built with ``tp_world`` (``Model(cfg,
+tp_world=model)``, the model group of a ('data', 'model') grid from
+``dist.grid_worlds`` or a mesh's ``model_world_of``) with ``mesh`` the
+learners' ring of the same grid runs the reference's step on ('data',
+'model') (``_tp_step``): rank l·m + j is learner l's model shard j. The
+forward and backward are tensor-parallel over the model group; the
+gradient's chunk j — words [j·L, (j + 1)·L) of the flat vector padded to
+a multiple of 2·n·m, L = padded_size / m — is assembled from the group's
+shards; ring j runs SAFE on it (``aggregate_rank(..., model_world=)``,
+the reference's ``chain_model_sharded``: one chain per model shard, and
+the published words those of one chain over the whole vector); ZeRO-1
+runs over all n·m ranks, rank (l, j) updating the l-th of the n parts of
+chunk j; the parts are all-gathered over the ring, then the chunks over
+the model group, and each rank cuts its shards from the whole vector.
+``chain_model_sharded`` says which of the two the reference compiles;
+both publish the same words, so here it is accepted and the model's
+``tp_world`` decides. A ``mesh`` on a fake group (the dry run's) and the
+reference's Megatron output anchors change no arithmetic. The reference's buffer
 donation becomes in-place updates: with ``donate`` the step writes the new
 master vector, moments and parameters into the state it is given, so the
 caller keeps only the returned state (whose tensors are those same ones).
@@ -77,11 +90,11 @@ import torch
 from repro_torch.core.aggregators import SecureAggregator
 from repro_torch.core.chain import pod_mean_chunks, pod_mean_rank
 from repro_torch.dist import collectives
-from repro_torch.dist.world import pod_world_of, rank_world
+from repro_torch.dist.world import model_world_of, pod_world_of, rank_world
 from repro_torch.optim.adamw import AdamState, AdamW, FlatAdamW, copied
 from repro_torch.train.flatten import (combine_trees, is_expert_path, leaf_paths, leaves,
-                                       partition_tree, tree_map, tree_size,
-                                       tree_unflatten)
+                                       partition_tree, tree_map, tree_size, tree_unflatten,
+                                       write_chunk)
 from repro_torch.train.loss import next_token_loss, param_grads
 
 if TYPE_CHECKING:  # the model package imports this package's flatten
@@ -259,6 +272,11 @@ def make_train_step(
     cfg = model.cfg
     use_ep = cfg.ep_axis is not None
     world = rank_world(mesh, learner_axis)
+    tp = model.tp_world
+    if tp is None and model_world_of(mesh) is not None:
+        raise ValueError(f"{cfg.arch_id}: the mesh has a model dimension of "
+                         f"{model_world_of(mesh).size}: build the model with Model(cfg, "
+                         "tp_world=model_world_of(mesh)) so it holds this rank's shards")
     if not use_ep and any(map(is_expert_path, leaf_paths(model.tree()))):
         raise ValueError(
             f"{cfg.arch_id}: the model has per-expert matrices (moe/wi, wg, wo) but "
@@ -277,6 +295,20 @@ def make_train_step(
     ep_opt = AdamW(lr=lr, weight_decay=weight_decay, grad_clip=None)
     sec_opt = AdamW(lr=lr, weight_decay=weight_decay, grad_clip=grad_clip)
 
+    if tp is not None:
+        if world is None:
+            raise ValueError(f"{cfg.arch_id}: a model split over model ranks steps with one "
+                             "learner a ring rank: pass the learners' ring (grid_worlds) or "
+                             "the ('data', 'model') mesh")
+        if agg_pods is not None:
+            raise ValueError("pods with model shards: the ('pod', 'data', 'model') train step "
+                             "is the dry run's production-mesh slice")
+        aggregator.check_world(world)
+        sec_size = sum(sh.numel for sh in model.shard_layout())
+        if leafwise is None:
+            leafwise = sec_size * 4 > LEAFWISE_BYTES
+        return _tp_step(model, aggregator, world, tp, flat_opt, sec_opt, sec_size,
+                        tp_padded_size(sec_size, n, tp.size), leafwise, donate)
     sec_size = tree_size(_split(model.tree())[0])
     shard_len = -(-sec_size // n)
     padded_size = shard_len * n
@@ -486,6 +518,169 @@ def _rank_step(model: Model, aggregator: SecureAggregator, world, pod_world,
                    "weight": w.to(device=dev, dtype=torch.float32)}
         new_state = {"params": new, "master": master, "fm": fm, "fv": fv, "fstep": fstep,
                      "ep_opt": ep_state, "sec_opt": sec_state, "step": state["step"] + 1}
+        return new_state, metrics
+
+    return TrainStepBundle(step_fn=step_fn, init_state_fn=init_state_fn,
+                           sec_size=sec_size, padded_size=padded_size, leafwise=leafwise)
+
+
+def tp_padded_size(words: int, n: int, m: int) -> int:
+    """The flat vector's length with m model shards: ``words`` padded to a
+    multiple of 2·n·m, so each chunk (padded / m words) starts on a
+    counter and splits into n ZeRO-1 parts."""
+    q = 2 * n * m
+    return -(-int(words) // q) * q
+
+
+def tp_norm(tensors: list, dims: list, tp) -> torch.Tensor:
+    """The f32 norm of a tree split over the model group ``tp``: the
+    squares of each split leaf summed here and ``psum``'d over the group,
+    each replicated leaf (the same on every rank) counted once."""
+    def sq(ts):
+        total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+        for t in ts:
+            total = total + torch.sum(torch.square(t.float()))
+        return total
+    split = collectives.psum(sq([t for t, d in zip(tensors, dims) if d is not None]), tp)
+    return torch.sqrt(split + sq([t for t, d in zip(tensors, dims) if d is None]))
+
+
+def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: FlatAdamW,
+             sec_opt: AdamW, sec_size: int, padded_size: int, leafwise: bool,
+             donate: bool) -> TrainStepBundle:
+    """The train step on ('data', 'model'): learner ``world.rank``'s model
+    shard ``tp.rank`` (see the module docstring). The state's parameters
+    are this rank's shards and its master, m and v the l-th of n parts of
+    chunk j (``padded_size / (n·m)`` words). ``init_state_fn`` is collective
+    over the model group (it assembles the chunk from the shards).
+
+    Leafwise, each leaf is its own round (key domain leaf index + 1) on
+    the shards' words: a split leaf's round runs over the concatenation of
+    its m shards (shard j's words, padded to an even count, on ring j, so
+    no all-gather), a replicated leaf's over its own m chunks, gathered
+    afterwards; the tree ``AdamW`` clips by the norm over every rank's
+    shards (``tp_norm``) and updates the shards. Each leaf's published mean
+    is the one-card leafwise round's, word for word; its pads follow the
+    shards' order.
+
+    ``step_fn(state, tokens, prefix=None, weights=None, counter=0,
+    alive=None, mark=None)`` as ``_rank_step``'s: ``tokens`` this learner's
+    int[B, S], the same on every rank of its model group."""
+    cfg = model.cfg
+    n, l = world.size, world.rank
+    m, j = tp.size, tp.rank
+    L = padded_size // m
+    part = L // n
+    c0 = j * L
+    layout = model.shard_layout()
+
+    def init_state_fn(params):
+        """The step's state: this rank's shards (detached) and its part of
+        chunk j of the master vector."""
+        params = tree_map(lambda t: t.detach(), params)
+        dev = leaves(params)[0].device
+        if leafwise:
+            flat = torch.zeros(n, dtype=torch.float32, device=dev)  # placeholder
+            s = sec_opt.init(params)
+            sec_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
+        else:
+            chunk = torch.zeros(L, dtype=torch.float32, device=dev)
+            write_chunk(layout, leaves(params), tp, chunk, c0)
+            flat = chunk[l * part:(l + 1) * part].clone()
+            sec_state = None
+        return {"params": params, "master": flat, "fm": torch.zeros_like(flat),
+                "fv": torch.zeros_like(flat), "fstep": torch.zeros((), dtype=torch.int32),
+                "ep_opt": None, "sec_opt": sec_state, "step": 0}
+
+    def leafwise_round(grads, counter, agg):
+        """Each leaf's published gradient, shaped as this rank's shard."""
+        avg = []
+        for idx, (g, sh) in enumerate(zip(grads, layout)):
+            v = g.detach().reshape(-1).float()
+            if sh.dim is None:  # a replicated leaf: its m chunks, one a ring
+                k = -(-v.numel() // (2 * m)) * 2
+                v = torch.nn.functional.pad(v, (0, k * m - v.numel()))[j * k:(j + 1) * k]
+            else:  # the shard's own words, padded to an even count
+                k = v.numel() + (v.numel() & 1)
+                v = torch.nn.functional.pad(v, (0, k - v.numel()))
+            a = aggregator.aggregate_rank(v.contiguous(), counter, domain=idx + 1, **agg)
+            if sh.dim is None:
+                a = collectives.all_gather(a, tp, tiled=True)
+            avg.append(a[:g.numel()].view(g.shape))
+        return avg
+
+    def step_fn(state, tokens, prefix=None, weights=None, counter=0, alive=None,
+                mark: Optional[Callable[[str], None]] = None):
+        mark = mark or (lambda name: None)
+        params = state["params"]
+        dev = leaves(params)[0].device
+        tokens = torch.as_tensor(tokens).to(dev)
+        if tokens.dim() < 2:
+            raise ValueError(f"tokens: expected this learner's [B, S], got shape "
+                             f"{tuple(tokens.shape)}")
+        if prefix is not None:
+            prefix = torch.as_tensor(prefix).to(dev)
+        w = torch.ones(()) if weights is None else torch.as_tensor(weights).reshape(-1)
+        w = w.reshape(-1)[l if w.numel() == n else 0]
+        counter = int(counter) & 0xFFFFFFFF
+        rotate = counter % (2 * n + 1)  # §8: rotate the initiator every round
+        agg = dict(alive=alive, rotate=rotate, world=world, model_world=tp)
+
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            logits, aux = model.apply(p, tokens, prefix)
+            loss = next_token_loss(logits, tokens, cfg.prefix_embeds) + aux
+            grads = param_grads(loss, leaves(p))
+        del logits, p
+        mark("forward_backward")
+        if leafwise:
+            avg = leafwise_round(grads, counter, agg)
+            del grads
+            mark("aggregate")
+            grad_norm = tp_norm(avg, model.tp_dims, tp)
+            s = state["sec_opt"]
+            update = sec_opt.update_ if donate else sec_opt.update
+            new, s = update(tree_unflatten(params, avg), AdamState(int(s.step), s.m, s.v),
+                            params, grad_norm)
+            sec_state = AdamState(torch.tensor(s.step, dtype=torch.int32), s.m, s.v)
+            master, fm, fv, fstep = state["master"], state["fm"], state["fv"], state["fstep"]
+            mark("optimizer")
+        else:
+            chunk = torch.zeros(L, dtype=torch.float32, device=dev)
+            with torch.no_grad():
+                write_chunk(layout, grads, tp, chunk, c0)
+            del grads
+            mark("flatten")
+            avg = aggregator.aggregate_rank(chunk, counter, **agg)
+            del chunk
+            mark("aggregate")
+            mine = avg[:max(0, min(L, sec_size - c0))]
+            grad_norm = torch.sqrt(collectives.psum(torch.sum(torch.square(mine)), tp))
+            fs = AdamState(int(state["fstep"]), state["fm"], state["fv"])
+            master, fs = flat_opt.update(avg[l * part:(l + 1) * part], fs, state["master"],
+                                         inplace=donate)
+            del avg, mine
+            fm, fv, fstep = fs.m, fs.v, torch.tensor(fs.step, dtype=torch.int32)
+            sec_state = None
+            mark("optimizer")
+            # ZeRO-1's gather: the parts over the ring, then the chunks over the group
+            flat = collectives.all_gather(collectives.all_gather(master, world, tiled=True),
+                                          tp, tiled=True)
+            mark("all_gather")
+            with torch.no_grad():
+                if donate:
+                    new = tree_unflatten(params, [leaf.copy_(sh.of(flat)) for leaf, sh in
+                                                  zip(leaves(params), layout)])
+                else:
+                    new = tree_unflatten(params, [sh.of(flat).to(leaf.dtype, copy=True)
+                                                  .contiguous() for leaf, sh in
+                                                  zip(leaves(params), layout)])
+            del flat
+        mark("rebuild")
+        metrics = {"loss": collectives.pmean(loss.detach(), world), "grad_scale": grad_norm,
+                   "weight": w.to(device=dev, dtype=torch.float32)}
+        new_state = {"params": new, "master": master, "fm": fm, "fv": fv, "fstep": fstep,
+                     "ep_opt": None, "sec_opt": sec_state, "step": state["step"] + 1}
         return new_state, metrics
 
     return TrainStepBundle(step_fn=step_fn, init_state_fn=init_state_fn,

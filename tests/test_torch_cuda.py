@@ -72,6 +72,30 @@ def test_cuda_mask_add_at_a_word_offset(cuda, V, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("V", [1, 5, 129, 100_001])
+@pytest.mark.parametrize("start", [2, 466_036, 2**31 + 2])
+def test_cuda_chunk_at_an_even_start_word(cuda, V, start):
+    """A model-sharded ring's chunk of odd length V from an even start word
+    s (``aggregate_rank(model_world=)``): the counter base moved by s/2 is
+    the pad from word s of the whole vector, for mask_add, chain_combine and
+    bon_mask, each equal to its plain version (the counter wrapping 2^32)."""
+    g = torch.Generator(device=cuda).manual_seed(V + start % 1000)
+    x = torch.rand(V, generator=g, device=cuda) * 200 - 100
+    c = torch.randint(-2**31, 2**31, (V,), generator=g, device=cuda,
+                      dtype=torch.int32).view(torch.uint32)
+    for base in (0, 2**32 - 5):
+        moved = (base + start // 2) & 0xFFFFFFFF
+        want = ref.mask_add_ref(x, [5, 6], base, offset=start)
+        assert torch.equal(tma.mask_add(x, [5, 6], moved), want)
+        assert torch.equal(tma.mask_add(x, [5, 6], base, offset=start), want)
+        assert torch.equal(cc.chain_combine(c, x, [11, 22], [33, 44], moved),
+                           ref.chain_combine_ref(c, x, [11, 22], [33, 44], base, offset=start))
+        keys, signs = [[1, 2], [3, 4], [5, 6]], [1, -1, 1]
+        assert torch.equal(bm.bon_mask(x, keys, signs, moved),
+                           ref.bon_mask_ref(x, keys, signs, moved))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S,V,seg", [(8, 5, 5), (36, 129, 129), (36, 100_001, 100_001),
                                      (130, 7, 3)])
 def test_cuda_batched_rows_at_start_words(cuda, S, V, seg):
