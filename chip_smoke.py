@@ -39,8 +39,8 @@ no CPU fallback):
    rest of the zoo through the same step, three steps each at full width:
    qwen3-moe-235b-a22b (1 of 94 layers, vocabulary cut to 18,992) by expert
    parallelism over the 4 learners (the experts' summed gradients updated
-   outside the SAFE chain), zamba2-2.7b (18 of 54 layers: Mamba2 and the
-   shared attention block) and rwkv6-1.6b (8 of 24 layers); then the wire
+   outside the SAFE chain), zamba2-2.7b (6 of 54 layers: Mamba2 and the
+   shared attention block) and rwkv6-1.6b (4 of 24 layers); then the wire
    FedAvg path: ``make_wire_federated``'s callables at the smoke size of
    internlm2-1.8b (n = 4, k = 2) on the card, their deltas through the
    port's broker on 127.0.0.1, a clean round and one with node 3 failed; then
@@ -67,7 +67,7 @@ no CPU fallback):
    cards), and run, each on its own row through ``aggregate_rank``, the
    sequential round (rotated, one learner dead), the pipelined, BON, INSEC
    and weighted rounds at V = 2^24 a rank; then two train steps of
-   internlm2-1.8b at full width and 6 layers (the second with learner 1
+   internlm2-1.8b at full width and 4 layers (the second with learner 1
    dead; ZeRO-1, each rank holding its quarter of the master vector and
    moments) and one weighted FedAvg round, through the per-rank
    ``make_train_step``/``make_federated_round``; the launch counts are
@@ -90,7 +90,12 @@ no CPU fallback):
    above on each model rank's chunk of 2^23 words (``aggregate_rank(...,
    model_world=)``), then internlm2-1.8b at full width and 1 layer with
    Megatron tensor parallelism over each learner's two ranks (``Model(cfg,
-   tp_world=)``), two train steps and a weighted FedAvg round;
+   tp_world=)``), two train steps and a weighted FedAvg round; ``tp_zoo``,
+   the same layout for the other block kinds: zamba2-2.7b (one unit, f32),
+   rwkv6-1.6b (one layer) and qwen3-moe (one layer, vocabulary 18,992, its
+   experts over the learners' rings: ``Model(cfg, tp_world=,
+   ep_world=ring)``), two train steps each and weighted FedAvg rounds for
+   zamba2 and rwkv6 (the pipelined chain);
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -161,7 +166,13 @@ no CPU fallback):
    of the one-card port's on the same weights; rank 0's first-step peak
    within DRY_TOL of the dry run's ``--per-rank --model-shards 2``; each
    kernel at the path's chunk lengths and start words (the counter base
-   moved by start / 2) equal to its plain version;
+   moved by start / 2) equal to its plain version; tp_zoo: for each model
+   each ring's published chunk of the second step equal (sha256) to the
+   one-card round of the ring's own gradient rows, every rank's ZeRO-1
+   part FlatAdamW of its words of the published chunks, the float math
+   within tp_dist's bounds (the MoE within moe_dist's), rank 0's first-step
+   peak within DRY_TOL of the dry run's, and each kernel at the path's
+   chunks equal to its plain version;
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -191,7 +202,8 @@ no CPU fallback):
    spent in collectives (the transport's share), each rank's peak memory,
    and each kernel timed by CUDA events in each rank, one rank at a time;
    the same walls, transport shares and peaks for moe_dist, the pod rounds,
-   the per-rank engine's steps, the pod steps and tp_dist.
+   the per-rank engine's steps, the pod steps, tp_dist and tp_zoo (with
+   each tp_zoo rank's seconds by part).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -201,7 +213,7 @@ last is ``{"ok": true, "device": {...}}``.
 on a host with four cards instead runs the dist rounds over NCCL, a card a
 rank, each against one process's on the rank's card; the pod rounds that
 two learners a pod allow (BON, INSEC) at 2 pods x 2 learners, the per-rank
-engine and two BON pod train steps of internlm2-1.8b at 6 layers, each
+engine and two BON pod train steps of internlm2-1.8b at 4 layers, each
 against one process's; qwen3-moe with its full vocabulary through the
 launcher at the most layers the dry run's per-rank step says fit a card,
 and the smoke MoE resumed from a full-E checkpoint; then the training
@@ -209,8 +221,9 @@ launcher under ``torch.distributed.run`` with internlm2-1.8b at all 24
 layers, a card a rank, and prints each rank's peak memory and the steps'
 walls. ``--nccl4-moe`` runs its MoE part alone. ``--nccl4-tp`` runs the
 launcher at 2 learners x 2 model shards, a card a rank, internlm2-1.8b at
-24 layers with BON and INSEC, each rank's steps' peak against the dry
-run's, and a smoke run resumed from its checkpoint word for word. None of
+24 layers with BON and INSEC, zamba2-2.7b and rwkv6-1.6b with BON at the
+depth the dry run fits, each rank's steps' peak against the dry run's, and
+a smoke run resumed from its checkpoint word for word. None of
 these is part of the one-card run. Nor is
 
     python3 chip_smoke.py --dist-depth 5 6 7
@@ -286,7 +299,8 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "moe_dist": {"mask_add", "chain_combine"},
                 "pod_rounds": {"mask_add", "chain_combine", "chain_combine_batched", "bon_mask"},
                 "rank_engine": {"mask_add", "chain_combine_batched"},
-                "pod_steps": {"mask_add", "chain_combine"}}
+                "pod_steps": {"mask_add", "chain_combine"},
+                "tp_zoo": {"mask_add", "chain_combine", "chain_combine_batched"}}
 
 # The FedAvg path: internlm2-1.8b at full width, cut to 12 of its 24 layers
 # (at 24 the learners' f32 deltas, the weighted payload and the chain's
@@ -311,13 +325,15 @@ TS_N, TS_B, TS_S, TS_LR, TS_STEPS = 4, 2, 256, 1e-3, 3
 # vocabulary) to fit one card: qwen3-moe-235b-a22b at one of its 94 layers by
 # expert parallelism over the 4 learners, its vocabulary an eighth (the
 # embedding and head one of 8 vocabulary-parallel cards would hold); zamba2-2.7b
-# at 18 of 54 layers (3 units of 5 Mamba2 blocks and the shared attention
-# block); rwkv6-1.6b at 8 of 24 layers.
+# at 6 of 54 layers (one unit of 5 Mamba2 blocks and the shared attention
+# block); rwkv6-1.6b at 4 of 24 layers. (18 and 8 layers until the script's
+# time limit needed the room for tp_zoo: both steps are host-bound chunk loops
+# whose time follows the depth; PERF.md §4.)
 ZOO_PATHS = {
     "moe": ("qwen3-moe-235b-a22b", dict(n_layers=1, vocab=18_992, ep_axis="data",
                                         ep_ranks=TS_N)),
-    "zamba2": ("zamba2-2.7b", dict(n_layers=18)),
-    "rwkv6": ("rwkv6-1.6b", dict(n_layers=8)),
+    "zamba2": ("zamba2-2.7b", dict(n_layers=6)),
+    "rwkv6": ("rwkv6-1.6b", dict(n_layers=4)),
 }
 ZOO_STEPS = 3
 # The wire FedAvg path: the smoke configuration (the learners mask with host
@@ -363,15 +379,16 @@ DISPATCH_CALLS = 2000
 # gloo, each CUDA tensor staged through pinned host buffers (transport="host";
 # NCCL refuses two ranks on one card). The rounds at V_MAIN words a rank:
 # name -> (aggregator kwargs, round kwargs; "w" stands for the weights). Then
-# internlm2-1.8b at full width and DIST_LAYERS of its 24 layers, the most for
-# which four ranks fit the card beside each other: two train steps, the
+# internlm2-1.8b at full width and DIST_LAYERS of its 24 layers (6 are the
+# most for which four ranks fit the card beside each other; 4 leave the
+# script's time limit room for tp_zoo): two train steps, the
 # second with learner DIST_DEAD dead, and one weighted FedAvg round of DIST_K
 # local steps with the same learner dead; the launcher's traffic (2 x 256
 # tokens a learner, lr 1e-3). Each rank's allocator maps its blocks into
 # segments that grow (DIST_ALLOC_CONF): with fixed segments the FedAvg round
 # reserved twice what it allocated, and four ranks did not fit 3 layers; with
 # them a rank peaks at 17.15-19.41 GB allocated at 6 layers and 7 do not fit.
-DIST_N, DIST_LAYERS, DIST_K, DIST_DEAD = 4, 6, 2, 1
+DIST_N, DIST_LAYERS, DIST_K, DIST_DEAD = 4, 4, 2, 1
 DIST_ALLOC_CONF = "expandable_segments:True"
 DIST_ROUNDS = {
     "sequential": (dict(mode="safe"), dict(rotate=3, alive="dead")),
@@ -424,6 +441,33 @@ ENGINE_RANK_ROUNDS = 2
 # parameters' change 5.0e-2; the bounds sit ~3x above.
 TP_N, TP_M, TP_LAYERS = 4, 2, 1
 TP_LOSS_RTOL, TP_CHANGE_REL = 1e-4, 0.15
+# The rest of the zoo on the same grid (tp_zoo): TP_N x TP_M ranks sharing the
+# card, each configuration at its published widths, seed SEED, the launcher's
+# traffic, cut in depth (and the MoE in vocabulary, as the zoo's path) so that
+# eight ranks fit one card: zamba2-2.7b at one unit (five Mamba2 blocks and the
+# shared block), rwkv6-1.6b at one layer, qwen3-moe at one layer with its 128
+# experts over the four learners' rings (E/n = 32 experts of f/m = 768 columns
+# a rank). rwkv6 and qwen3-moe in bf16; zamba2 in f32: the random 6-layer
+# zamba2's loss is ~20 and its bf16 gradients carry the logits' rounding
+# (~25-30% from f32 ones in either package), so in bf16 the TP step read 0.378
+# relative L2 from the one-card step's change on an H100 80GB HBM3 at 700 W
+# (PERF.md §6) and the comparison says nothing about the split; f32 adds 0.4
+# GB a rank (the dry run: 6.76 GB against 6.37). Two train steps (learner DIST_DEAD dead
+# in the second) against the one-card step on the same weights and tokens;
+# a weighted FedAvg round for zamba2 (sequential chain) and rwkv6 (the
+# pipelined chain). The MoE's FedAvg round carries every expert on every
+# rank (no expert parallelism in FedAvg): ~26 GB a rank at one layer, which
+# eight ranks cannot share one card with, so it runs in the CPU tests only
+# (tests/test_torch_dist_tp_zoo.py). Bounds: zamba2 and rwkv6 tp_dist's,
+# qwen3-moe the moe_dist path's (its expert sums already run in another order).
+TP_ZOO = {
+    "zamba2": ("zamba2-2.7b", dict(n_layers=6, dtype="float32")),
+    "rwkv6": ("rwkv6-1.6b", dict(n_layers=1)),
+    "moe": (EP_ARCH, dict(EP_CUT, ep_ranks=TP_N)),
+}
+TP_ZOO_FED = {"zamba2": False, "rwkv6": True}   # name -> the FedAvg round pipelined
+# ``--nccl4-tp``: the newly split kinds through the launcher at 2 x 2, BON
+NCCL_TP_ZOO = ("zamba2-2.7b", "rwkv6-1.6b")
 
 
 def say(*parts):
@@ -2938,12 +2982,17 @@ def _ep_rank(world, out_dir):
     return out
 
 
-def _rel(a, b, base):
-    """||a - b|| / ||b - base|| over lists of tensors, in float64 pieces."""
+def _rel(a, b, base, dev=None):
+    """||a - b|| / ||b - base|| over lists of tensors, in float64 pieces (on
+    ``dev`` when given: a host leaf list of billions of words takes minutes
+    of the host's float64)."""
     num = den = 0.0
     for x, y, z in zip(a, b, base):
         for lo in range(0, x.numel(), CHUNK):
-            xs, ys, zs = (t.reshape(-1)[lo:lo + CHUNK].double() for t in (x, y, z))
+            xs, ys, zs = (t.reshape(-1)[lo:lo + CHUNK] for t in (x, y, z))
+            if dev is not None:
+                xs, ys, zs = xs.to(dev), ys.to(dev), zs.to(dev)
+            xs, ys, zs = xs.double(), ys.double(), zs.double()
             num += float(((xs - ys) ** 2).sum())
             den += float(((ys - zs) ** 2).sum())
     return math.sqrt(num / den)
@@ -3644,18 +3693,6 @@ def tp_shape():
     return dict(seq_len=TS_S, global_batch=TP_N * TS_B, kind="train")
 
 
-def _full_leaves(params, layout, ring, tp):
-    """The full leaves of a model split over ``tp`` on global rank 0 (host
-    memory), gathered over learner 0's model group; None elsewhere."""
-    from repro_torch.dist import collectives
-    from repro_torch.train.flatten import leaves
-    if ring.rank != 0:
-        return None
-    out = [collectives.gather_to_host(x.detach(), 0, tp, axis=sh.dim) if sh.dim is not None
-           else x.detach().cpu() for x, sh in zip(leaves(params), layout)]
-    return out if tp.rank == 0 else None
-
-
 def _tp_rank(world, layers):
     """One rank of the tp_dist path (spawned), learner l's model shard j of
     the TP_N x TP_M grid: the rounds on chunk j of learner l's row; two
@@ -3748,7 +3785,7 @@ def _tp_rank(world, layers):
     gathered = {k: collectives.gather_to_host(state[k], 0, world) for k in ("master", "fm", "fv")}
     gathered["master0"] = collectives.gather_to_host(master0.to(dev), 0, world)
     means = [collectives.gather_to_host(p.to(dev), 0, tp) for p in published] if l == 0 else []
-    out["train_leaves"] = _full_leaves(state["params"], layout, ring, tp)
+    out["train_leaves"] = tp_full_leaves(state["params"], model, ring, tp)
     if world.rank == 0:
         flat = {k: v.view(TP_N, TP_M, -1).transpose(0, 1).reshape(-1)
                 for k, v in gathered.items()}
@@ -3785,21 +3822,22 @@ def _tp_rank(world, layers):
     out["launches"] = {k: launches[k] + build.launches[k] for k in launches}
     out["fed_loss"] = float(m["local_loss"])
     out["fed_delta"] = m["avg_delta"].cpu() if world.rank == 0 else None
-    out["fed_leaves"] = _full_leaves(params, layout, ring, tp)
+    out["fed_leaves"] = tp_full_leaves(params, model, ring, tp)
     dist.barrier()
     return out
 
 
-def tp_dryrun(layers, n, m, mode):
-    """The dry run's rank 0 of the n x m grid (meta tensors): its record,
-    the fake group it starts destroyed afterwards."""
+def tp_dryrun(layers, n, m, mode, arch=TS_ARCH):
+    """The dry run's rank 0 of the n x m grid (meta tensors) for ``arch`` at
+    ``layers`` layers: its record, the fake group it starts destroyed
+    afterwards."""
     import dataclasses
 
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
-    cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     try:
         return dryrun.measure(cfg, "train_4k", shape=dict(seq_len=TS_S, global_batch=n * TS_B,
                                                           kind="train"),
@@ -3864,16 +3902,6 @@ def check_tp_kernels(dev, chunks, err):
     if any(got.values()):
         fail(f"a kernel differs from its plain version at the tp path's chunks: {got}")
     return got, checks
-
-
-def _rel_change(got, want, init):
-    """Relative L2 of (got - init) against (want - init), leaf lists, f64."""
-    num = den = 0.0
-    for a, b, c in zip(got, want, init):
-        a, b, c = a.double(), b.double(), c.double()
-        num += float(torch.sum(torch.square((a - c) - (b - c))))
-        den += float(torch.sum(torch.square(b - c)))
-    return math.sqrt(num / den)
 
 
 def tp_dist_path(dev, launches, err, smi):
@@ -3985,11 +4013,11 @@ def tp_dist_path(dev, launches, err, smi):
     if any(r["losses"] != ranks[0]["losses"] for r in ranks):
         fail(f"tp train step: the ranks' losses differ: {[r['losses'] for r in ranks]}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], one_losses))
-    change = _rel_change(ranks[0]["train_leaves"], one_train, init)
+    change = _rel(ranks[0]["train_leaves"], one_train, init, dev)
     fed_loss_rel = abs(ranks[0]["fed_loss"] - one_fed[2]) / abs(one_fed[2])
     d1, d2 = ranks[0]["fed_delta"][:P].double(), one_fed[1].double()
     delta_rel = float(torch.linalg.vector_norm(d1 - d2) / torch.linalg.vector_norm(d2))
-    fed_change = _rel_change(ranks[0]["fed_leaves"], one_fed[0], init)
+    fed_change = _rel(ranks[0]["fed_leaves"], one_fed[0], init, dev)
     floats = (f"losses {[round(x, 5) for x in ranks[0]['losses']]} vs one card's "
               f"{[round(x, 5) for x in one_losses]} ({loss_rel:.2e} relative, bound "
               f"{TP_LOSS_RTOL}); the parameters' change over two steps {change:.3e} relative "
@@ -4029,6 +4057,394 @@ def tp_dist_path(dev, launches, err, smi):
         f"{held[1] / 1e9:.2f} GB reserved while they ran")
 
 
+def tpz_config(name, fed=False):
+    """tp_zoo's configuration ``name`` (TP_ZOO), for its FedAvg round
+    without expert parallelism."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, cut = TP_ZOO[name]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    return dataclasses.replace(cfg, ep_axis=None, ep_ranks=1) if fed else cfg
+
+
+def cfg_dtype(name):
+    return "f32" if tpz_config(name).dtype == "float32" else "bf16"
+
+
+def tpz_model(dev, name, tp=None, ring=None, fed=False):
+    """tp_zoo's model ``name`` from seed SEED (the one-card model, or model
+    rank tp.rank's shards of it and, with expert parallelism, ring rank's
+    experts: the same generator draws), the train steps' tokens [2, n, B,
+    S] and the FedAvg round's [n, k, B, S]."""
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    cfg = tpz_config(name, fed)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),
+                  tp_world=tp, ep_world=ring if cfg.ep_axis is not None else None)
+    stream = make_federated_batches(cfg, TP_N, TS_B, TS_S, seed=SEED)
+    steps = np.stack([stream.global_batch(i)["tokens"] for i in range(2)])
+    fed_toks = np.stack([np.stack([stream.learner_batch(l, 10 + k)["tokens"]
+                                   for k in range(DIST_K)]) for l in range(TP_N)])
+    return model, steps, fed_toks
+
+
+def tp_full_leaves(params, model, ring, tp):
+    """The full leaves of a model-sharded rank's ``params`` on global rank 0
+    (host memory; ``ckpt.checkpoint.gather_full_leaf``, an expert leaf over
+    the learners too), None on the other ranks. Every rank calls it."""
+    from repro_torch.ckpt.checkpoint import gather_full_leaf
+    from repro_torch.train.flatten import is_expert_path, leaves_with_paths
+    ep = model.ep_world is not None
+    out = [gather_full_leaf(x, sh, ring, tp, ep and is_expert_path(path))
+           for (path, x), sh in zip(leaves_with_paths(params), model.shard_layout())]
+    return out if ring.rank == 0 and tp.rank == 0 else None
+
+
+def _tp_zoo_rank(world):
+    """One rank of the tp_zoo path (spawned), learner l's model shard j of
+    the TP_N x TP_M grid: for each TP_ZOO model, two TP train steps
+    (DIST_DEAD dead in the second) with their collectives timed, then,
+    outside the timed parts, each ring's second-step input chunks gathered
+    to the ring's rank 0, which runs the one-card round on them and
+    compares it with every ring rank's published chunk (by digest); each
+    rank's ZeRO-1 part against FlatAdamW of its words of the published
+    chunks; the full leaves on global rank 0; and the weighted FedAvg round
+    of TP_ZOO_FED's models. The launch counts are read after the rounds.
+    (tp_dist and tests/test_torch_dist_tp_zoo.py gather the whole ZeRO-1
+    state instead: 6 vectors of padded_size words through the host
+    transport, ~25 s a model here.)"""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import collectives, grid_worlds
+    from repro_torch.kernels import build
+    from repro_torch.optim.adamw import AdamState, FlatAdamW
+    from repro_torch.train import make_federated_round, make_train_step
+    dev = world.device
+    ring, tp = grid_worlds(world, TP_M)
+    l, j = ring.rank, tp.rank
+    lead = world.rank == 0
+    out = {}
+    build.reset_launches()
+    launches = {k: 0 for k in DIST_KERNELS}
+    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)  # cuBLAS's workspace
+    for name in TP_ZOO:
+        res = out[name] = {"step_ms": [], "step_transport_ms": [], "losses": [], "phase_s": {}}
+        clock = [time.perf_counter()]
+
+        def lap(part):  # this model's seconds by part of the rank's work
+            now = time.perf_counter()
+            res["phase_s"][part] = round(now - clock[0], 2)
+            clock[0] = now
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        model, steps, fed = tpz_model(dev, name, tp, ring)
+        agg = make_aggregator("safe", TP_N, device=dev)
+        rounds = []
+        aggregate_rank = agg.aggregate_rank
+
+        def record(values, counter_base=0, **kw):
+            """Each step's words of the published chunk this rank's ZeRO-1
+            part updates (to the host: the first step's peak is compared),
+            and the second step's input and published chunks (on the card)."""
+            mean = aggregate_rank(values, counter_base, **kw)
+            second = len(rounds) == 1
+            part = mean.numel() // TP_N
+            rounds.append((values.clone() if second else None, mean.clone() if second else None,
+                           mean[l * part:(l + 1) * part].to("cpu", copy=True),
+                           counter_base, kw["alive"], kw["rotate"]))
+            return mean
+
+        agg.aggregate_rank = record
+        bundle = make_train_step(model, agg, ring, lr=TS_LR)
+        state = bundle.init_state_fn(model.tree())  # the model's tensors, detached
+        master0 = state["master"].to("cpu", copy=True)
+        res["padded_size"], res["sec_size"] = bundle.padded_size, bundle.sec_size
+        sync()
+        lap("build")
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i, alive in enumerate((np.ones(TP_N, np.float32), dist_alive())):
+            toks = torch.from_numpy(steps[i][l]).to(dev)
+            counter = agg.reserve_round(bundle.padded_size + 2)
+            dist.barrier()
+            sync()
+            collectives.reset_stats(timed=True)
+            t0 = time.perf_counter()
+            state, m = bundle.step_fn(state, toks, counter=counter, alive=alive)
+            sync()
+            res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            res["step_transport_ms"].append(collectives.stats["seconds"] * 1e3)
+            res["losses"].append(float(m["loss"]))
+            if i == 0:
+                res["step1_peak"] = torch.cuda.max_memory_allocated(dev) - base
+        collectives.reset_stats()
+        res["train_peak"] = torch.cuda.max_memory_allocated(dev) - base
+        res["train_reserved"] = torch.cuda.max_memory_reserved(dev)
+        for k, v in build.launches.items():
+            launches[k] += v
+        build.reset_launches()
+        lap("steps")
+
+        # the second step's chunks against the one-card round on each ring's
+        # rows: ring j's rows to its rank 0 (learner 0's shard j), which runs
+        # the round with the counter base moved to chunk j's start word, as
+        # aggregate_rank moves it, and compares the ring's published chunks
+        # by digest; every rank first returns its steps' blocks to the card,
+        # and waits while the two ring heads hold the rows there
+        sync()
+        torch.cuda.empty_cache()
+        rows, pub, _, counter, alive, rotate = rounds[1]
+        L = pub.numel()
+        rows = collectives.gather_to_host(rows, 0, ring)
+        mine = torch.tensor(list(bytes.fromhex(digest(pub))), dtype=torch.uint8, device=dev)
+        pubs = [bytes(d.tolist()).hex() for d in collectives.all_gather(mine, ring).cpu()]
+        ok = True
+        if l == 0:
+            want = make_aggregator("safe", TP_N, device=dev).aggregate(
+                rows.view(TP_N, L).to(dev), counter + j * (L // 2), alive=alive, rotate=rotate)
+            ok = all(p == digest(want) for p in pubs)
+            del want
+        del rows, pub
+        sync()
+        torch.cuda.empty_cache()
+        res["chunks_exact"] = bool(collectives.all_gather(torch.tensor([int(ok)], device=dev),
+                                                          world).all())
+        lap("chunks check")
+        # ZeRO-1's part on every rank: FlatAdamW from its initial part by its
+        # words of each published chunk, word for word its state's
+        master = master0.to(dev)
+        zero = torch.zeros_like(master)
+        opt, st = FlatAdamW(lr=TS_LR, weight_decay=0.1), AdamState(0, zero, zero.clone())
+        for r in rounds:
+            master, st = opt.update(r[2].to(dev), st, master, inplace=True)
+        ok = digest(master, st.m, st.v) == digest(state["master"], state["fm"], state["fv"])
+        res["zero1"] = bool(collectives.all_gather(torch.tensor([int(ok)], device=dev),
+                                                   world).all())
+        del rounds, master0, master, zero, st
+        lap("ZeRO-1 check")
+        res["train_leaves"] = tp_full_leaves(state["params"], model, ring, tp)
+        del state, bundle, agg, model
+        sync()
+        torch.cuda.empty_cache()
+        lap("leaves")
+
+        build.reset_launches()  # the checks' launches are not the path's
+        if name in TP_ZOO_FED:  # the weighted FedAvg round
+            model = tpz_model(dev, name, tp, fed=True)[0]
+            agg = make_aggregator("safe", TP_N, weighted=True, pipelined=TP_ZOO_FED[name],
+                                  device=dev)
+            fb = make_federated_round(model, agg, ring, local_steps=DIST_K, local_lr=FED_LR,
+                                      return_delta=True)
+            counter = agg.reserve_round(fb.padded_size + 1)
+            torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            params, m = fb.round_fn(model.tree(), torch.from_numpy(fed[l]).to(dev),
+                                    weights=DIST_WEIGHTS, counter=counter, alive=dist_alive())
+            sync()
+            res["fedavg_ms"] = (time.perf_counter() - t0) * 1e3
+            res["fedavg_peak"] = torch.cuda.max_memory_allocated(dev) - base
+            res["fed_padded"] = fb.padded_size
+            res["fed_loss"] = float(m["local_loss"])
+            res["fed_delta"] = m["avg_delta"].cpu() if lead else None
+            for k, v in build.launches.items():
+                launches[k] += v
+            build.reset_launches()
+            res["fed_leaves"] = tp_full_leaves(params, model, ring, tp)
+            del model, params, m, fb, agg
+            sync()
+            torch.cuda.empty_cache()
+            lap("fedavg")
+        dist.barrier()
+        lap("barrier")
+    out["launches"] = launches
+    return out
+
+
+def tpz_dryrun(name):
+    """The dry run's rank 0 of the TP_N x TP_M grid for tp_zoo's ``name``
+    (meta tensors): its record."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    try:
+        return dryrun.measure(tpz_config(name), "train_4k", shape=tp_shape(), learners=TP_N,
+                              batch=TS_B, per_rank=True, model_shards=TP_M)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tpz_one_card(dev, name):
+    """tp_zoo's model ``name`` on one card, the learners as dim 0: the
+    initial leaves, two train steps and (TP_ZOO_FED) the weighted FedAvg
+    round, on the host."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_federated_round, make_train_step
+    from repro_torch.train.flatten import leaf_paths, leaves
+    model, steps, fed = tpz_model(dev, name)
+    out = {"init": [p.detach().to("cpu", copy=True) for p in leaves(model.tree())],
+           "paths": leaf_paths(model.tree()), "losses": []}
+    agg = make_aggregator("safe", TP_N, device=dev)
+    bundle = make_train_step(model, agg, lr=TS_LR)
+    state = bundle.init_state_fn(model.tree())
+    del model
+    for i, alive in enumerate((np.ones(TP_N, np.float32), dist_alive())):
+        state, m = bundle.step_fn(state, torch.from_numpy(steps[i]).to(dev),
+                                  counter=agg.reserve_round(bundle.padded_size + 2), alive=alive)
+        out["losses"].append(float(m["loss"]))
+    out["train"] = [p.detach().cpu() for p in leaves(state["params"])]
+    del state, bundle
+    torch.cuda.empty_cache()
+    if name in TP_ZOO_FED:
+        model = tpz_model(dev, name, fed=True)[0]
+        agg = make_aggregator("safe", TP_N, weighted=True, pipelined=TP_ZOO_FED[name],
+                              device=dev)
+        fb = make_federated_round(model, agg, local_steps=DIST_K, local_lr=FED_LR,
+                                  return_delta=True)
+        params, m = fb.round_fn(model.tree(), torch.from_numpy(fed).to(dev),
+                                weights=DIST_WEIGHTS,
+                                counter=agg.reserve_round(tree_size_of(model) + 1),
+                                alive=dist_alive())
+        out["fed"] = ([p.detach().cpu() for p in leaves(params)], m["avg_delta"].cpu(),
+                      float(m["local_loss"]))
+        del model, params, m, fb
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_zoo_path(dev, launches, err, smi):
+    """The tp_zoo path: TP_ZOO's models on the TP_N x TP_M grid of ranks
+    sharing the card (``transport="host"``), against the same work in this
+    process on the card: the second step's chunks and the ZeRO-1 update
+    exactly, the float math within bounds, rank 0's first-step peak against
+    the dry run's; adds the ranks' launches to ``launches`` and the kernels'
+    checks at the path's chunks to ``err``."""
+    from repro_torch.train.flatten import is_expert_path
+    t0 = time.perf_counter()
+    preds = {name: tpz_dryrun(name) for name in TP_ZOO}
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = {name: tpz_one_card(dev, name) for name in TP_ZOO}
+    one_s = time.perf_counter() - t0
+    held = (torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_tp_zoo_rank, TP_N * TP_M)
+    ranks_s = time.perf_counter() - t0
+    how = (f"{TP_N} learners x {TP_M} model shards = {TP_N * TP_M} ranks sharing "
+           f"{torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers")
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
+    chunks = []
+    for name in TP_ZOO:
+        padded = ranks[0][name]["padded_size"]
+        chunks += [(padded // TP_M, j * padded // TP_M) for j in range(TP_M)]
+        if name in TP_ZOO_FED:
+            fp = ranks[0][name]["fed_padded"]
+            chunks += [(fp // TP_M + (j == TP_M - 1), j * fp // TP_M) for j in range(TP_M)]
+    t1 = time.perf_counter()
+    kerr, checks = check_tp_kernels(dev, chunks, err)
+    from repro_torch.configs import get_config
+    cut = {TP_ZOO[name][0]: ", ".join(f"{k} {getattr(get_config(TP_ZOO[name][0]), k)} -> {v}"
+                                      for k, v in TP_ZOO[name][1].items()
+                                      if k in ("n_layers", "vocab"))
+           for name in TP_ZOO}
+    say(f"phase 4 main path tp_zoo ({how}): at full width, "
+        f"{({TP_ZOO[n][0]: cfg_dtype(n) for n in TP_ZOO})}, reduced: {json.dumps(cut)}; "
+        f"Megatron tensor parallelism over each learner's {TP_M} ranks (Mamba2 and RWKV6 by "
+        f"head, the MoE's expert-ff over the model ranks and its experts over the learners' "
+        f"rings): two train steps each (learner {DIST_DEAD} dead in the second), weighted "
+        f"FedAvg rounds of {DIST_K} local steps for {list(TP_ZOO_FED)} (rwkv6's pipelined); "
+        f"padded_size {({n: ranks[0][n]['padded_size'] for n in TP_ZOO})}; {ranks_s:.1f} s "
+        f"spawned, {one_s:.1f} s for the same in one process; launches summed over the ranks "
+        f"{counts}; the kernels at the path's chunks (length, start word) {chunks} == plain: "
+        f"{checks} comparisons in {time.perf_counter() - t1:.1f} s, max |err| {kerr}")
+    missing = sorted(k for k in PATH_KERNELS["tp_zoo"] if counts[k] <= 0)
+    if missing:
+        fail(f"path tp_zoo never launched {missing} in its ranks: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    problems = []  # every model's checks run before the path fails
+    for name in TP_ZOO:
+        arch = TP_ZOO[name][0]
+        res = [r[name] for r in ranks]
+        lead, o = res[0], one[name]
+        if not lead["chunks_exact"]:
+            problems.append(f"tp_zoo {arch}: a ring's published chunk differs from the "
+                            "one-card round on the ring's own gradient rows")
+        if not lead["zero1"]:
+            problems.append(f"tp_zoo {arch}: a rank's ZeRO-1 part is not FlatAdamW of its "
+                            "words of the published means")
+        if any(r["losses"] != lead["losses"] for r in res):
+            problems.append(f"tp_zoo {arch}: the ranks' losses differ: "
+                            f"{[r['losses'] for r in res]}")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lead["losses"], o["losses"]))
+        if name == "moe":
+            expert = [is_expert_path(p) for p in o["paths"]]
+            parts = {"SAFE partition": [i for i, e in enumerate(expert) if not e],
+                     "experts": [i for i, e in enumerate(expert) if e]}
+            bounds = {"loss": EP_LOSS_RTOL, "SAFE partition": EP_MASTER_REL,
+                      "experts": EP_EXPERT_REL}
+        else:
+            parts = {"parameters": list(range(len(o["paths"])))}
+            bounds = {"loss": TP_LOSS_RTOL, "parameters": TP_CHANGE_REL}
+        change = {k: _rel([lead["train_leaves"][i] for i in idx], [o["train"][i] for i in idx],
+                          [o["init"][i] for i in idx], dev)
+                  for k, idx in parts.items()}
+        floats = (f"losses {[round(x, 5) for x in lead['losses']]} vs one card's "
+                  f"{[round(x, 5) for x in o['losses']]} ({loss_rel:.2e} relative, bound "
+                  f"{bounds['loss']}); the change over two steps, relative L2: "
+                  + ", ".join(f"{k} {v:.3e} (bound {bounds[k]})" for k, v in change.items()))
+        bad = loss_rel > bounds["loss"] or any(v > bounds[k] for k, v in change.items())
+        if name in TP_ZOO_FED:
+            fo = o["fed"]
+            fed_loss_rel = abs(lead["fed_loss"] - fo[2]) / abs(fo[2])
+            delta_rel = _rel([lead["fed_delta"][:fo[1].numel()]], [fo[1]],
+                             [torch.zeros_like(fo[1])], dev)
+            fed_change = _rel(lead["fed_leaves"], fo[0], o["init"], dev)
+            floats += (f"; FedAvg: local loss {fed_loss_rel:.2e} relative, the published delta "
+                       f"{delta_rel:.3e} and the parameters' change {fed_change:.3e} relative "
+                       f"L2 (bound {TP_CHANGE_REL})")
+            bad = bad or fed_loss_rel > TP_LOSS_RTOL or max(delta_rel, fed_change) > TP_CHANGE_REL
+        if bad:
+            problems.append(f"tp_zoo {arch}: the float math left its bounds: {floats}")
+        p, r = preds[name]["peak_bytes"], lead["step1_peak"]
+        dry = (f"rank 0's first step: dry run (--per-rank --model-shards {TP_M}) {p / 1e9:.3f} "
+               f"GB against max_memory_allocated {r / 1e9:.3f} GB, off by {abs(p - r) / r:.2%}")
+        if abs(p - r) / r > DRY_TOL:
+            problems.append(f"tp_zoo {arch} {dry}, over {DRY_TOL:.0%}")
+        say(f"phase 5 tp_zoo {arch} ({cfg_dtype(name)}): each ring's published chunk of the "
+            f"second step torch.equal to the one-card round of the ring's own gradient rows, "
+            f"the counter base moved to the chunk's start word (which tp_dist shows gives the "
+            f"whole vector's words): "
+            f"{lead['chunks_exact']}; every rank's ZeRO-1 part after two steps word for word "
+            f"FlatAdamW from its initial part by its words of the published chunks: "
+            f"{lead['zero1']}; against the one-card step on the same weights: "
+            f"{floats}; {dry} (bound {DRY_TOL:.0%})")
+        for i in range(2):
+            walls = [x["step_ms"][i] for x in res]
+            tr = [x["step_transport_ms"][i] for x in res]
+            say(f"phase 6 tp_zoo {arch} train step {i + 1} ({how}): wall {max(walls):.1f} ms; in "
+                f"collectives {[round(t, 1) for t in tr]} ms, transport share "
+                f"{[f'{t / w:.0%}' for t, w in zip(tr, walls)]}")
+        fed = (f", FedAvg round wall {max(x['fedavg_ms'] for x in res):.1f} ms, peaks "
+               f"{[round(x['fedavg_peak'] / 1e9, 2) for x in res]} GB" if name in TP_ZOO_FED
+               else "")
+        say(f"phase 6 tp_zoo {arch} peak memory ({how}): train steps "
+            f"{[round(x['train_peak'] / 1e9, 2) for x in res]} GB a rank (the dry run's rank 0 "
+            f"{p / 1e9:.2f} GB, by category "
+            f"{json.dumps({k: round(v / 1e9, 3) for k, v in preds[name]['peak_by_category'].items()})}); "
+            f"reserved {[round(x['train_reserved'] / 1e9, 2) for x in res]} GB{fed}; rank 0's "
+            f"seconds by part {json.dumps(lead['phase_s'])}")
+    say(f"phase 6 tp_zoo ({smi}): {dry_s:.1f} s of dry runs on meta tensors; this process held "
+        f"{held[0] / 1e9:.2f} GB allocated, {held[1] / 1e9:.2f} GB reserved while the ranks ran")
+    if problems:
+        fail(" | ".join(problems))
+
+
 def tree_size_of(model):
     from repro_torch.train import tree_size
     return tree_size(model.tree())
@@ -4040,9 +4456,11 @@ def nccl_tp_paths():
     --model-shards 2`` (2 learners x 2 model shards, a card a rank, nccl),
     internlm2-1.8b at all 24 layers, BON then INSEC (SAFE's rings need 3
     learners), after the dry run sizes rank 0's step; each rank's steps'
-    peak against it; then the smoke model through the same layout with a
-    checkpoint every step and a run resumed from step 1, whose step-2
-    checkpoint must equal the uninterrupted run's word for word."""
+    peak against it; then zamba2-2.7b and rwkv6-1.6b with BON at the depth
+    the dry run fits (``nccl_tp_zoo``); then the smoke model through the
+    same layout with a checkpoint every step and a run resumed from step 1,
+    whose step-2 checkpoint must equal the uninterrupted run's word for
+    word."""
     import gzip
     import shutil
     import tempfile
@@ -4091,6 +4509,8 @@ def nccl_tp_paths():
             fail(f"nccl tp launcher ({mode}): {len(peaks)} ranks reported, losses {recs}")
         if off[0] > DRY_TOL:
             fail(f"nccl tp ({mode}): the dry run is {off[0]:.2%} off rank 0's peak")
+    for arch in NCCL_TP_ZOO:  # the newly split kinds, BON, at the depth the dry run fits
+        nccl_tp_zoo(arch, run, env, layout, line, cards)
     with tempfile.TemporaryDirectory() as tmp:
         smoke = ["-m", "repro_torch.launch.train", "--arch", TS_ARCH, "--smoke", "--steps", "2",
                  "--aggregator", "bon", "--learners", "2", "--model-shards", "2",
@@ -4112,6 +4532,59 @@ def nccl_tp_paths():
         say(f"nccl tp resume ({line} x{cards}, smoke, 2 learners x 2 model shards, BON, nccl): "
             "the run resumed from step 1 wrote step 2 word for word as the uninterrupted run "
             "did (the one-process checkpoint: full leaves, whole vectors)")
+
+
+def nccl_tp_zoo(arch, run, env, layout, line, cards):
+    """``--nccl4-tp``'s ``arch`` through the launcher at 2 learners x 2 model
+    shards with BON, a card a rank, at its full depth or the most layers
+    the dry run's rank 0 fits a card with; each rank's steps' peak against
+    the dry run's."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    layers = cfg.n_layers
+    pred = tp_dryrun(layers, 2, 2, "bon", arch)
+    while pred["peak_bytes"] > dryrun.H100_USABLE_BYTES and layers > len(cfg.pattern):
+        layers -= len(cfg.pattern)
+        pred = tp_dryrun(layers, 2, 2, "bon", arch)
+    p = pred["peak_bytes"]
+    say(f"nccl tp dry run (bon): {arch} at {layers} of {cfg.n_layers} layers, rank 0 of 2 "
+        f"learners x 2 model shards: {p / 1e9:.3f} GB (by category "
+        f"{json.dumps({k: round(v / 1e9, 3) for k, v in pred['peak_by_category'].items()})}); "
+        f"{'fits' if p <= dryrun.H100_USABLE_BYTES else 'does not fit'} "
+        f"{dryrun.H100_USABLE_BYTES / 1e9:.1f} GB ({time.perf_counter() - t0:.1f} s)")
+    if p > dryrun.H100_USABLE_BYTES:
+        fail(f"nccl tp {arch}: the dry run says no depth fits a card")
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "m.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(run + ["-m", "repro_torch.launch.train", "--arch", arch,
+                                     "--steps", str(NCCL_STEPS), "--aggregator", "bon",
+                                     "--n-layers", str(layers), *layout, "--metrics", metrics],
+                              env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        say("\n".join(ln for ln in lines if "rank" in ln or ln.startswith("done")))
+        if proc.returncode != 0:
+            fail(f"nccl tp launcher ({arch}): rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        recs = [json.loads(ln) for ln in open(metrics) if ln.strip()]
+    peaks = [float(ln.split("steps' peak ")[1].split(" GB")[0]) * 1e9 for ln in lines
+             if "steps' peak " in ln]
+    times = [r["time"] for r in recs]
+    walls = [round((b - a) * 1e3, 1) for a, b in zip(times, times[1:])]
+    off = [abs(p - r) / r for r in peaks]
+    say(f"nccl tp launcher ({line} x{cards}, nccl, a card a rank, 2 learners x 2 model shards, "
+        f"bon): {arch} at {layers} layers, {NCCL_STEPS} steps in {wall:.1f} s with start-up; "
+        f"losses {[round(r['loss'], 4) for r in recs]}; steps 2.. wall {walls} ms (rank 0's "
+        f"metrics); the steps' peak a rank {[round(r / 1e9, 3) for r in peaks]} GB against the "
+        f"dry run's rank 0 {p / 1e9:.3f} GB, off by {[f'{o:.2%}' for o in off]}")
+    if len(peaks) != 4 or not all(math.isfinite(r["loss"]) for r in recs):
+        fail(f"nccl tp launcher ({arch}): {len(peaks)} ranks reported, losses {recs}")
+    if off[0] > DRY_TOL:
+        fail(f"nccl tp ({arch}): the dry run is {off[0]:.2%} off rank 0's peak")
 
 
 def main():
@@ -4192,6 +4665,8 @@ def main():
     timed("pod dist", pod_dist_paths, dev, launches, err, smi)
     torch.cuda.empty_cache()
     timed("tp dist", tp_dist_path, dev, launches, err, smi)
+    torch.cuda.empty_cache()
+    timed("tp zoo", tp_zoo_path, dev, launches, err, smi)
     say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
         f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")

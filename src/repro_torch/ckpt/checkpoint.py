@@ -31,7 +31,10 @@ A train step on ('data', 'model') ranks (tensor parallelism,
 ``gather_tp_state`` brings the full leaves and the whole master vector
 and moments to global rank 0, and ``shard_tp_state`` gives each rank its
 shards and its ZeRO-1 part back, so a checkpoint of m model shards
-restores in the one-process launcher, and the reverse.
+restores in the one-process launcher, and the reverse. A segmented leaf
+(Mamba2's ``in_proj``) is joined from its shards; with expert
+parallelism the experts are gathered over the learners too, so the
+checkpoint holds every expert, as the one-process EP launcher's does.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.train.flatten import leaves, tree_unflatten
+from repro_torch.train.flatten import (is_expert_path, leaf_paths, leaves, leaves_with_paths,
+                                       tree_map_with_path, tree_unflatten)
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 _GZIP_MAGIC = b"\x1f\x8b"
@@ -336,36 +340,65 @@ def one_process_size(sec_size: int, learners: int) -> int:
     return -(-int(sec_size) // learners) * learners
 
 
-def gather_tp_state(state: dict, layout: list, sec_size: int, ring, tp,
-                    world) -> Optional[dict]:
+def _expert_rows(path: str, ring, ep: bool) -> int:
+    """The ring ranks a leaf's dim 1 is split over: the learners for an
+    expert leaf with expert parallelism, else 1."""
+    return ring.size if ep and is_expert_path(path) else 1
+
+
+def gather_full_leaf(x: torch.Tensor, sh, ring, tp, expert: bool = False
+                     ) -> Optional[torch.Tensor]:
+    """The full leaf of a model-sharded rank's shard ``x`` (``sh`` its
+    ``LeafShard``) in host memory on global rank 0, None elsewhere: a split
+    leaf gathered over the learner's model group along its split dim, one
+    rank at a time, and joined (a segmented leaf's replicated segments
+    rank 0's); an ``expert`` leaf (the rank holding its ring rank's experts)
+    then over ring 0 along its expert dim. The ranks that take part call it
+    in the same leaf order: learner 0's model group, and for an expert leaf
+    every rank."""
+    from repro_torch.dist import collectives
+    if ring.rank != 0 and not expert:
+        return None
+    x = x.detach()
+    if sh.split is None:
+        part = x.cpu() if tp.rank == 0 else None
+    else:
+        part = collectives.gather_to_host(x, 0, tp, axis=sh.dim)
+        part = None if part is None else sh.join(list(part.chunk(tp.size, sh.dim)))
+    if expert and tp.rank == 0:  # the learners' experts, over ring 0
+        part = collectives.gather_to_host(part.to(x.device), 0, ring, axis=1)
+    return part
+
+
+def gather_tp_state(state: dict, layout: list, sec_size: int, ring, tp, world,
+                    ep: bool = False) -> Optional[dict]:
     """The one-process train state of a model-sharded rank's ``state``, in
     host memory on global rank 0 (learner 0's model rank 0), None on the
     other ranks; every rank calls it. ``layout``: the rank's
-    ``shard_layout`` (leaf by leaf, the parameters' and, leafwise, the
-    moments'); ``ring``/``tp``/``world``: the learners' ring, the model
-    group and the whole group (rank l·m + j). A split leaf is gathered over
-    learner 0's model group along its split dim, one rank at a time; the
-    ZeRO-1 parts of the master vector, m and v over the whole group (rank
-    order is (l, j), so the parts come back chunk-major), cut to the
-    tree's words and padded to ``one_process_size`` (both layouts' pad
-    words are zeros)."""
+    ``shard_layout`` of the whole parameter tree (the parameters' leaves
+    and, by path, the moments'); ``ring``/``tp``/``world``: the learners'
+    ring, the model group and the whole group (rank l·m + j); ``ep``: the
+    model holds the ring rank's experts. Each leaf comes through
+    ``gather_full_leaf``; the ZeRO-1 parts of the master vector, m and v over the
+    whole group (rank order is (l, j), so the parts come back
+    chunk-major), cut to the SAFE partition's words and padded to
+    ``one_process_size`` (both layouts' pad words are zeros)."""
     from repro_torch.dist import collectives
     lead = world.rank == 0
+    by_path = dict(zip(leaf_paths(state["params"]), layout))
 
     def gather_tree(tree):
-        if ring.rank != 0:
-            return None
-        return tree_unflatten(tree, [
-            collectives.gather_to_host(x, 0, tp, axis=sh.dim) if sh.dim is not None
-            else (x.detach().cpu() if tp.rank == 0 else None)
-            for x, sh in zip(leaves(tree), layout)])
+        out = tree_map_with_path(lambda path, x: gather_full_leaf(
+            x, by_path[path], ring, tp, _expert_rows(path, ring, ep) > 1), tree)
+        return out if lead else None
 
     full = dict(state)
     full["params"] = gather_tree(state["params"])
-    if state.get("sec_opt") is not None:
-        s = state["sec_opt"]
-        full["sec_opt"] = type(s)(s.step, gather_tree(s.m), gather_tree(s.v))
-    else:
+    for key in ("sec_opt", "ep_opt"):
+        if state.get(key) is not None:
+            s = state[key]
+            full[key] = type(s)(s.step, gather_tree(s.m), gather_tree(s.v))
+    if state.get("sec_opt") is None:
         n, m = ring.size, tp.size
         size = one_process_size(sec_size, n)
         for k in _SLICED:
@@ -376,38 +409,55 @@ def gather_tp_state(state: dict, layout: list, sec_size: int, ring, tp,
     return full if lead else None
 
 
-def tp_skeleton(state: dict, layout: list, sec_size: int, learners: int) -> dict:
+def tp_skeleton(state: dict, layout: list, sec_size: int, ring, ep: bool = False) -> dict:
     """A host skeleton of the one-process state that a model-sharded
-    rank's ``state`` restores from: full leaves, whole vectors."""
+    rank's ``state`` restores from: full leaves (every expert with ``ep``),
+    whole vectors."""
+    by_path = dict(zip(leaf_paths(state["params"]), layout))
+
     def full(tree):
-        return tree_unflatten(tree, [torch.zeros(sh.shape, dtype=x.dtype)
-                                     for x, sh in zip(leaves(tree), layout)])
+        def leaf(path, x):
+            shape = list(by_path[path].shape)
+            if _expert_rows(path, ring, ep) > 1:
+                shape[1] *= ring.size
+            return torch.zeros(shape, dtype=x.dtype)
+        return tree_map_with_path(leaf, tree)
     out = dict(state)
     out["params"] = full(state["params"])
-    if state.get("sec_opt") is not None:
-        s = state["sec_opt"]
-        out["sec_opt"] = type(s)(s.step, full(s.m), full(s.v))
-    else:
+    for key in ("sec_opt", "ep_opt"):
+        if state.get(key) is not None:
+            s = state[key]
+            out[key] = type(s)(s.step, full(s.m), full(s.v))
+    if state.get("sec_opt") is None:
         for k in _SLICED:
-            out[k] = torch.zeros(one_process_size(sec_size, learners), dtype=state[k].dtype)
+            out[k] = torch.zeros(one_process_size(sec_size, ring.size), dtype=state[k].dtype)
     return out
 
 
 def shard_tp_state(full: dict, state: dict, layout: list, sec_size: int, padded: int,
-                   ring, tp) -> dict:
+                   ring, tp, ep: bool = False) -> dict:
     """This rank's train state from a restored one-process ``full`` state:
-    its shards of the leaves, and its part of chunk j of the master vector
-    and moments (the tree's words padded to ``padded``), on the devices of
-    ``state``'s tensors."""
+    its shards of the leaves (of its experts with ``ep``), and its part of
+    chunk j of the master vector and moments (the SAFE partition's words
+    padded to ``padded``), on the devices of ``state``'s tensors."""
+    by_path = dict(zip(leaf_paths(state["params"]), layout))
+
     def shards(tree, like):
-        return tree_unflatten(tree, [sh.cut(x).to(y.device, copy=True).contiguous()
-                                     for x, sh, y in zip(leaves(tree), layout, leaves(like))])
+        def leaf(path, x, y):
+            rows = _expert_rows(path, ring, ep)
+            if rows > 1:
+                k = x.shape[1] // rows
+                x = x[:, ring.rank * k:(ring.rank + 1) * k]
+            return by_path[path].cut(x).to(y.device, copy=True).contiguous()
+        return tree_unflatten(tree, [leaf(path, x, y) for (path, x), y in
+                                     zip(leaves_with_paths(tree), leaves(like))])
     out = dict(full)
     out["params"] = shards(full["params"], state["params"])
-    if state.get("sec_opt") is not None:
-        s, like = full["sec_opt"], state["sec_opt"]
-        out["sec_opt"] = type(s)(s.step, shards(s.m, like.m), shards(s.v, like.v))
-    else:
+    for key in ("sec_opt", "ep_opt"):
+        if state.get(key) is not None:
+            s, like = full[key], state[key]
+            out[key] = type(s)(s.step, shards(s.m, like.m), shards(s.v, like.v))
+    if state.get("sec_opt") is None:
         L = padded // tp.size
         part = L // ring.size
         lo = tp.rank * L + ring.rank * part

@@ -37,6 +37,9 @@ Megatron's three operators over the model group (tensor parallelism,
   all-gather and ``sum(dim=0)`` in rank order below, so the result does
   not depend on the transport; a bf16 psum sums the m bf16 partials the
   same way, which accumulates in f32 and rounds once to bf16;
+- ``all_reduce_model`` — ``psum`` forward and backward: a sum that every
+  rank then uses for different channels (Mamba2's gated norm over all its
+  heads' channels), so each rank's cotangent of it is partial;
 - ``gather_from_model`` — tiled all-gather along a dim forward, this
   rank's slice of the cotangent backward (not a reduce-scatter: the loss
   after it is computed alike on every model rank, so a summed backward
@@ -348,6 +351,13 @@ def reduce_from_model(x: torch.Tensor, world) -> torch.Tensor:
     return psum(x, world)
 
 
+def all_reduce_model(x: torch.Tensor, world) -> torch.Tensor:
+    """The ``psum`` of ``x`` over ``world`` whose gradient is ``psum``'d too:
+    ``reduce_from_model`` then ``copy_to_model``. Every rank gets the same
+    bits (the f32 all-gather and sum in rank order)."""
+    return copy_to_model(reduce_from_model(x, world), world)
+
+
 def gather_from_model(x: torch.Tensor, world, dim: int = -1) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order; the
     gradient is this rank's slice of the cotangent."""
@@ -361,4 +371,4 @@ def gather_from_model(x: torch.Tensor, world, dim: int = -1) -> torch.Tensor:
 
 __all__ = ["axis_index", "ppermute", "send", "recv", "all_gather", "gather_to_host", "psum",
            "pmean", "broadcast", "all_to_all", "copy_to_model", "reduce_from_model",
-           "gather_from_model", "stats", "reset_stats"]
+           "all_reduce_model", "gather_from_model", "stats", "reset_stats"]

@@ -27,9 +27,10 @@ and does nothing. Under ``torch.distributed.run`` (``RANK`` and
 the learners are ``WORLD_SIZE / m`` (``--learners``, given, must say so),
 and rank l·m + j is learner l's model shard j. With m = 1 each rank is
 one learner. With m > 1 each learner's model is split over its m ranks
-by Megatron tensor parallelism (``Model(cfg, tp_world=...)``; the dense
-configurations: a MoE, Mamba2, RWKV6 or zamba2 raises) and SAFE runs one
-ring per model shard over its chunk of the gradient (the reference's
+by Megatron tensor parallelism (``Model(cfg, tp_world=...)``; every block
+kind: the attention kinds and the MLP, the MoE's expert-ff and shared
+experts, Mamba2 and RWKV6 by head, zamba2's shared block) and SAFE runs
+one ring per model shard over its chunk of the gradient (the reference's
 ``chain_model_sharded``). Each rank makes only its own learner's
 batches, steps with the per-rank train step (ZeRO-1: it holds its part
 of the master vector and moments) or FedAvg round, and prints the same
@@ -54,7 +55,9 @@ each rank holds its E/n experts (``Model(cfg, ep_world=world)``) and
 exchanges tokens with the others; rank 0 gathers the expert shards and
 their ``ep_opt`` moments into host memory, a rank at a time, so the
 checkpoint has the one-process (the reference's full-E) layout, and a
-resume gives each rank its experts back.
+resume gives each rank its experts back. With model shards a MoE's ring
+j spreads the experts over the learners and each rank holds [E/n, d,
+f/m] of every expert matrix (``Model(cfg, ep_world=ring, tp_world=...)``).
 """
 from __future__ import annotations
 
@@ -264,7 +267,7 @@ def _save(directory: str, step: int, state: dict, bundle, world, ep_world, grid,
     if model.tp_world is not None:
         from repro_torch.ckpt.checkpoint import gather_tp_state
         full = gather_tp_state(state, model.shard_layout(), bundle.sec_size, world,
-                               model.tp_world, grid)
+                               model.tp_world, grid, ep=ep_world is not None)
         if grid.rank == 0:
             save_checkpoint(directory, step, full, extra=extra)
         del full
@@ -293,11 +296,11 @@ def _restore(directory: str, step: int, state: dict, bundle, world, ep_world, gr
     from repro_torch.ckpt import restore_checkpoint
     if model.tp_world is not None:
         from repro_torch.ckpt.checkpoint import shard_tp_state, tp_skeleton
-        layout = model.shard_layout()
+        layout, ep = model.shard_layout(), ep_world is not None
         full, extra = restore_checkpoint(directory, step, tp_skeleton(
-            state, layout, bundle.sec_size, world.size))
+            state, layout, bundle.sec_size, world, ep))
         return shard_tp_state(full, state, layout, bundle.sec_size, bundle.padded_size,
-                              world, model.tp_world), extra
+                              world, model.tp_world, ep), extra
     if world is None or (bundle.leafwise and ep_world is None):
         return restore_checkpoint(directory, step, state)
     import torch

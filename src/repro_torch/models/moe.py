@@ -34,6 +34,18 @@ output for its own tokens is a dispatch of those tokens with
 live; the products are row by row, so ``_moe_apply_ep`` is that dispatch
 over all E experts, with nothing standing in for the exchange, and the
 train step sums the learners' expert gradients.
+
+Tensor parallelism (``tp``, the model group's World; the reference's
+``mshard(h, "data", None, "model")``): each rank holds its f/m columns of
+every expert's ``wi``/``wg`` and rows of ``wo`` ([E/n, d, f/m] with expert
+parallelism, ring j of the grid being the ranks of model index j). The
+dispatch buffer enters the expert products through ``copy_to_model``,
+each rank makes its partial product and one ``reduce_from_model`` sums
+them in rank order; the shared experts split as the MLP does. The router
+stays replicated: it reads the replicated block input outside any
+parallel region, so its gradient is already whole on each rank, and its
+routing is the same bits on every rank of the group because that input
+is (``reduce_from_model`` sums in one fixed order).
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives
+from repro_torch.dist.collectives import copy_to_model, reduce_from_model
 from repro_torch.models.layers import _dense_init
 
 
@@ -127,12 +140,16 @@ def _capacity(T: int, k: int, E: int, capacity_factor: float, floor: int) -> int
     return max(floor, min(C, T))
 
 
-def _products(params: dict, xe: torch.Tensor) -> torch.Tensor:
+def _products(params: dict, xe: torch.Tensor, tp=None) -> torch.Tensor:
     """The three expert products of [E', C', d] dispatch buffers, expert by
-    expert (``torch.bmm``) with the local expert matrices [E', ...]."""
+    expert (``torch.bmm``) with the local expert matrices [E', ...]. With
+    ``tp`` (the model group's World) the matrices hold this rank's f/m
+    expert columns: the buffer enters through ``copy_to_model``, each rank
+    makes a partial product and ``reduce_from_model`` sums them."""
     dt = xe.dtype
+    xe = copy_to_model(xe, tp)
     h = torch.bmm(xe, params["wi"].to(dt)) * F.silu(torch.bmm(xe, params["wg"].to(dt)))
-    return torch.bmm(h, params["wo"].to(dt))
+    return reduce_from_model(torch.bmm(h, params["wo"].to(dt)), tp)
 
 
 def _combine(xt: torch.Tensor, ye: torch.Tensor, dispatch_tok: torch.Tensor,
@@ -150,29 +167,33 @@ def _dispatch(xt: torch.Tensor, dispatch_tok: torch.Tensor) -> torch.Tensor:
 
 
 def _experts(params: dict, xt: torch.Tensor, dispatch_tok: torch.Tensor,
-             gate_of_slot: torch.Tensor, E: int, C: int) -> torch.Tensor:
+             gate_of_slot: torch.Tensor, E: int, C: int, tp=None) -> torch.Tensor:
     """The [E, C, d] expert products of the dispatched tokens, weighted by
     their gates and scatter-added back to the tokens: [T, d] in the
     activations' dtype (before the shared experts)."""
     xe = _dispatch(xt, dispatch_tok).view(E, C, xt.shape[1])
-    return _combine(xt, _products(params, xe), dispatch_tok, gate_of_slot)
+    return _combine(xt, _products(params, xe, tp), dispatch_tok, gate_of_slot)
 
 
-def _shared(params: dict, xt: torch.Tensor, moe_cfg, y: torch.Tensor) -> torch.Tensor:
+def _shared(params: dict, xt: torch.Tensor, moe_cfg, y: torch.Tensor, tp=None) -> torch.Tensor:
+    """``y`` plus the shared experts' SwiGLU (split over ``tp`` as the MLP)."""
     if not moe_cfg.num_shared_experts:
         return y
     dt = xt.dtype
-    hs = (xt @ params["shared_wi"].to(dt)) * F.silu(xt @ params["shared_wg"].to(dt))
-    return y + hs @ params["shared_wo"].to(dt)
+    xs = copy_to_model(xt, tp)
+    hs = (xs @ params["shared_wi"].to(dt)) * F.silu(xs @ params["shared_wg"].to(dt))
+    return y + reduce_from_model(hs @ params["shared_wo"].to(dt), tp)
 
 
 def moe_apply(params: dict, x: torch.Tensor, moe_cfg, ep_axis=None,
-              ep_ranks: int = 1, ep_world=None) -> tuple:
+              ep_ranks: int = 1, ep_world=None, tp=None) -> tuple:
     """x: [B, S, d] -> (y, aux_loss). With ``ep_axis`` set, the
     expert-parallel routing of ``_moe_apply_ep`` (across the ranks of
-    ``ep_world`` when given)."""
+    ``ep_world`` when given). ``tp``: the model group's World (expert-ff
+    and the shared experts over the model ranks; see the module
+    docstring)."""
     if ep_axis is not None:
-        return _moe_apply_ep(params, x, moe_cfg, ep_ranks, ep_world)
+        return _moe_apply_ep(params, x, moe_cfg, ep_ranks, ep_world, tp)
     B, S, d = x.shape
     E, k = moe_cfg.num_experts, moe_cfg.top_k
     T = B * S
@@ -184,8 +205,8 @@ def moe_apply(params: dict, x: torch.Tensor, moe_cfg, ep_axis=None,
     dispatch_tok, order, slot = _slots(assign, E, C, T)
     gates_sorted = gate_vals.reshape(-1)[order].to(x.dtype)
     gate_of_slot = x.new_zeros((E * C + 1,)).scatter(0, slot, gates_sorted)[:E * C]
-    y = _experts(params, xt, dispatch_tok, gate_of_slot, E, C)
-    return _shared(params, xt, moe_cfg, y).reshape(B, S, d), aux
+    y = _experts(params, xt, dispatch_tok, gate_of_slot, E, C, tp)
+    return _shared(params, xt, moe_cfg, y, tp).reshape(B, S, d), aux
 
 
 def _dispatch_indices(probs: torch.Tensor, k: int, E: int, T: int,
@@ -201,7 +222,7 @@ def _dispatch_indices(probs: torch.Tensor, k: int, E: int, T: int,
 
 
 def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int,
-                  world=None) -> tuple:
+                  world=None, tp=None) -> tuple:
     """One learner's expert-parallel MoE: its tokens dispatched with
     ``_dispatch_indices``'s capacity C (floor 4, from this rank's T) to the
     E experts. ``n_ranks`` must divide E, as the reference's exchange needs.
@@ -209,7 +230,10 @@ def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int,
     (one card, see the module docstring). With ``world`` the rank holds
     experts [r·E/n, (r+1)·E/n) and the reference's two tiled all-to-alls
     move the [n, E/n, C, d] dispatch buffer to the experts' ranks and the
-    products back."""
+    products back. With ``tp`` each rank of the model group exchanges over
+    its own ring (the ranks of its model index) and makes its partial
+    expert-ff product, summed by ``reduce_from_model`` before the return
+    exchange."""
     E, k = moe_cfg.num_experts, moe_cfg.top_k
     if E % n_ranks:
         raise ValueError(f"{E} experts do not shard over {n_ranks} ranks")
@@ -222,7 +246,7 @@ def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int,
     aux = _aux(probs, frac, moe_cfg)
     gate = gate_of_slot.to(x.dtype)
     if world is None or world.size == 1:
-        y = _experts(params, xt, dispatch_tok, gate, E, C)
+        y = _experts(params, xt, dispatch_tok, gate, E, C, tp)
     else:
         n = world.size
         if n != n_ranks:
@@ -235,8 +259,8 @@ def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int,
         # rank r receives from every rank s the tokens s sends r's experts
         xe = collectives.all_to_all(_dispatch(xt, dispatch_tok).view(n, E_loc, C, d), world)
         xe = xe.view(n, E_loc, C, d).transpose(0, 1).reshape(E_loc, n * C, d)
-        ye = _products(params, xe)
+        ye = _products(params, xe, tp)
         ye = ye.view(E_loc, n, C, d).transpose(0, 1).contiguous()
         ye = collectives.all_to_all(ye, world)  # back to the senders, global-expert major
         y = _combine(xt, ye, dispatch_tok, gate)
-    return _shared(params, xt, moe_cfg, y).reshape(B, S, d), aux
+    return _shared(params, xt, moe_cfg, y, tp).reshape(B, S, d), aux

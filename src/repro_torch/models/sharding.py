@@ -24,19 +24,25 @@ of this applies; the dry run (``launch/dryrun.py``) reads these specs for
 the pod meshes.
 
 Tensor parallelism across ranks (``Model(cfg, tp_world=...)``): model rank
-j of m holds ``shard_leaf`` of each leaf, slice j of m along the dim
-``tp_dim`` names, which is where ``_spec_for`` puts 'model' after
-``sanitize_spec``: a dim that m does not divide stays replicated, as
-the reference's (internvl2's vocabulary of 151,655 at m = 2). Attention
-is split on whole heads only. The q heads and wo split when m divides
-them. The kv heads split when m divides them, and stay replicated when
+j of m holds ``shard_leaf`` of each leaf, cut by the ``Split`` that
+``tp_dim`` gives: slice j of m along the dim where ``_spec_for`` puts
+'model' after ``sanitize_spec`` (a dim that m does not divide stays
+replicated, as the reference's: internvl2's vocabulary of 151,655 at
+m = 2), or, for Mamba2's packed ``in_proj`` [z | x | B | C | dt], a
+segmented split: z, x and dt cut by head, B and C replicated. The
+reference's GSPMD cuts that leaf's columns evenly across the segment
+boundaries and reshards around the cut; the flat vector's words are the
+one-card order either way. Attention is split on whole heads only. The
+q heads and wo split when m divides them. The kv heads split when m divides them, and stay replicated when
 they divide m (fewer kv heads than ranks: each rank's q heads then share
 one kv head, ``j·n_kv/m``). Any other split would cut a head in two and
 raises ``ValueError``. The reference's ``sanitize_spec`` looks only at the
 column count there, so GSPMD cuts a head (14 q heads of 64 at m = 4:
 896 columns divide by 4) and reshards around it
-(``tests/test_torch_dist_tp.py``). Only the dense blocks split (the
-attention kinds and the MLP); ``check_tp`` refuses the others.
+(``tests/test_torch_dist_tp.py``). Every block kind splits: Mamba2 and
+RWKV6 by head, the MoE's expert-ff and shared experts by column (the
+router replicated), zamba2's shared block as the dense ones; ``check_tp``
+raises where a split would cut a head or an ff column.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.train.flatten import leaves_with_paths, tree_map_with_path
+from repro_torch.train.flatten import Split, leaves_with_paths, tree_map_with_path
 
 _COL = {"wq", "wk", "wv", "wi", "wg", "w_proj", "in_proj",
         "wr", "shared_wi", "shared_wg"}
@@ -60,9 +66,10 @@ def _spec_for(path: str, leaf, cfg: ModelConfig) -> tuple:
         return ("model", None) if nd == 2 else (None, "model", None)
     if "moe/" in path and name in ("wi", "wg", "wo"):
         # [U, E, d/f, f/d]: experts over 'data', expert-ff over 'model'
+        lead = (None,) * (nd - 3)
         if name == "wo":
-            return (None, "data", "model", None)
-        return (None, "data", None, "model")
+            return lead + ("data", "model", None)
+        return lead + ("data", None, "model")
     if name == "router":
         return (None,) * nd
     if name in _COL and nd >= 2:
@@ -123,22 +130,41 @@ def placements(spec: tuple, mesh) -> tuple:
 
 
 _ATTN = {"wq", "wk", "wv", "wo"}
-DENSE_KINDS = ("global", "local", "chunked")
+_RECURRENT = ("mamba2", "rwkv6")
 
 
 def check_tp(cfg: ModelConfig, m: int) -> None:
-    """Raise unless ``cfg`` splits over ``m`` model ranks: dense blocks only
-    (the attention kinds with their MLP), and whole heads."""
+    """Raise unless ``cfg`` splits over ``m`` model ranks without cutting a
+    unit that must stay whole: a q or kv head, a Mamba2 or RWKV6 head, or
+    an MLP's or an expert's ff column (the message names the count; the
+    shared experts' s·ff columns split wherever an expert's f does)."""
     if m == 1:
         return
-    other = sorted({k for k in cfg.pattern if k not in DENSE_KINDS})
-    if cfg.moe is not None or other:
-        raise ValueError(
-            f"{cfg.arch_id}: the 'model' axis across ranks covers the dense blocks; "
-            f"{', '.join(other) or 'moe'} over {m} model shards (MoE expert-ff, Mamba2, "
-            "RWKV6 and zamba2's shared block) is the next slice. Pass --model-shards 1.")
-    _heads(cfg, "wq", m)
-    _heads(cfg, "wk", m)
+    kinds = set(cfg.pattern)
+
+    def whole(count: int, what: str) -> None:
+        if count % m:
+            raise ValueError(f"{cfg.arch_id}: {count} {what} over {m} model shards would cut "
+                             f"one in two; pick m dividing {count}")
+    if kinds - set(_RECURRENT):  # attention: the head rules
+        _heads(cfg, "wq", m)
+        _heads(cfg, "wk", m)
+    if "mamba2" in kinds:
+        whole(mamba2_dims(cfg)[2], "Mamba2 heads (ssm_heads)")
+    if "rwkv6" in kinds:
+        whole(cfg.d_model // cfg.rwkv_head_size, "RWKV6 heads (d_model / rwkv_head_size)")
+    if any(not ("moe" in k and cfg.moe is not None)
+           and (k not in _RECURRENT or cfg.recurrent_mlp) for k in kinds):  # block_init's MLP
+        whole(cfg.d_ff, "MLP columns (d_ff)")
+    if cfg.moe is not None and any("moe" in k for k in kinds):  # and so the shared s·ff
+        whole(cfg.moe.expert_d_ff, "expert columns (expert_d_ff)")
+
+
+def mamba2_dims(cfg: ModelConfig) -> tuple:
+    """(inner, N, H) of a Mamba2 block: its packed ``in_proj`` is [d, 2·inner
+    + 2N + H] = [z | x | B | C | dt]."""
+    H = cfg.ssm_heads or (cfg.d_model // 64)
+    return H * 64, cfg.ssm_state, H
 
 
 def _heads(cfg: ModelConfig, name: str, m: int) -> bool:
@@ -160,28 +186,33 @@ def _heads(cfg: ModelConfig, name: str, m: int) -> bool:
                      "in two; pick m dividing them or divisible by them")
 
 
-def tp_dim(path: str, leaf, cfg: ModelConfig, m: int) -> Optional[int]:
-    """The dim of ``leaf`` (a leaf of the full tree, stacked or one unit's)
-    split over ``m`` model ranks, or None for a replicated leaf."""
+def tp_dim(path: str, leaf, cfg: ModelConfig, m: int) -> Optional[Split]:
+    """How ``leaf`` (a leaf of the full tree, stacked or one unit's) is split
+    over ``m`` model ranks (``train/flatten.py::Split``), or None for a
+    replicated leaf. Mamba2's ``in_proj`` is cut by head: z, x and dt by
+    rank, B and C replicated; every other split is one segment."""
     if m == 1:
         return None
     name = path.rsplit("/", 1)[-1]
     if "attn/" in path and name in _ATTN and not _heads(cfg, name, m):
         return None
+    if "mamba/" in path and name == "in_proj":
+        inner, N, H = mamba2_dims(cfg)
+        return Split(len(leaf.shape) - 1,
+                     ((inner, True), (inner, True), (N, False), (N, False), (H, True)))
     spec = sanitize_spec(_spec_for(path, leaf, cfg), tuple(leaf.shape), {"model": m})
     dims = [d for d, part in enumerate(spec)
             if part is not None and "model" in _names(part)]
-    return dims[0] if dims else None
+    return Split.whole(dims[0], leaf.shape[dims[0]]) if dims else None
 
 
 def shard_leaf(path: str, leaf, cfg: ModelConfig, j: int, m: int):
     """Model rank ``j``'s slice of ``leaf`` (its own memory), or the leaf
     itself where it is replicated."""
-    d = tp_dim(path, leaf, cfg, m)
-    if d is None:
+    sp = tp_dim(path, leaf, cfg, m)
+    if sp is None:
         return leaf
-    k = leaf.shape[d] // m
-    return leaf.narrow(d, j * k, k).clone(memory_format=torch.contiguous_format)
+    return sp.cut(leaf, j, m).clone(memory_format=torch.contiguous_format)
 
 
 def shard_tree(params: Any, cfg: ModelConfig, j: int, m: int) -> Any:
@@ -192,5 +223,6 @@ def shard_tree(params: Any, cfg: ModelConfig, j: int, m: int) -> Any:
 
 
 def tree_dims(params: Any, cfg: ModelConfig, m: int) -> list:
-    """``tp_dim`` of each leaf of a full tree, in the flat order."""
+    """``tp_dim`` (a ``Split`` or None) of each leaf of a full tree, in the
+    flat order."""
     return [tp_dim(path, x, cfg, m) for path, x in leaves_with_paths(params)]

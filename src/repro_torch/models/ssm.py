@@ -26,6 +26,22 @@ cotangent by that inf and the gradient is NaN. The port's forward is the
 same words, and its gradient is the reference's wherever that is finite
 (``tests/test_torch_ssm.py``).
 
+Tensor parallelism (``tp``, the model group's ``World``; the reference's
+'model' axis, Megatron's layout by head): both mixers take the replicated
+input through ``copy_to_model`` and run the chunk scan on this rank's H/m
+heads only. Mamba2's packed ``in_proj`` is cut by head (z, x and dt
+column-parallel; B and C replicated, through ``copy_to_model`` since each
+rank reads them for its heads alone); its gated norm takes the sum of
+squares over every rank's channels through ``all_reduce_model`` (each
+rank then uses the total for its own channels, so its backward is a sum
+too) and divides by the full ``inner``; ``out_proj`` is row-parallel. RWKV6's
+five projections are column-parallel, its per-head group norm stays
+local and ``wo`` is row-parallel. The replicated per-head and per-channel
+vectors (A_log, D, dt_bias, norm_scale; w0, u, ln_scale, and RWKV6's
+lerp coefficients ``mu``) go through ``copy_to_model`` and are then
+sliced to the rank's heads, so each one's gradient is the same on every
+rank of the group. The train path only.
+
 Simplifications against the source models are the reference's
 (DESIGN.md §5): Mamba2 without the depthwise conv1d prefix and with one
 B/C group; RWKV6 with a learned-constant token-shift lerp and the
@@ -38,6 +54,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.collectives import all_reduce_model, copy_to_model, reduce_from_model
 from repro_torch.models.layers import _dense_init
 
 CHUNK = 64  # the scan's chunk length (bounds the [L, L, H, hd] decay tensors)
@@ -83,29 +100,54 @@ def mamba2_init(generator: torch.Generator, cfg, device) -> dict:
     }
 
 
-def _mamba2_split(params: dict, x: torch.Tensor, cfg):
-    """(z, x_inner [B, S, H, 64], B f32, C f32, dt f32, decay a f32)."""
+def _mamba2_split(params: dict, x: torch.Tensor, cfg, tp=None):
+    """(z, x_inner [B, S, H, 64], B f32, C f32, dt f32, decay a f32) of this
+    rank's H heads (every head without ``tp``)."""
     d = cfg.d_model
     H = cfg.ssm_heads or (d // 64)
     hd, N = 64, cfg.ssm_state
+    A_log, dt_bias = params["A_log"], params["dt_bias"]
+    w = params["in_proj"].to(x.dtype)
+    if tp is not None and tp.size > 1:
+        # z, x and dt are this rank's heads; B and C are replicated and used
+        # for these heads only, so their columns' gradient is summed over
+        # the group, as are the per-head vectors' (sliced after the copy)
+        H //= tp.size
+        zx, bc, dt_w = torch.split(w, [2 * H * hd, 2 * N, H], dim=-1)
+        w = torch.cat([zx, copy_to_model(bc, tp), dt_w], dim=-1)
+        heads = slice(tp.rank * H, (tp.rank + 1) * H)
+        A_log, dt_bias = copy_to_model(A_log, tp)[heads], copy_to_model(dt_bias, tp)[heads]
     inner = H * hd
-    proj = x @ params["in_proj"].to(x.dtype)
+    proj = x @ w
     z, xi, Bm, Cm, dt = torch.split(proj, [inner, inner, N, N, H], dim=-1)
     B_, S_ = x.shape[0], x.shape[1]
     xi = xi.reshape(B_, S_, H, hd)
-    dt = dt.float() + params["dt_bias"]
+    dt = dt.float() + dt_bias
     dt = torch.logaddexp(dt, torch.zeros_like(dt))  # softplus, as jax.nn.softplus
-    a = torch.exp(-torch.exp(params["A_log"]) * dt)  # decay in (0, 1)
+    a = torch.exp(-torch.exp(A_log) * dt)  # decay in (0, 1)
     return z, xi, Bm.float(), Cm.float(), dt, a
 
 
-def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None):
+def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None, tp=None):
     """x: [B, S, d]; cache: {"state": f32[B, H, 64, N], "pos": int32[B]} or
-    None. Returns (y, new_cache), new_cache None without a cache."""
+    None. Returns (y, new_cache), new_cache None without a cache. ``tp``:
+    the model group's World (this rank's heads; see the module
+    docstring)."""
     B_, S_, d = x.shape
     H = cfg.ssm_heads or (d // 64)
     hd, N = 64, cfg.ssm_state
-    z, xi, Bm, Cm, dt, a = _mamba2_split(params, x, cfg)
+    inner = H * hd
+    D, norm_scale = params["D"], params["norm_scale"]
+    split = tp is not None and tp.size > 1
+    if split:
+        if cache is not None:
+            raise ValueError("serving over a model axis is a later slice: decode and "
+                             "prefill run on an unsplit model")
+        x = copy_to_model(x, tp)
+        H //= tp.size
+        D = copy_to_model(D, tp)[tp.rank * H:(tp.rank + 1) * H]
+        norm_scale = copy_to_model(norm_scale, tp)[tp.rank * H * hd:(tp.rank + 1) * H * hd]
+    z, xi, Bm, Cm, dt, a = _mamba2_split(params, x, cfg, tp)
     xif = xi.float()
     if cache is not None and S_ == 1:  # single-step decode
         st = cache["state"] * a[:, 0, :, None, None] + torch.einsum(
@@ -138,14 +180,17 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = Non
             ys.append(y_in + y_intra)
         y = torch.cat(ys, dim=1)  # [B,S,H,hd]
         new_cache = None if cache is None else {"state": st, "pos": cache["pos"] + S_}
-    y = y + params["D"][None, None, :, None] * xif
+    y = y + D[None, None, :, None] * xif
     y = y.reshape(B_, S_, H * hd).to(x.dtype)
-    # gated RMSNorm (mamba2's norm-before-out)
+    # gated RMSNorm (mamba2's norm-before-out), over all the heads' channels
     yf = y.float() * F.silu(z.float())
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
-    yf = yf * torch.rsqrt(var + 1e-6) * (1.0 + params["norm_scale"])
+    if split:
+        var = all_reduce_model(torch.sum(torch.square(yf), dim=-1, keepdim=True), tp) / inner
+    else:
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(var + 1e-6) * (1.0 + norm_scale)
     out = yf.to(x.dtype) @ params["out_proj"].to(x.dtype)
-    return out, new_cache
+    return reduce_from_model(out, tp), new_cache
 
 
 def mamba2_init_cache(cfg, batch: int, device="cuda") -> dict:
@@ -187,16 +232,31 @@ def _rwkv_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None):
+def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None, tp=None):
     """x: [B, S, d]; cache: {"state": f32[B, H, hd, hd], "prev": [B, d],
     "pos": int32[B]} or None. Returns (y, new_cache), new_cache None
-    without a cache."""
+    without a cache. ``tp``: the model group's World (this rank's heads;
+    see the module docstring)."""
     B_, S_, d = x.shape
     hd = cfg.rwkv_head_size
     H = d // hd
+    mu, w0, u, ln_scale = params["mu"], params["w0"], params["u"], params["ln_scale"]
+    if tp is not None and tp.size > 1:
+        if cache is not None:
+            raise ValueError("serving over a model axis is a later slice: decode and "
+                             "prefill run on an unsplit model")
+        # the lerp's inputs enter this rank's column-parallel products, so
+        # x's and mu's gradients are summed over the group; the per-head
+        # and per-channel vectors are sliced after the copy
+        x, mu = copy_to_model(x, tp), copy_to_model(mu, tp)
+        H //= tp.size
+        ch = slice(tp.rank * H * hd, (tp.rank + 1) * H * hd)
+        w0, ln_scale = copy_to_model(w0, tp)[ch], copy_to_model(ln_scale, tp)[ch]
+        u = copy_to_model(u, tp)[tp.rank * H:(tp.rank + 1) * H]
+    dl = H * hd  # this rank's channels
     prev = cache["prev"].to(x.dtype) if cache is not None else x.new_zeros((B_, d))
     xs = _rwkv_shift(x, prev)
-    mu = params["mu"].to(x.dtype)
+    mu = mu.to(x.dtype)
     xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
 
     r = (xr @ params["wr"].to(x.dtype)).reshape(B_, S_, H, hd)
@@ -204,10 +264,10 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None
     v = (xv @ params["wv"].to(x.dtype)).reshape(B_, S_, H, hd)
     g = xg @ params["wg"].to(x.dtype)
     # data-dependent decay (the Finch contribution, arXiv:2404.05892)
-    logw = -torch.exp(params["w0"] + (xw @ params["w_proj"].to(x.dtype)).float())
+    logw = -torch.exp(w0 + (xw @ params["w_proj"].to(x.dtype)).float())
     logw = logw.reshape(B_, S_, H, hd)  # (-inf, 0)
     rf, kf, vf = r.float(), k.float(), v.float()
-    u = params["u"].float()  # the reference's einsum promotes a bf16 u to f32
+    u = u.float()  # the reference's einsum promotes a bf16 u to f32
 
     if cache is not None and S_ == 1:  # decode
         st = cache["state"]  # [B,H,hd(key),hd(value)]
@@ -245,12 +305,12 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None
         new_cache = None if cache is None else {
             "state": st, "prev": x[:, -1, :], "pos": cache["pos"] + S_}
 
-    # per-head groupnorm, then the output gate
+    # per-head groupnorm (within a head: no collective), then the output gate
     var = torch.mean(torch.square(y), dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-6)
-    y = y.reshape(B_, S_, d) * (1.0 + params["ln_scale"])
+    y = y.reshape(B_, S_, dl) * (1.0 + ln_scale)
     y = y.to(x.dtype) * F.silu(g)
-    return y @ params["wo"].to(x.dtype), new_cache
+    return reduce_from_model(y @ params["wo"].to(x.dtype), tp), new_cache
 
 
 def rwkv6_init_cache(cfg, batch: int, d: int, device="cuda") -> dict:

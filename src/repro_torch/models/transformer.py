@@ -35,7 +35,7 @@ position's logits only. Decode positions are pattern position 0's, unit
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -49,7 +49,8 @@ from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (mamba2_apply, mamba2_init, mamba2_init_cache, rwkv6_apply,
                                     rwkv6_init, rwkv6_init_cache)
 from repro_torch.dist.collectives import copy_to_model, gather_from_model, reduce_from_model
-from repro_torch.train.flatten import shard_layout, tree_map, tree_map_with_path
+from repro_torch.train.flatten import (leaves_with_paths, shard_layout, tree_map,
+                                       tree_map_with_path)
 
 
 def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device,
@@ -76,12 +77,13 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     None without a cache, aux None for a block without MoE (the reference
     adds a zero). ``ep_world``: the learners' World of expert parallelism
     across ranks (``models/moe.py``); ``tp_world``: the model group's
-    World of tensor parallelism (``models/layers.py``)."""
+    World of tensor parallelism (``models/layers.py``, ``models/ssm.py``,
+    ``models/moe.py``)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba2":
-        mix, new_cache = mamba2_apply(params["mamba"], h, cfg, cache)
+        mix, new_cache = mamba2_apply(params["mamba"], h, cfg, cache, tp=tp_world)
     elif kind == "rwkv6":
-        mix, new_cache = rwkv6_apply(params["rwkv"], h, cfg, cache)
+        mix, new_cache = rwkv6_apply(params["rwkv"], h, cfg, cache, tp=tp_world)
     else:
         mix, new_cache = attention_apply(params["attn"], h, cfg, kind, positions, cache,
                                          tp=tp_world)
@@ -89,7 +91,7 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if "moe" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
         ff, aux = moe_apply(params["moe"], h, cfg.moe, ep_axis=cfg.ep_axis,
-                            ep_ranks=cfg.ep_ranks, ep_world=ep_world)
+                            ep_ranks=cfg.ep_ranks, ep_world=ep_world, tp=tp_world)
         return x + ff, new_cache, aux
     if "mlp" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -148,14 +150,18 @@ class Model(nn.Module):
     of m; the reference's 'model' axis). The model then holds model rank
     j's shards of every leaf (``models/sharding.py::shard_leaf``): each
     full leaf is drawn from the generator in the one-card order, a unit at
-    a time, and only its slice kept, so the shards are slices of the model
+    a time, and only its cut kept, so the shards are cuts of the model
     built without it from the same generator. ``tp_dims`` lists each
-    leaf's split dim in the flat order (None: replicated). The embedding
+    leaf's ``Split`` in the flat order (None: replicated). The embedding
     is vocab-parallel (ids outside the shard read zeros, then
     ``reduce_from_model``: one non-zero among zeros, so the embeddings are
     the one-card ones word for word) and the logits column-parallel over
-    the vocabulary, gathered before the loss. Dense configurations only
-    (``sharding.check_tp``); the train path only.
+    the vocabulary, gathered before the loss. Every block kind splits
+    (``sharding.check_tp`` raises where a split would cut a head or a
+    column); zamba2's shared block is cut as the dense blocks are and its
+    ``_shared`` placeholder stays replicated. With both ``ep_world`` (the
+    learners' ring of the grid) and ``tp_world`` a rank holds [E/n, d,
+    f/m] of each expert matrix. The train path only.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
@@ -196,8 +202,9 @@ class Model(nn.Module):
         blocks, shared = [], None
         for kind in cfg.pattern:
             if kind == "shared_attn":
-                if shared is None:
-                    shared = block_init(generator, cfg, kind, device)
+                if shared is None:  # cut as the dense blocks are
+                    shared = tree_map_with_path(shard, block_init(generator, cfg, kind, device),
+                                                "shared_attn/")
                 # the reference's placeholder keeps the stacked structure uniform
                 blocks.append({"_shared": torch.zeros(cfg.n_units, dtype=torch.float32,
                                                       device=device)})
@@ -235,11 +242,15 @@ class Model(nn.Module):
             out["shared_attn"] = plain(self.shared_attn)
         return out
 
-    def shard_layout(self) -> list:
+    def shard_layout(self, keep: Optional[Callable[[str], bool]] = None) -> list:
         """Where each leaf of this rank's tree sits in the full tree's flat
-        vector (``train/flatten.py::shard_layout``); with ``tp_world``
-        only."""
-        return shard_layout(self.tree(), self.tp_dims, self.tp_world.rank, self.tp_world.size)
+        vector (``train/flatten.py::shard_layout``), or, with ``keep``, in
+        the flat vector of the leaves whose paths it keeps (the SAFE
+        partition); with ``tp_world`` only."""
+        kept = [(x, sp) for (path, x), sp in zip(leaves_with_paths(self.tree()), self.tp_dims)
+                if keep is None or keep(path)]
+        return shard_layout([x for x, _ in kept], [sp for _, sp in kept], self.tp_world.rank,
+                            self.tp_world.size)
 
     def forward(self, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None):
         return self.apply(self.tree(), tokens, prefix_embeds)

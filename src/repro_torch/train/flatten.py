@@ -15,12 +15,12 @@ row-major. For the dense decoder that order is::
 gives another order; ``leaf_paths`` gives this one.
 
 A model split over m model ranks (tensor parallelism, ``Model(cfg,
-tp_world=...)``) holds shards of the leaves; ``shard_layout`` says which
-words of the full tree's flat vector each shard occupies (a leaf split on
-dim d is ``prod(shape[:d])`` runs of ``shape[d]/m · prod(shape[d+1:])``
-words), ``write_chunk`` assembles words [start, start + len) of the full
-tree's flat vector from the model group's shards, and ``LeafShard.of``
-cuts a shard out of a full flat vector.
+tp_world=...)``) holds shards of the leaves; a ``Split`` says how a leaf
+is cut (along one dim, segments each cut by rank or replicated),
+``shard_layout`` which words of the full tree's flat vector each shard
+occupies, ``write_chunk`` assembles words [start, start + len) of the
+full tree's flat vector from the model group's shards, and
+``LeafShard.of`` cuts a shard out of a full flat vector.
 
 ``partition_tree``, ``combine_trees`` and ``is_expert_path`` split a tree
 by leaf path, as the reference's do: the expert-parallel train step keeps
@@ -162,17 +162,71 @@ def _rebuild(tree: Any, take) -> Any:
 
 
 @dataclasses.dataclass(frozen=True)
+class Split:
+    """How one leaf is cut over m model ranks: along ``dim``, consecutive
+    segments of the full leaf, each ``(length, cut)``: a cut segment gives
+    rank j its slice j of m, a replicated one (``cut`` False) is whole on
+    every rank. A plain split is one cut segment; Mamba2's packed
+    ``in_proj`` is [z | x | B | C | dt] with B and C replicated."""
+
+    dim: int
+    segments: tuple
+
+    @classmethod
+    def whole(cls, dim: int, length: int) -> "Split":
+        """One cut segment: slice j of m along ``dim``."""
+        return cls(dim, ((length, True),))
+
+    def local(self, m: int) -> tuple:
+        """Each segment's length on a rank."""
+        return tuple(n // m if c else n for n, c in self.segments)
+
+    def cut(self, full: torch.Tensor, rank: int, m: int) -> torch.Tensor:
+        """Rank ``rank``'s shard of the full leaf (a view for one segment)."""
+        pieces, off = [], 0
+        for (n, c), k in zip(self.segments, self.local(m)):
+            pieces.append(full.narrow(self.dim, off + (rank * k if c else 0), k))
+            off += n
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=self.dim)
+
+    def join(self, shards: list, rank: int = 0) -> torch.Tensor:
+        """The full leaf from the m ranks' shards (rank order): a cut
+        segment the shards' slices joined, a replicated one ``rank``'s."""
+        parts, off = [], 0
+        for (_, c), k in zip(self.segments, self.local(len(shards))):
+            if c:
+                parts += [s.narrow(self.dim, off, k) for s in shards]
+            else:
+                parts.append(shards[rank].narrow(self.dim, off, k))
+            off += k
+        return torch.cat(parts, dim=self.dim)
+
+    def pieces(self, shard: torch.Tensor, m: int) -> tuple:
+        """(the cut segments' pieces, the replicated segments') of a shard."""
+        cut, rep, off = [], [], 0
+        for (_, c), k in zip(self.segments, self.local(m)):
+            (cut if c else rep).append(shard.narrow(self.dim, off, k))
+            off += k
+        return cut, rep
+
+
+@dataclasses.dataclass(frozen=True)
 class LeafShard:
     """Where model rank ``rank`` of ``ranks``'s shard of one leaf sits in the
     full tree's flat vector: the full leaf has ``shape`` and starts at word
-    ``offset``; the shard is slice ``rank`` along ``dim`` (None: the whole
-    leaf, replicated)."""
+    ``offset``; the shard is ``split``'s cut of it (None: the whole leaf,
+    replicated)."""
 
     offset: int
     shape: tuple
-    dim: Optional[int]
+    split: Optional[Split]
     rank: int
     ranks: int
+
+    @property
+    def dim(self) -> Optional[int]:
+        """The split dim, None for a replicated leaf."""
+        return None if self.split is None else self.split.dim
 
     @property
     def numel(self) -> int:
@@ -181,15 +235,21 @@ class LeafShard:
 
     def of(self, flat: torch.Tensor) -> torch.Tensor:
         """The shard's words of the full flat vector ``flat``, shaped as the
-        shard (a strided view)."""
+        shard (a strided view where the split is one segment)."""
         return self.cut(flat[self.offset:self.offset + self.numel].view(self.shape))
 
     def cut(self, full: torch.Tensor) -> torch.Tensor:
-        """The shard of the full leaf ``full`` (a view)."""
-        if self.dim is None:
+        """The shard of the full leaf ``full``."""
+        if self.split is None:
             return full
-        k = self.shape[self.dim] // self.ranks
-        return full.narrow(self.dim, self.rank * k, k)
+        return self.split.cut(full, self.rank, self.ranks)
+
+    def join(self, shards: list) -> torch.Tensor:
+        """The full leaf from the model group's shards (rank order), the
+        replicated segments this rank's."""
+        if self.split is None:
+            return shards[self.rank]
+        return self.split.join(shards, self.rank)
 
     def words(self) -> torch.Tensor:
         """int64 indices of the shard's words in the full flat vector, in the
@@ -197,16 +257,16 @@ class LeafShard:
         return self.of(torch.arange(self.offset + self.numel)).reshape(-1)
 
 
-def shard_layout(shards: Any, dims: list, rank: int, ranks: int) -> List[LeafShard]:
+def shard_layout(shards: Any, splits: list, rank: int, ranks: int) -> List[LeafShard]:
     """The ``LeafShard`` of each leaf of model rank ``rank``'s shard tree, in
-    the flat order; ``dims`` gives each leaf's split dim (None where the
+    the flat order; ``splits`` gives each leaf's ``Split`` (None where the
     leaf is replicated), as ``Model.tp_dims`` does."""
     out, off = [], 0
-    for leaf, d in zip(leaves(shards), dims):
+    for leaf, sp in zip(leaves(shards), splits):
         shape = tuple(leaf.shape)
-        if d is not None:
-            shape = shape[:d] + (shape[d] * ranks,) + shape[d + 1:]
-        out.append(LeafShard(off, shape, d, rank, ranks))
+        if sp is not None:
+            shape = shape[:sp.dim] + (sum(n for n, _ in sp.segments),) + shape[sp.dim + 1:]
+        out.append(LeafShard(off, shape, sp, rank, ranks))
         off += math.prod(shape)
     return out
 
@@ -217,15 +277,16 @@ def write_chunk(layout: List[LeafShard], shard_leaves: list, model_world, out: t
     ``out`` (f32), assembled from the shards ``shard_leaves`` of every rank
     of ``model_world`` (the model group, which must all call it with their
     own shards): a split leaf is all-gathered over the group, one leaf at a
-    time, a replicated one is this rank's. Words past the tree are left as
-    they are."""
+    time, and joined, its replicated segments (and a replicated leaf) this
+    rank's, whose gradient is the whole one. Words past the tree are left
+    as they are."""
     from repro_torch.dist import collectives
     end = start + out.numel()
     for sh, x in zip(layout, shard_leaves):
         lo, hi = max(start, sh.offset), min(end, sh.offset + sh.numel)
-        if sh.dim is not None:  # every rank gathers, whether or not it keeps a word
-            x = torch.cat(collectives.all_gather(x.detach().contiguous(), model_world)
-                          .unbind(0), dim=sh.dim)
+        if sh.split is not None:  # every rank gathers, whether or not it keeps a word
+            x = sh.join(list(collectives.all_gather(x.detach().contiguous(), model_world)
+                             .unbind(0)))
         if lo < hi:
             out[lo - start:hi - start].copy_(x.detach().reshape(-1)[lo - sh.offset:
                                                                     hi - sh.offset])

@@ -74,7 +74,11 @@ chunk j; the parts are all-gathered over the ring, then the chunks over
 the model group, and each rank cuts its shards from the whole vector.
 ``chain_model_sharded`` says which of the two the reference compiles;
 both publish the same words, so here it is accepted and the model's
-``tp_world`` decides. A ``mesh`` on a fake group (the dry run's) and the
+``tp_world`` decides. A MoE there takes both splits (``Model(cfg,
+tp_world=model, ep_world=ring)``): its experts stay out of the SAFE
+partition, spread over ring j's learners, each rank holding [E/n, d, f/m]
+of every expert matrix, and ``ep_opt`` updates those shards. A ``mesh``
+on a fake group (the dry run's) and the
 reference's Megatron output anchors change no arithmetic. The reference's buffer
 donation becomes in-place updates: with ``donate`` the step writes the new
 master vector, moments and parameters into the state it is given, so the
@@ -171,9 +175,25 @@ def _init_state(params: Any, n: int, padded_size: int, leafwise: bool, sec_opt: 
             "ep_opt": ep_state, "sec_opt": sec_state, "step": 0}
 
 
+def _in_safe(path: str) -> bool:
+    """Whether a leaf is in the SAFE partition (every leaf but the experts')."""
+    return not is_expert_path(path)
+
+
 def _split(params: Any) -> tuple:
     """(SAFE partition, expert partition) of a parameter tree."""
-    return partition_tree(params, lambda path: not is_expert_path(path))
+    return partition_tree(params, _in_safe)
+
+
+def _check_ep_world(model: Model, world) -> None:
+    """Raise unless the model holds the experts of rank ``world.rank`` of
+    ``world`` (the learners' World, or the ring of a grid)."""
+    ew = model.ep_world
+    if world.size > 1 and (ew is None or (ew.rank, ew.size) != (world.rank, world.size)):
+        raise ValueError(
+            f"{model.cfg.arch_id}: expert parallelism across {world.size} ranks needs the "
+            "model to hold this rank's experts: build it with Model(cfg, ep_world=world) on "
+            "the learners' World (with model shards, the ring of grid_worlds)")
 
 
 def _ep_update(opt: AdamW, ep_sum: list, state: AdamState, ep_params: Any,
@@ -304,10 +324,13 @@ def make_train_step(
             raise ValueError("pods with model shards: the ('pod', 'data', 'model') train step "
                              "is the dry run's production-mesh slice")
         aggregator.check_world(world)
-        sec_size = sum(sh.numel for sh in model.shard_layout())
+        if use_ep:
+            _check_ep_world(model, world)
+        sec_size = sum(sh.numel for sh in model.shard_layout(_in_safe))
         if leafwise is None:
             leafwise = sec_size * 4 > LEAFWISE_BYTES
-        return _tp_step(model, aggregator, world, tp, flat_opt, sec_opt, sec_size,
+        return _tp_step(model, aggregator, world, tp, flat_opt, sec_opt,
+                        ep_opt if use_ep else None, sec_size,
                         tp_padded_size(sec_size, n, tp.size), leafwise, donate)
     sec_size = tree_size(_split(model.tree())[0])
     shard_len = -(-sec_size // n)
@@ -318,12 +341,7 @@ def make_train_step(
         pod_world = None if agg_pods is None else pod_world_of(mesh, agg_pods)
         aggregator.check_world(world, pod_world)
         if use_ep and world.size > 1:
-            ew = model.ep_world
-            if ew is None or (ew.rank, ew.size) != (world.rank, world.size):
-                raise ValueError(
-                    f"{cfg.arch_id}: expert parallelism across {world.size} ranks needs the "
-                    "model to hold this rank's experts: build it with Model(cfg, "
-                    "ep_world=world) on the learners' World")
+            _check_ep_world(model, world)
             if pod_world is not None:
                 raise ValueError(
                     f"{cfg.arch_id}: expert parallelism with a pod axis: the reference "
@@ -532,36 +550,55 @@ def tp_padded_size(words: int, n: int, m: int) -> int:
     return -(-int(words) // q) * q
 
 
-def tp_norm(tensors: list, dims: list, tp) -> torch.Tensor:
-    """The f32 norm of a tree split over the model group ``tp``: the
-    squares of each split leaf summed here and ``psum``'d over the group,
-    each replicated leaf (the same on every rank) counted once."""
+def tp_norm(tensors: list, splits: list, tp) -> torch.Tensor:
+    """The f32 norm of a tree split over the model group ``tp`` (``splits``:
+    each leaf's ``Split``, None where replicated): the squares of each cut
+    segment summed here and ``psum``'d over the group, each replicated leaf
+    or segment (the same on every rank) counted once."""
+    cut, rep = [], []
+    for t, sp in zip(tensors, splits):
+        if sp is None:
+            rep.append(t)
+        else:
+            c, r = sp.pieces(t, tp.size)
+            cut += c
+            rep += r
+
     def sq(ts):
         total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
         for t in ts:
             total = total + torch.sum(torch.square(t.float()))
         return total
-    split = collectives.psum(sq([t for t, d in zip(tensors, dims) if d is not None]), tp)
-    return torch.sqrt(split + sq([t for t, d in zip(tensors, dims) if d is None]))
+    return torch.sqrt(collectives.psum(sq(cut), tp) + sq(rep))
 
 
 def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: FlatAdamW,
-             sec_opt: AdamW, sec_size: int, padded_size: int, leafwise: bool,
-             donate: bool) -> TrainStepBundle:
+             sec_opt: AdamW, ep_opt: Optional[AdamW], sec_size: int, padded_size: int,
+             leafwise: bool, donate: bool) -> TrainStepBundle:
     """The train step on ('data', 'model'): learner ``world.rank``'s model
     shard ``tp.rank`` (see the module docstring). The state's parameters
     are this rank's shards and its master, m and v the l-th of n parts of
-    chunk j (``padded_size / (n·m)`` words). ``init_state_fn`` is collective
-    over the model group (it assembles the chunk from the shards).
+    chunk j (``padded_size / (n·m)`` words) of the SAFE partition's flat
+    vector. ``init_state_fn`` is collective over the model group (it
+    assembles the chunk from the shards).
 
     Leafwise, each leaf is its own round (key domain leaf index + 1) on
     the shards' words: a split leaf's round runs over the concatenation of
     its m shards (shard j's words, padded to an even count, on ring j, so
-    no all-gather), a replicated leaf's over its own m chunks, gathered
-    afterwards; the tree ``AdamW`` clips by the norm over every rank's
-    shards (``tp_norm``) and updates the shards. Each leaf's published mean
-    is the one-card leafwise round's, word for word; its pads follow the
-    shards' order.
+    no all-gather; a segmented leaf's replicated segments ride in every
+    shard and each ring publishes the same mean of them), a replicated
+    leaf's over its own m chunks, gathered afterwards; the tree ``AdamW``
+    clips by the norm over every rank's shards (``tp_norm``) and updates
+    the shards. Each leaf's published mean is the one-card leafwise
+    round's, word for word; its pads follow the shards' order.
+
+    Expert parallelism (``ep_opt``; the model built with ``ep_world`` the
+    ring): as in ``_rank_step``, the per-expert matrices stay out of the
+    SAFE partition; the forward and backward exchange tokens over ring j,
+    whose transpose sums every learner's tokens (dead ones included) into
+    the rank's [E/n, d, f/m] expert gradient, and the tree ``AdamW``
+    without clipping updates those shards, its m and v in
+    ``state["ep_opt"]``.
 
     ``step_fn(state, tokens, prefix=None, weights=None, counter=0,
     alive=None, mark=None)`` as ``_rank_step``'s: ``tokens`` this learner's
@@ -572,39 +609,45 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: Fl
     L = padded_size // m
     part = L // n
     c0 = j * L
-    layout = model.shard_layout()
+    use_ep = ep_opt is not None
+    layout = model.shard_layout(_in_safe)
+    splits = [sh.split for sh in layout]
 
     def init_state_fn(params):
-        """The step's state: this rank's shards (detached) and its part of
-        chunk j of the master vector."""
+        """The step's state: this rank's shards (detached), its part of
+        chunk j of the master vector and, with experts, their AdamW state."""
         params = tree_map(lambda t: t.detach(), params)
+        sec_p, ep_p = _split(params)
         dev = leaves(params)[0].device
+        sec_state = ep_state = None
         if leafwise:
             flat = torch.zeros(n, dtype=torch.float32, device=dev)  # placeholder
-            s = sec_opt.init(params)
+            s = sec_opt.init(sec_p)
             sec_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
         else:
             chunk = torch.zeros(L, dtype=torch.float32, device=dev)
-            write_chunk(layout, leaves(params), tp, chunk, c0)
+            write_chunk(layout, leaves(sec_p), tp, chunk, c0)
             flat = chunk[l * part:(l + 1) * part].clone()
-            sec_state = None
+        if use_ep:
+            s = ep_opt.init(ep_p)
+            ep_state = AdamState(torch.zeros((), dtype=torch.int32), s.m, s.v)
         return {"params": params, "master": flat, "fm": torch.zeros_like(flat),
                 "fv": torch.zeros_like(flat), "fstep": torch.zeros((), dtype=torch.int32),
-                "ep_opt": None, "sec_opt": sec_state, "step": 0}
+                "ep_opt": ep_state, "sec_opt": sec_state, "step": 0}
 
     def leafwise_round(grads, counter, agg):
         """Each leaf's published gradient, shaped as this rank's shard."""
         avg = []
         for idx, (g, sh) in enumerate(zip(grads, layout)):
             v = g.detach().reshape(-1).float()
-            if sh.dim is None:  # a replicated leaf: its m chunks, one a ring
+            if sh.split is None:  # a replicated leaf: its m chunks, one a ring
                 k = -(-v.numel() // (2 * m)) * 2
                 v = torch.nn.functional.pad(v, (0, k * m - v.numel()))[j * k:(j + 1) * k]
             else:  # the shard's own words, padded to an even count
                 k = v.numel() + (v.numel() & 1)
                 v = torch.nn.functional.pad(v, (0, k - v.numel()))
             a = aggregator.aggregate_rank(v.contiguous(), counter, domain=idx + 1, **agg)
-            if sh.dim is None:
+            if sh.split is None:
                 a = collectives.all_gather(a, tp, tiled=True)
             avg.append(a[:g.numel()].view(g.shape))
         return avg
@@ -613,6 +656,7 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: Fl
                 mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
         params = state["params"]
+        sec_p, ep_p = _split(params)
         dev = leaves(params)[0].device
         tokens = torch.as_tensor(tokens).to(dev)
         if tokens.dim() < 2:
@@ -627,29 +671,33 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: Fl
         agg = dict(alive=alive, rotate=rotate, world=world, model_world=tp)
 
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        is_ep = [is_expert_path(path) for path in leaf_paths(p)]
         with torch.enable_grad():
             logits, aux = model.apply(p, tokens, prefix)
             loss = next_token_loss(logits, tokens, cfg.prefix_embeds) + aux
             grads = param_grads(loss, leaves(p))
         del logits, p
+        sec_g = [g for g, e in zip(grads, is_ep) if not e]
+        ep_g = [g for g, e in zip(grads, is_ep) if e]
+        del grads
         mark("forward_backward")
         if leafwise:
-            avg = leafwise_round(grads, counter, agg)
-            del grads
+            avg = leafwise_round(sec_g, counter, agg)
+            del sec_g
             mark("aggregate")
-            grad_norm = tp_norm(avg, model.tp_dims, tp)
+            grad_norm = tp_norm(avg, splits, tp)
             s = state["sec_opt"]
             update = sec_opt.update_ if donate else sec_opt.update
-            new, s = update(tree_unflatten(params, avg), AdamState(int(s.step), s.m, s.v),
-                            params, grad_norm)
+            new_sec, s = update(tree_unflatten(sec_p, avg), AdamState(int(s.step), s.m, s.v),
+                                sec_p, grad_norm)
             sec_state = AdamState(torch.tensor(s.step, dtype=torch.int32), s.m, s.v)
             master, fm, fv, fstep = state["master"], state["fm"], state["fv"], state["fstep"]
             mark("optimizer")
         else:
             chunk = torch.zeros(L, dtype=torch.float32, device=dev)
             with torch.no_grad():
-                write_chunk(layout, grads, tp, chunk, c0)
-            del grads
+                write_chunk(layout, sec_g, tp, chunk, c0)
+            del sec_g
             mark("flatten")
             avg = aggregator.aggregate_rank(chunk, counter, **agg)
             del chunk
@@ -669,18 +717,24 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: Fl
             mark("all_gather")
             with torch.no_grad():
                 if donate:
-                    new = tree_unflatten(params, [leaf.copy_(sh.of(flat)) for leaf, sh in
-                                                  zip(leaves(params), layout)])
+                    new_sec = tree_unflatten(sec_p, [leaf.copy_(sh.of(flat)) for leaf, sh in
+                                                     zip(leaves(sec_p), layout)])
                 else:
-                    new = tree_unflatten(params, [sh.of(flat).to(leaf.dtype, copy=True)
-                                                  .contiguous() for leaf, sh in
-                                                  zip(leaves(params), layout)])
+                    new_sec = tree_unflatten(sec_p, [sh.of(flat).to(leaf.dtype, copy=True)
+                                                     .contiguous() for leaf, sh in
+                                                     zip(leaves(sec_p), layout)])
             del flat
+        ep_state = None
+        if use_ep:  # the experts' gradients, summed over ring j by the exchange's transpose
+            new_ep, ep_state = _ep_update(ep_opt, ep_g, state["ep_opt"], ep_p, donate)
+            mark("expert_optimizer")
+        del ep_g
+        new = combine_trees(new_sec, new_ep) if use_ep else new_sec
         mark("rebuild")
         metrics = {"loss": collectives.pmean(loss.detach(), world), "grad_scale": grad_norm,
                    "weight": w.to(device=dev, dtype=torch.float32)}
         new_state = {"params": new, "master": master, "fm": fm, "fv": fv, "fstep": fstep,
-                     "ep_opt": None, "sec_opt": sec_state, "step": state["step"] + 1}
+                     "ep_opt": ep_state, "sec_opt": sec_state, "step": state["step"] + 1}
         return new_state, metrics
 
     return TrainStepBundle(step_fn=step_fn, init_state_fn=init_state_fn,

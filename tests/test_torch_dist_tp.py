@@ -484,13 +484,15 @@ def test_a_split_that_cuts_a_head_raises_where_the_reference_cuts():
 
 
 def test_refusals():
-    """The block kinds of the next slice, pods with model shards, and a
+    """A split that cuts a head (the MoE, Mamba2, RWKV6 and zamba2 now
+    split: tests/test_torch_dist_tp_zoo.py), pods with model shards, and a
     WORLD_SIZE that is not learners x model shards."""
     from repro_torch.launch.train import parse_args, run
     two = World(rank=0, size=2, device=torch.device("cpu"), transport="gloo")
     for arch in ("qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-2.7b"):
-        with pytest.raises(ValueError, match="next slice"):
-            Model(get_smoke_config(arch), device="cpu", tp_world=two)
+        Model(get_smoke_config(arch), device="meta", tp_world=two)
+    with pytest.raises(ValueError, match="5 q heads over 2 model shards would cut a head"):
+        Model(get_smoke_config("llama4-maverick"), device="cpu", tp_world=two)
     data = World(rank=0, size=N, device=torch.device("cpu"), transport="gloo")
     pod = World(rank=0, size=2, device=torch.device("cpu"), transport="gloo")
     agg = make_aggregator("safe", N, pod_axis="pod", device="cpu")
