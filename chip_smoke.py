@@ -29,18 +29,18 @@ no CPU fallback):
    ``wire round``, host only: ``run_safe_round_net`` at n = 36, V = 10,000
    clean and with ranks {13} and {0} dead, and ``run_bon_round_net`` clean;
    then the FedAvg path: three rounds of
-   ``make_federated_round`` on internlm2-1.8b at full width (12 of its 24
+   ``make_federated_round`` on internlm2-1.8b at full width (2 of its 24
    layers), n = 4 learners of 4 local AdamW steps on 2 x 256 tokens each,
-   the deltas (P = 944,556,032 words) averaged by weighted SAFE; then the
-   train-step path: three steps of ``make_train_step`` on the same model
-   (n = 4, 2 x 256 tokens a learner, one repeated batch), each learner's
+   the deltas (P = 315,369,472 words) averaged by weighted SAFE; then the
+   train-step path: three steps of ``make_train_step`` on the same model at
+   12 layers (n = 4, 2 x 256 tokens a learner, one repeated batch), each learner's
    gradient a row of f32[4, padded_size] averaged by SAFE, then FlatAdamW
    on the f32 master vector, counters from ``reserve_round``; then the
    rest of the zoo through the same step, three steps each at full width:
    qwen3-moe-235b-a22b (1 of 94 layers, vocabulary cut to 18,992) by expert
    parallelism over the 4 learners (the experts' summed gradients updated
    outside the SAFE chain), zamba2-2.7b (6 of 54 layers: Mamba2 and the
-   shared attention block) and rwkv6-1.6b (4 of 24 layers); then the wire
+   shared attention block) and rwkv6-1.6b (2 of 24 layers); then the wire
    FedAvg path: ``make_wire_federated``'s callables at the smoke size of
    internlm2-1.8b (n = 4, k = 2) on the card, their deltas through the
    port's broker on 127.0.0.1, a clean round and one with node 3 failed; then
@@ -67,7 +67,7 @@ no CPU fallback):
    cards), and run, each on its own row through ``aggregate_rank``, the
    sequential round (rotated, one learner dead), the pipelined, BON, INSEC
    and weighted rounds at V = 2^24 a rank; then two train steps of
-   internlm2-1.8b at full width and 4 layers (the second with learner 1
+   internlm2-1.8b at full width and 1 layer (the second with learner 1
    dead; ZeRO-1, each rank holding its quarter of the master vector and
    moments) and one weighted FedAvg round, through the per-rank
    ``make_train_step``/``make_federated_round``; the launch counts are
@@ -95,7 +95,20 @@ no CPU fallback):
    rwkv6-1.6b (one layer) and qwen3-moe (one layer, vocabulary 18,992, its
    experts over the learners' rings: ``Model(cfg, tp_world=,
    ep_world=ring)``), two train steps each and weighted FedAvg rounds for
-   zamba2 and rwkv6 (the pipelined chain);
+   zamba2 and rwkv6 (the pipelined chain); ``pod_tp``, the ('pod', 'data',
+   'model') grid, 2 pods x 3 learners x 2 model shards = 12 ranks
+   (``dist.grid``: rank (p·3 + l)·2 + j), internlm2-1.8b at full width and
+   1 layer: two train steps (learner 1 of each pod dead in the second) and
+   a weighted FedAvg round, each pod's ring j on chunk j and the pods'
+   chunks meeting over the pod group; ``serve_dist``, decode and prefill
+   across 4 data x 2 model ranks: (a) internlm2-1.8b at all 24 layers, 8 of
+   traffic B's prompts (2 a data rank) prefilled into caches of 4096 and 16
+   decode steps teacher-forced on the one-process run's tokens through
+   ``make_serve_step(model, grid)``; (b) gemma3-12b at one unit (6 layers)
+   in f32 with long_500k's caches (524,288 slots) split by slot over the
+   data ranks, seeded random k and v, pos in data rank 2's slots and at a
+   full cache, 8 decode steps through ``make_serve_step(model, grid,
+   seq_axis="data")`` (no SAFE kernel runs there);
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -172,7 +185,18 @@ no CPU fallback):
    part FlatAdamW of its words of the published chunks, the float math
    within tp_dist's bounds (the MoE within moe_dist's), rank 0's first-step
    peak within DRY_TOL of the dry run's, and each kernel at the path's
-   chunks equal to its plain version;
+   chunks equal to its plain version; pod_tp: every published chunk of the
+   second step equal (sha256) to the one-card ``pod_rounds`` of its rows
+   (each pod's ring round on the ring's head, then the pods' ``pod_mean``),
+   every ZeRO-1 part FlatAdamW of its words of the published chunks, the
+   float math within tp_dist's bounds of the one-card pod step and FedAvg
+   round, rank 0's first-step peak within DRY_TOL of the dry run's
+   (``--per-rank --model-shards 2`` with 2 pods), the kernels at the path's
+   chunks equal to their plain versions; serve_dist: (a)'s logits within
+   SERVE_TOL of the one-process decode's, (b)'s within SD_B_TOL of one
+   process's dense decode of the whole cache, the ranks holding a row (in
+   (b) every rank) agreeing bit for bit, rank 0's peak over a decode step
+   within DRY_TOL of the dry run's for each layout;
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -202,8 +226,10 @@ no CPU fallback):
    spent in collectives (the transport's share), each rank's peak memory,
    and each kernel timed by CUDA events in each rank, one rank at a time;
    the same walls, transport shares and peaks for moe_dist, the pod rounds,
-   the per-rank engine's steps, the pod steps, tp_dist and tp_zoo (with
-   each tp_zoo rank's seconds by part).
+   the per-rank engine's steps, the pod steps, tp_dist, tp_zoo (with
+   each tp_zoo rank's seconds by part) and pod_tp; serve_dist's prefill and
+   decode step walls and peaks a rank, and the bytes the dry run counts its
+   collectives sending by op.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -300,25 +326,27 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "pod_rounds": {"mask_add", "chain_combine", "chain_combine_batched", "bon_mask"},
                 "rank_engine": {"mask_add", "chain_combine_batched"},
                 "pod_steps": {"mask_add", "chain_combine"},
-                "tp_zoo": {"mask_add", "chain_combine", "chain_combine_batched"}}
+                "tp_zoo": {"mask_add", "chain_combine", "chain_combine_batched"},
+                "pod_tp": {"mask_add", "chain_combine"}}
 
-# The FedAvg path: internlm2-1.8b at full width, cut to 12 of its 24 layers
+# The FedAvg path: internlm2-1.8b at full width, cut to 2 of its 24 layers
 # (at 24 the learners' f32 deltas, the weighted payload and the chain's
-# ciphertexts need more than the card's 80 GB), with the reference
-# launcher's traffic (src/repro/launch/train.py: 4 learners, batch 2 of 256
-# tokens, 4 local steps, lr 1e-3).
-FED_ARCH, FED_LAYERS = "internlm2-1.8b", 12
+# ciphertexts need more than the card's 80 GB; 12 until the script's time
+# limit needed the room for pod_tp and serve_dist: its float64 checks follow
+# P), with the reference launcher's traffic (src/repro/launch/train.py: 4
+# learners, batch 2 of 256 tokens, 4 local steps, lr 1e-3).
+FED_ARCH, FED_LAYERS = "internlm2-1.8b", 2
 FED_N, FED_B, FED_S, FED_K, FED_LR, FED_ROUNDS = 4, 2, 256, 4, 1e-3, 3
 FED_DEAD = 1                # the failover check's dead learner
 CHUNK = 1 << 26             # words per pass of the float64 reference mean
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet)
 
-# The train-step path: the same model and cut as FedAvg's, with the reference
+# The train-step path: the same model at 12 layers, with the reference
 # launcher's train-step traffic (src/repro/launch/train.py: 4 learners, batch 2
 # of 256 tokens, lr 1e-3) on one repeated batch, as tests/test_train.py trains;
 # the SAFE-against-INSEC comparison runs at TS_CMP_LAYERS layers, so that its
 # two states fit beside each other.
-TS_ARCH, TS_LAYERS, TS_CMP_LAYERS = FED_ARCH, FED_LAYERS, 2
+TS_ARCH, TS_LAYERS, TS_CMP_LAYERS = FED_ARCH, 12, 2
 TS_N, TS_B, TS_S, TS_LR, TS_STEPS = 4, 2, 256, 1e-3, 3
 # The rest of the zoo through the same train step, with the same traffic, each
 # at the published widths of its configuration and cut in depth (or in
@@ -326,14 +354,15 @@ TS_N, TS_B, TS_S, TS_LR, TS_STEPS = 4, 2, 256, 1e-3, 3
 # expert parallelism over the 4 learners, its vocabulary an eighth (the
 # embedding and head one of 8 vocabulary-parallel cards would hold); zamba2-2.7b
 # at 6 of 54 layers (one unit of 5 Mamba2 blocks and the shared attention
-# block); rwkv6-1.6b at 4 of 24 layers. (18 and 8 layers until the script's
-# time limit needed the room for tp_zoo: both steps are host-bound chunk loops
-# whose time follows the depth; PERF.md §4.)
+# block); rwkv6-1.6b at 2 of 24 layers. (18 and 8 layers until the script's
+# time limit needed the room for tp_zoo, and rwkv6 4 until pod_tp and
+# serve_dist: both steps are host-bound chunk loops whose time follows the
+# depth; PERF.md §4.)
 ZOO_PATHS = {
     "moe": ("qwen3-moe-235b-a22b", dict(n_layers=1, vocab=18_992, ep_axis="data",
                                         ep_ranks=TS_N)),
     "zamba2": ("zamba2-2.7b", dict(n_layers=6)),
-    "rwkv6": ("rwkv6-1.6b", dict(n_layers=4)),
+    "rwkv6": ("rwkv6-1.6b", dict(n_layers=2)),
 }
 ZOO_STEPS = 3
 # The wire FedAvg path: the smoke configuration (the learners mask with host
@@ -380,15 +409,16 @@ DISPATCH_CALLS = 2000
 # NCCL refuses two ranks on one card). The rounds at V_MAIN words a rank:
 # name -> (aggregator kwargs, round kwargs; "w" stands for the weights). Then
 # internlm2-1.8b at full width and DIST_LAYERS of its 24 layers (6 are the
-# most for which four ranks fit the card beside each other; 4 leave the
-# script's time limit room for tp_zoo): two train steps, the
+# most for which four ranks fit the card beside each other; 4 left the
+# script's time limit room for tp_zoo, 1 for pod_tp and serve_dist): two
+# train steps, the
 # second with learner DIST_DEAD dead, and one weighted FedAvg round of DIST_K
 # local steps with the same learner dead; the launcher's traffic (2 x 256
 # tokens a learner, lr 1e-3). Each rank's allocator maps its blocks into
 # segments that grow (DIST_ALLOC_CONF): with fixed segments the FedAvg round
 # reserved twice what it allocated, and four ranks did not fit 3 layers; with
 # them a rank peaks at 17.15-19.41 GB allocated at 6 layers and 7 do not fit.
-DIST_N, DIST_LAYERS, DIST_K, DIST_DEAD = 4, 4, 2, 1
+DIST_N, DIST_LAYERS, DIST_K, DIST_DEAD = 4, 1, 2, 1
 DIST_ALLOC_CONF = "expandable_segments:True"
 DIST_ROUNDS = {
     "sequential": (dict(mode="safe"), dict(rotate=3, alive="dead")),
@@ -468,6 +498,35 @@ TP_ZOO = {
 TP_ZOO_FED = {"zamba2": False, "rwkv6": True}   # name -> the FedAvg round pipelined
 # ``--nccl4-tp``: the newly split kinds through the launcher at 2 x 2, BON
 NCCL_TP_ZOO = ("zamba2-2.7b", "rwkv6-1.6b")
+# Pods with model shards (pod_tp): the ('pod', 'data', 'model') grid, POD_P
+# pods x POD_STEP_N learners x TP_M model shards = 12 ranks sharing the card
+# (dist.grid: rank (p·n + l)·m + j). SAFE's rings need three learners, so a
+# pod holds three; internlm2-1.8b at full width and POD_LAYERS layer (the dry
+# run's --per-rank --model-shards 2 with 2 pods: 4.29 GB a rank at one layer,
+# 5.36 at two, before FedAvg's local copy and twelve CUDA contexts). Two train
+# steps (learner DIST_DEAD of each pod dead in the second) and a weighted
+# FedAvg round against the one-card pod step, within tp_dist's bounds.
+PT_WEIGHTS = DIST_WEIGHTS[:POD_STEP_N]
+# Serving across ranks (serve_dist): SD_DATA data x TP_M model ranks sharing
+# the card. (a) the decode_32k layout: internlm2-1.8b at all 24 layers, the
+# first SD_A_ROWS of traffic B's prompts (1024-3072 tokens), SD_A_ROWS /
+# SD_DATA a data rank, each prefilled alone into a cache of SD_A_MAX, then
+# SD_A_STEPS decode steps teacher-forced on the one-process run's greedy
+# tokens, within SERVE_TOL of its logits. (b) long_500k's layout: gemma3-12b
+# at one unit (SD_B_LAYERS: 5 local layers, window 1024, and a global one),
+# batch 1, every attention cache's slots split over the data ranks (the
+# global cache's SD_B_SEQ, 131,072 a rank), filled with seeded random k and
+# v, pos in the middle of data rank 2's global slots and at a full cache,
+# SD_B_STEPS decode steps against one process's dense decode of the whole
+# cache, in f32 (the bf16 cache's words upcast; in bf16 the dense path rounds
+# its probabilities to bf16 before they meet v, where the merge keeps f32, and
+# that rounding, not the split, would set the distance): within SD_B_TOL of
+# max |logit|, the card-against-CPU f32 gate.
+SD_DATA = 4
+SD_A_ROWS, SD_A_MAX, SD_A_STEPS = 8, 4096, 16
+SD_B_ARCH, SD_B_LAYERS, SD_B_SEQ, SD_B_STEPS = "gemma3-12b", 6, 524_288, 8
+SD_B_POS = (327_680, 524_288)
+SD_B_TOL = SERVE_CARD_TOL
 
 
 def say(*parts):
@@ -4445,6 +4504,611 @@ def tp_zoo_path(dev, launches, err, smi):
         fail(" | ".join(problems))
 
 
+def pt_model(dev, tp=None):
+    """pod_tp's model: internlm2-1.8b at full width and POD_LAYERS layers from
+    seed SEED (the one-card model, or model rank tp.rank's shards of it),
+    the train steps' tokens [2, P·n, B, S] pod-major and the FedAvg round's
+    [P·n, k, B, S]."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=POD_LAYERS)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),
+                  tp_world=tp)
+    rows = POD_P * POD_STEP_N
+    stream = make_federated_batches(cfg, rows, TS_B, TS_S, seed=SEED)
+    steps = np.stack([stream.global_batch(i)["tokens"] for i in range(2)])
+    fed = np.stack([np.stack([stream.learner_batch(r, 10 + k)["tokens"] for k in range(DIST_K)])
+                    for r in range(rows)])
+    return model, steps, fed
+
+
+def _pod_tp_rank(world):
+    """One rank of the pod_tp path (spawned): pod p's learner l, model shard
+    j of the POD_P x POD_STEP_N x TP_M grid (``dist.grid``). Two train steps
+    (learner DIST_DEAD dead in the second) with their collectives timed and
+    a weighted FedAvg round, through the entry points; the launch counts
+    read after them. Then, outside the timed parts: the second step's
+    chunks, each ring's rows to its head (learner 0), which runs the
+    one-card round on them, the two pods' heads of a chunk their
+    ``pod_mean`` (the one-card ``pod_rounds``), compared by digest with
+    every rank's published chunk; each rank's ZeRO-1 part against
+    FlatAdamW of its words of the published chunks; the full leaves on
+    global rank 0."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.core.chain import pod_mean
+    from repro_torch.dist import collectives, grid
+    from repro_torch.kernels import build
+    from repro_torch.optim.adamw import AdamState, FlatAdamW
+    from repro_torch.train import make_federated_round, make_train_step
+    dev = world.device
+    g = grid(world, TP_M, POD_P)
+    p, l, j = g.pod.rank, g.data.rank, g.model.rank
+    row = p * POD_STEP_N + l
+    out = {"step_ms": [], "step_transport_ms": [], "losses": []}
+    build.reset_launches()
+    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)  # cuBLAS's workspace
+    sync()
+    base = torch.cuda.memory_allocated(dev)
+    model, steps, fed = pt_model(dev, g.model)
+    agg = make_aggregator("safe", POD_STEP_N, pod_axis="pod", device=dev)
+    rounds = []
+    aggregate_rank = agg.aggregate_rank
+
+    def record(values, counter_base=0, **kw):
+        """Each step's words of the published chunk this rank's ZeRO-1 part
+        updates (to the host), the second step's input and published chunks."""
+        mean = aggregate_rank(values, counter_base, **kw)
+        second = len(rounds) == 1
+        part = mean.numel() // POD_STEP_N
+        rounds.append((values.clone() if second else None, mean.clone() if second else None,
+                       mean[l * part:(l + 1) * part].to("cpu", copy=True),
+                       counter_base, kw["alive"], kw["rotate"]))
+        return mean
+
+    agg.aggregate_rank = record
+    bundle = make_train_step(model, agg, g, lr=TS_LR, pod_axis="pod")
+    state = bundle.init_state_fn(model.tree())
+    master0 = state["master"].to("cpu", copy=True)
+    out["padded_size"] = bundle.padded_size
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, alive in enumerate((np.ones(POD_STEP_N, np.float32), pod_alive())):
+        toks = torch.from_numpy(steps[i][row]).to(dev)
+        counter = agg.reserve_round(bundle.padded_size + 2)
+        dist.barrier()
+        sync()
+        collectives.reset_stats(timed=True)
+        t0 = time.perf_counter()
+        state, m = bundle.step_fn(state, toks, counter=counter, alive=alive)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["step_transport_ms"].append(collectives.stats["seconds"] * 1e3)
+        out["losses"].append(float(m["loss"]))
+        if i == 0:
+            out["step1_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    collectives.reset_stats()
+    out["train_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    launches = dict(build.launches)
+
+    # the second step's chunks against the one-card pod_rounds of their rows
+    sync()
+    torch.cuda.empty_cache()
+    rows, pub, _, counter, alive, rotate = rounds[1]
+    L = pub.numel()
+    rows = collectives.gather_to_host(rows, 0, g.data)
+    mine = torch.tensor(list(bytes.fromhex(digest(pub))), dtype=torch.uint8, device=dev)
+    pubs = [bytes(d.tolist()).hex() for d in collectives.all_gather(mine, g.data).cpu()]
+    ok = True
+    if l == 0:  # ring (p, j)'s head: its pod's round, then the pods' mean over the heads
+        avg = make_aggregator("safe", POD_STEP_N, device=dev).aggregate(
+            rows.view(POD_STEP_N, L).to(dev), counter + j * (L // 2), alive=alive,
+            rotate=rotate)
+        want = pod_mean(list(collectives.all_gather(avg, g.pod).unbind(0)))
+        ok = all(d == digest(want) for d in pubs)
+        del avg, want
+    del rows, pub
+    sync()
+    torch.cuda.empty_cache()
+    out["chunks_exact"] = bool(collectives.all_gather(torch.tensor([int(ok)], device=dev),
+                                                      world).all())
+    # ZeRO-1's part on every rank: FlatAdamW from its initial part by its words
+    # of each published chunk, word for word its state's
+    master = master0.to(dev)
+    zero = torch.zeros_like(master)
+    opt, st = FlatAdamW(lr=TS_LR, weight_decay=0.1), AdamState(0, zero, zero.clone())
+    for r in rounds:
+        master, st = opt.update(r[2].to(dev), st, master, inplace=True)
+    ok = digest(master, st.m, st.v) == digest(state["master"], state["fm"], state["fv"])
+    out["zero1"] = bool(collectives.all_gather(torch.tensor([int(ok)], device=dev),
+                                               world).all())
+    out["master_words"] = state["master"].numel()
+    del rounds, master0, master, zero, st
+    out["train_leaves"] = tp_full_leaves(state["params"], model, g.data, g.model)
+    del state, bundle, agg, model
+    sync()
+    torch.cuda.empty_cache()
+
+    # the weighted FedAvg round
+    model = pt_model(dev, g.model)[0]
+    agg = make_aggregator("safe", POD_STEP_N, weighted=True, pod_axis="pod", device=dev)
+    fb = make_federated_round(model, agg, g, local_steps=DIST_K, local_lr=FED_LR,
+                              return_delta=True)
+    counter = agg.reserve_round(fb.padded_size + 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    params, m = fb.round_fn(model.tree(), torch.from_numpy(fed[row]).to(dev),
+                            weights=PT_WEIGHTS, counter=counter, alive=pod_alive())
+    sync()
+    out["fedavg_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fedavg_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    out["fed_padded"] = fb.padded_size
+    out["launches"] = {k: launches[k] + build.launches[k] for k in launches}
+    out["fed_loss"] = float(m["local_loss"])
+    out["fed_delta"] = m["avg_delta"].cpu() if world.rank == 0 else None
+    out["fed_leaves"] = tp_full_leaves(params, model, g.data, g.model)
+    dist.barrier()
+    return out
+
+
+def pt_one_card(dev):
+    """pod_tp's work on one card, the pods' learners as dim 0: the initial
+    leaves, two pod train steps and the weighted pod FedAvg round."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_federated_round, make_train_step
+    from repro_torch.train.flatten import leaves
+    model, steps, fed = pt_model(dev)
+    out = {"init": [p.detach().to("cpu", copy=True) for p in leaves(model.tree())],
+           "losses": []}
+    agg = make_aggregator("safe", POD_STEP_N, pod_axis="pod", device=dev)
+    bundle = make_train_step(model, agg, lr=TS_LR, pod_axis="pod")
+    state = bundle.init_state_fn(model.tree())
+    del model
+    for i, alive in enumerate((np.ones(POD_STEP_N, np.float32), pod_alive())):
+        state, m = bundle.step_fn(state, torch.from_numpy(steps[i]).to(dev),
+                                  counter=agg.reserve_round(bundle.padded_size + 2), alive=alive)
+        out["losses"].append(float(m["loss"]))
+    out["train"] = [p.detach().cpu() for p in leaves(state["params"])]
+    del state, bundle
+    torch.cuda.empty_cache()
+    model = pt_model(dev)[0]
+    agg = make_aggregator("safe", POD_STEP_N, weighted=True, pod_axis="pod", device=dev)
+    fb = make_federated_round(model, agg, local_steps=DIST_K, local_lr=FED_LR,
+                              return_delta=True)
+    params, m = fb.round_fn(model.tree(), torch.from_numpy(fed).to(dev), weights=PT_WEIGHTS,
+                            counter=agg.reserve_round(tree_size_of(model) + 1),
+                            alive=pod_alive())
+    out["fed"] = ([p.detach().cpu() for p in leaves(params)], m["avg_delta"].cpu(),
+                  float(m["local_loss"]))
+    del model, params, m, fb
+    torch.cuda.empty_cache()
+    return out
+
+
+def pt_dryrun():
+    """The dry run's rank 0 of pod_tp's grid (meta tensors): its record."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(get_config(TS_ARCH), n_layers=POD_LAYERS)
+    try:
+        return dryrun.measure(cfg, "train_4k", shape=dict(
+            seq_len=TS_S, global_batch=POD_P * POD_STEP_N * TS_B, kind="train"),
+            learners=POD_STEP_N, batch=TS_B, per_rank=True, model_shards=TP_M, pods=POD_P)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def pod_tp_path(dev, launches, err, smi):
+    """The pod_tp path: the ('pod', 'data', 'model') grid, POD_P pods x
+    POD_STEP_N learners x TP_M model shards spawned and sharing the card
+    (``transport="host"``), against the same work in this process on the
+    card: the second step's chunks (each the one-card ``pod_rounds`` of its
+    rows) and the ZeRO-1 parts exactly, the float math within tp_dist's
+    bounds, rank 0's first-step peak against the dry run's; adds the ranks'
+    launches to ``launches`` and the kernels' checks at the path's chunks
+    to ``err``."""
+    t0 = time.perf_counter()
+    pred = pt_dryrun()
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = pt_one_card(dev)
+    one_s = time.perf_counter() - t0
+    size = POD_P * POD_STEP_N * TP_M
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_pod_tp_rank, size)
+    ranks_s = time.perf_counter() - t0
+    how = (f"{POD_P} pods x {POD_STEP_N} learners x {TP_M} model shards = {size} ranks sharing "
+           f"{torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers")
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
+    padded, fed_padded = ranks[0]["padded_size"], ranks[0]["fed_padded"]
+    chunks = [(padded // TP_M, j * padded // TP_M) for j in range(TP_M)]
+    chunks += [(fed_padded // TP_M + (j == TP_M - 1), j * fed_padded // TP_M)
+               for j in range(TP_M)]
+    t1 = time.perf_counter()
+    kerr, checks = check_tp_kernels(dev, chunks, err)
+    say(f"phase 4 main path pod_tp ({how}; dist.grid: rank (p*{POD_STEP_N} + l)*{TP_M} + j): "
+        f"{TS_ARCH} at full width, reduced: n_layers 24 -> {POD_LAYERS}; each pod's ring j runs "
+        f"chunk j's SAFE round, the pods' chunks meet over the pod group, ZeRO-1 within each "
+        f"pod, the rebuilt vector pmean'd over the pods: two train steps (learner {DIST_DEAD} "
+        f"of each pod dead in the second) and a weighted FedAvg round of {DIST_K} local steps; "
+        f"padded_size {padded} (chunks of {padded // TP_M}), the FedAvg round's {fed_padded}; "
+        f"{ranks_s:.1f} s spawned, {one_s:.1f} s for the same in one process; launches summed "
+        f"over the ranks {counts}; the kernels at the path's chunks (length, start word) "
+        f"{chunks} == plain: {checks} comparisons in {time.perf_counter() - t1:.1f} s, max "
+        f"|err| {kerr}")
+    missing = sorted(k for k in PATH_KERNELS["pod_tp"] if counts[k] <= 0)
+    if missing:
+        fail(f"path pod_tp never launched {missing} in its ranks: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    lead = ranks[0]
+    problems = []
+    if not lead["chunks_exact"]:
+        problems.append("pod_tp: a published chunk differs from the one-card pod_rounds of its "
+                        "rows")
+    if not lead["zero1"]:
+        problems.append("pod_tp: a rank's ZeRO-1 part is not FlatAdamW of its words of the "
+                        "published means")
+    if any(r["losses"] != lead["losses"] for r in ranks):
+        problems.append(f"pod_tp: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lead["losses"], one["losses"]))
+    change = _rel(lead["train_leaves"], one["train"], one["init"], dev)
+    fo = one["fed"]
+    fed_loss_rel = abs(lead["fed_loss"] - fo[2]) / abs(fo[2])
+    delta_rel = _rel([lead["fed_delta"][:fo[1].numel()]], [fo[1]], [torch.zeros_like(fo[1])],
+                     dev)
+    fed_change = _rel(lead["fed_leaves"], fo[0], one["init"], dev)
+    floats = (f"losses {[round(x, 5) for x in lead['losses']]} vs one card's "
+              f"{[round(x, 5) for x in one['losses']]} ({loss_rel:.2e} relative, bound "
+              f"{TP_LOSS_RTOL}); the parameters' change over two steps {change:.3e} relative L2 "
+              f"(bound {TP_CHANGE_REL}); FedAvg: local loss {fed_loss_rel:.2e} relative, the "
+              f"published delta {delta_rel:.3e} and the parameters' change {fed_change:.3e} "
+              f"relative L2 (bound {TP_CHANGE_REL})")
+    if (loss_rel > TP_LOSS_RTOL or change > TP_CHANGE_REL or fed_loss_rel > TP_LOSS_RTOL
+            or max(delta_rel, fed_change) > TP_CHANGE_REL):
+        problems.append(f"pod_tp: the float math left its bounds: {floats}")
+    p, r = pred["peak_bytes"], lead["step1_peak"]
+    dry = (f"rank 0's first step: dry run (--per-rank --model-shards {TP_M}, {POD_P} pods) "
+           f"{p / 1e9:.3f} GB against max_memory_allocated {r / 1e9:.3f} GB, off by "
+           f"{abs(p - r) / r:.2%}")
+    if abs(p - r) / r > DRY_TOL:
+        problems.append(f"pod_tp {dry}, over {DRY_TOL:.0%}")
+    say(f"phase 5 pod_tp: every rank's published chunk of the second step torch.equal to the "
+        f"one-card pod_rounds of its rows (each pod's ring round on its head, the counter base "
+        f"moved to the chunk's start word, then pod_mean of the pods' results): "
+        f"{lead['chunks_exact']}; every rank's ZeRO-1 part ({lead['master_words']} words) "
+        f"after two steps word for word FlatAdamW from its initial part by its words of the "
+        f"published chunks: {lead['zero1']}; against the one-card pod step on the same weights "
+        f"(bf16): {floats}; {dry} (bound {DRY_TOL:.0%}, {dry_s:.1f} s on meta tensors)")
+    for i in range(2):
+        walls = [x["step_ms"][i] for x in ranks]
+        tr = [x["step_transport_ms"][i] for x in ranks]
+        say(f"phase 6 pod_tp train step {i + 1} ({how}): wall {max(walls):.1f} ms; in "
+            f"collectives {[round(t, 1) for t in tr]} ms, transport share "
+            f"{[f'{t / w:.0%}' for t, w in zip(tr, walls)]}")
+    say(f"phase 6 pod_tp ({how}): FedAvg round wall {max(x['fedavg_ms'] for x in ranks):.1f} "
+        f"ms; peaks: train steps {[round(x['train_peak'] / 1e9, 2) for x in ranks]} GB a rank "
+        f"(the dry run's rank 0 {p / 1e9:.2f} GB, by category "
+        f"{json.dumps({k: round(v / 1e9, 3) for k, v in pred['peak_by_category'].items()})}), "
+        f"FedAvg {[round(x['fedavg_peak'] / 1e9, 2) for x in ranks]} GB")
+    if problems:
+        fail(" | ".join(problems))
+
+
+def sd_model(dev, part, tp=None):
+    """serve_dist's model of ``part`` ("a": internlm2-1.8b at all its layers,
+    "b": gemma3-12b at SD_B_LAYERS) at full width from seed SEED: the
+    one-process model, or model rank tp.rank's shards of it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(SERVE_ARCH if part == "a" else SD_B_ARCH)
+    if part == "b":
+        cfg = dataclasses.replace(cfg, n_layers=SD_B_LAYERS, dtype="float32")
+    return Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),
+                 tp_world=tp)
+
+
+def sd_prefill(model, prompts):
+    """Each prompt prefilled alone (B = 1, as ``ServeEngine`` admits a
+    request) into its row of one cache of SD_A_MAX positions; returns
+    (the prefills' logits [rows, V], the cache)."""
+    cache = model.init_cache(len(prompts), SD_A_MAX, prefilled=False)
+    logits = []
+    for i, prompt in enumerate(prompts):
+        one = model.init_cache(1, SD_A_MAX, prefilled=False)
+        lg, one = model.prefill(model.tree(), torch.as_tensor(prompt[None]).to(
+            model.embed.device), cache=one)
+        for c, o in zip(cache, one):
+            for k in c:
+                c[k][:, i] = o[k][:, 0]
+        logits.append(lg[0])
+        del one
+    return torch.stack(logits), cache
+
+
+def sd_fill_cache(model, pos, seq_world=None, tp=None):
+    """serve_dist (b)'s cache: every attention cache's k and v seeded random
+    words (a generator a block of S_c/SD_DATA slots and a leaf, so each rank
+    draws only its blocks, then keeps its heads), ``pos`` tokens in it."""
+    cfg = model.cfg
+    cache = model.init_cache(1, SD_B_SEQ, prefilled=False, seq_world=seq_world)
+    dev = model.embed.device
+    for p, c in enumerate(cache):
+        for k in ("k", "v"):
+            leaf = c[k]  # [1, 1, S_loc, nkv_loc, hd]
+            S_loc = leaf.shape[2]
+            blocks = SD_DATA if seq_world is None else 1
+            first = 0 if seq_world is None else seq_world.rank
+            nkv = cfg.n_kv_heads
+            for b in range(blocks):
+                S_b = S_loc // blocks
+                gen = torch.Generator(device=dev).manual_seed(
+                    SEED + 1000 * p + 10 * (first + b) + (k == "v"))
+                full = torch.randn((S_b, nkv, cfg.resolved_head_dim), generator=gen,
+                                   device=dev).to(leaf.dtype)
+                h = leaf.shape[3]
+                j = 0 if tp is None or h == nkv else tp.rank
+                leaf[0, 0, b * S_b:(b + 1) * S_b] = full[:, j * h:(j + 1) * h]
+                del full
+        c["pos"].fill_(pos)
+    return cache
+
+
+def _serve_dist_rank(world, tokens_a):
+    """One rank of the serve_dist path (spawned), data rank i's model shard
+    j of the SD_DATA x TP_M grid. (a) internlm2-1.8b at all its layers: its
+    SD_A_ROWS / SD_DATA rows of traffic B's prompts prefilled alone into
+    its cache of SD_A_MAX, then SD_A_STEPS decode steps teacher-forced on
+    ``tokens_a`` (the one-process run's greedy tokens) through
+    ``make_serve_step(model, grid)``; rank 0's peak over one decode step.
+    (b) gemma3-12b at one unit with long_500k's cache split over the data
+    ranks by slot: for each of SD_B_POS, the cache filled with seeded random
+    k and v, SD_B_STEPS decode steps through ``make_serve_step(model, grid,
+    seq_axis="data")``; rank 0's peak over one step."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import grid
+    from repro_torch.kernels import build
+    from repro_torch.serve import make_serve_step
+    dev = world.device
+    g = grid(world, TP_M)
+    i = g.data.rank
+    out = {"pos": (i, g.model.rank)}
+    build.reset_launches()
+    rows = SD_A_ROWS // SD_DATA
+    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)  # cuBLAS's workspace
+    with torch.inference_mode():
+        sync()
+        base = torch.cuda.memory_allocated(dev)
+        model = sd_model(dev, "a", g.model)
+        prompts = [r.prompt for r in serve_requests(model.cfg, "B")[i * rows:(i + 1) * rows]]
+        dist.barrier()
+        t0 = time.perf_counter()
+        logits, cache = sd_prefill(model, prompts)
+        sync()
+        out["a_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        step = make_serve_step(model, g)
+        steps, ms = [logits.float().cpu()], []
+        toks = torch.from_numpy(tokens_a[:, i * rows:(i + 1) * rows]).to(dev)
+        del logits
+        for t in range(SD_A_STEPS):
+            if t == 1:
+                sync()
+                torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = step(model.tree(), toks[t], cache)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if t == 1:
+                out["a_peak"] = torch.cuda.max_memory_allocated(dev) - base
+            steps.append(logits.float().cpu())
+            del logits
+        out["a_logits"], out["a_ms"] = torch.stack(steps), ms
+        del model, cache, step, toks
+        sync()
+        torch.cuda.empty_cache()
+
+        base = torch.cuda.memory_allocated(dev)
+        model = sd_model(dev, "b", g.model)
+        step = make_serve_step(model, g, seq_axis="data")
+        toks = torch.from_numpy(sd_b_tokens(model.cfg)).to(dev)
+        for pos in SD_B_POS:
+            cache = sd_fill_cache(model, pos, g.data, g.model)
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            steps, ms = [], []
+            for t in range(SD_B_STEPS):
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                logits, cache = step(model.tree(), toks[t], cache)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if t == 0:
+                    out[f"b{pos}_peak"] = torch.cuda.max_memory_allocated(dev) - base
+                steps.append(logits.float().cpu())
+                del logits
+            out[f"b{pos}_logits"], out[f"b{pos}_ms"] = torch.stack(steps), ms
+            del cache
+            sync()
+            torch.cuda.empty_cache()
+    out["launches"] = dict(build.launches)
+    dist.barrier()
+    return out
+
+
+def sd_b_tokens(cfg):
+    """serve_dist (b)'s decode tokens, [SD_B_STEPS, 1]."""
+    return np.random.RandomState(SEED + 7).randint(0, cfg.vocab, (SD_B_STEPS, 1)).astype(
+        np.int64)
+
+
+def sd_one_process(dev):
+    """serve_dist's work in this process on the card, unsplit: (a) the
+    prefills and SD_A_STEPS greedy decode steps (their tokens feed the
+    ranks), (b) the dense decode of each whole cache."""
+    from repro_torch.serve import make_serve_step
+    out = {}
+    with torch.inference_mode():
+        model = sd_model(dev, "a")
+        prompts = [r.prompt for r in serve_requests(model.cfg, "B")[:SD_A_ROWS]]
+        logits, cache = sd_prefill(model, prompts)
+        step = make_serve_step(model)
+        steps, toks = [logits.float().cpu()], []
+        for _ in range(SD_A_STEPS):
+            tok = torch.argmax(logits, dim=-1)
+            toks.append(tok.cpu())
+            logits, cache = step(model.tree(), tok, cache)
+            steps.append(logits.float().cpu())
+        out["a_logits"], out["a_tokens"] = torch.stack(steps), torch.stack(toks).numpy()
+        del model, cache, logits
+        torch.cuda.empty_cache()
+        model = sd_model(dev, "b")
+        step = make_serve_step(model)
+        toks = torch.from_numpy(sd_b_tokens(model.cfg)).to(dev)
+        for pos in SD_B_POS:
+            cache = sd_fill_cache(model, pos)
+            steps = []
+            for t in range(SD_B_STEPS):
+                logits, cache = step(model.tree(), toks[t], cache)
+                steps.append(logits.float().cpu())
+            out[f"b{pos}_logits"] = torch.stack(steps)
+            del cache, logits
+            torch.cuda.empty_cache()
+    return out
+
+
+def sd_dryrun():
+    """The dry run's rank 0 of serve_dist's two layouts (meta tensors):
+    (a)'s decode step at SD_A_ROWS / SD_DATA rows and a cache of SD_A_MAX,
+    (b)'s at long_500k's sequence-sharded cache."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    grid_kw = dict(learners=SD_DATA, model_shards=TP_M, per_rank=True)
+    try:
+        a = dryrun.measure(get_config(SERVE_ARCH), "decode_32k", shape=dict(
+            seq_len=SD_A_MAX, global_batch=SD_A_ROWS, kind="decode"), **grid_kw)
+        b = dryrun.measure(dataclasses.replace(get_config(SD_B_ARCH), n_layers=SD_B_LAYERS,
+                                               dtype="float32"), "long_500k", **grid_kw)
+        return a, b
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def serve_dist_path(dev, launches, smi):
+    """The serve_dist path: decode and prefill across SD_DATA x TP_M ranks
+    sharing the card (``transport="host"``): (a) the decode_32k layout,
+    batch rows over 'data' and heads over 'model', internlm2-1.8b at all 24
+    layers on traffic B's prompts, within SERVE_TOL of the one-process
+    decode; (b) long_500k's, gemma3-12b at one unit with its caches split by
+    slot over 'data', within SD_B_TOL of one process's dense decode of the
+    whole cache; rank 0's peaks against the dry run's. No SAFE kernel runs
+    on these paths: their launch line says so."""
+    t0 = time.perf_counter()
+    pred_a, pred_b = sd_dryrun()
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = sd_one_process(dev)
+    one_s = time.perf_counter() - t0
+    size = SD_DATA * TP_M
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_serve_dist_rank, size, (one["a_tokens"],))
+    ranks_s = time.perf_counter() - t0
+    how = (f"{SD_DATA} data x {TP_M} model ranks = {size} ranks sharing "
+           f"{torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers")
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
+    say(f"phase 4 main path serve_dist ({how}; dist.grid: rank 2*i + j): (a) {SERVE_ARCH} at "
+        f"full width and all 24 layers (bf16, seed {SEED}), the decode_32k layout: "
+        f"{SD_A_ROWS} of traffic B's prompts, {SD_A_ROWS // SD_DATA} a data rank, each "
+        f"prefilled alone into its rank's cache of {SD_A_MAX} and its model rank's kv heads, "
+        f"then {SD_A_STEPS} decode steps through make_serve_step(model, grid) teacher-forced "
+        f"on the one-process run's greedy tokens; (b) {SD_B_ARCH} at full width in f32, reduced: "
+        f"n_layers 48 -> {SD_B_LAYERS} (one unit: 5 local, 1 global), long_500k's layout: "
+        f"batch 1, every attention cache's {SD_B_SEQ} slots (the local rings' 1024) split "
+        f"over the data ranks, seeded random k and v, pos {list(SD_B_POS)}, {SD_B_STEPS} "
+        f"decode steps through make_serve_step(model, grid, seq_axis='data'); "
+        f"{ranks_s:.1f} s spawned, {one_s:.1f} s for the same in one process; SAFE kernel "
+        f"launches (none on these paths) {counts}")
+    if any(counts.values()):
+        fail(f"serve_dist launched a SAFE kernel: {counts}")
+    problems, gates = [], []
+
+    def gate(name, key, tol):
+        want = one[key]
+        worst = 0.0
+        for r in ranks:
+            got = r[key]
+            if key == "a_logits":
+                i = r["pos"][0]
+                rows = SD_A_ROWS // SD_DATA
+                want_r = want[:, i * rows:(i + 1) * rows]
+            else:
+                want_r = want
+            if not torch.isfinite(got).all():
+                problems.append(f"serve_dist {name}: rank {r['pos']} has a non-finite logit")
+            for s in range(want_r.shape[0]):
+                worst = max(worst, float((got[s] - want_r[s]).abs().max()
+                                         / want_r[s].abs().max()))
+        gates.append(f"{name} {worst:.2e} of max |logit| (bound {tol})")
+        if worst > tol:
+            problems.append(f"serve_dist {name}: {worst:.2e} of max |logit| over {tol}")
+
+    gate("(a) prefill and decode", "a_logits", SERVE_TOL)
+    for pos in SD_B_POS:
+        gate(f"(b) pos {pos}", f"b{pos}_logits", SD_B_TOL)
+    for key in ["a_logits"] + [f"b{pos}_logits" for pos in SD_B_POS]:
+        for r in ranks:  # the data ranks of (b) and the model ranks of a row agree bit for bit
+            twin = ranks[r["pos"][1]] if key != "a_logits" else ranks[2 * r["pos"][0]]
+            if not torch.equal(r[key], twin[key]):
+                problems.append(f"serve_dist {key}: rank {r['pos']} differs from rank "
+                                f"{twin['pos']}")
+    dry = []
+    for name, pred, peak in [("(a) decode", pred_a, ranks[0]["a_peak"])] + [
+            (f"(b) decode pos {pos}", pred_b, ranks[0][f"b{pos}_peak"]) for pos in SD_B_POS]:
+        p = pred["peak_bytes"]
+        dry.append(f"{name}: dry run {p / 1e9:.3f} GB against max_memory_allocated "
+                   f"{peak / 1e9:.3f} GB, off by {abs(p - peak) / peak:.2%}")
+        if abs(p - peak) / peak > DRY_TOL:
+            problems.append(f"serve_dist rank 0's {dry[-1]}, over {DRY_TOL:.0%}")
+    say(f"phase 5 serve_dist: logits against the one-process port on the card: "
+        f"{'; '.join(gates)}; rank 0's peak over one step against the dry run's (--per-rank "
+        f"--model-shards {TP_M}, {dry_s:.1f} s on meta tensors): {'; '.join(dry)} (bound "
+        f"{DRY_TOL:.0%}); collective bytes a rank by op: (a) "
+        f"{json.dumps(pred_a['collective_bytes'])}, (b) "
+        f"{json.dumps(pred_b['collective_bytes'])} (dry run)")
+    lead = ranks[0]
+    say(f"phase 6 serve_dist ({how}): (a) prefill {max(r['a_prefill_ms'] for r in ranks):.1f} "
+        f"ms for a rank's {SD_A_ROWS // SD_DATA} prompts, decode step "
+        f"{sorted(round(x, 1) for x in lead['a_ms'])[len(lead['a_ms']) // 2]} ms median "
+        f"(rank 0), peak {lead['a_peak'] / 1e9:.3f} GB a rank; (b) decode step "
+        + ", ".join(f"pos {pos}: {sorted(round(x, 1) for x in lead[f'b{pos}_ms'])[SD_B_STEPS // 2]}"
+                    f" ms median, peak {lead[f'b{pos}_peak'] / 1e9:.3f} GB" for pos in SD_B_POS))
+    if problems:
+        fail(" | ".join(problems))
+
+
 def tree_size_of(model):
     from repro_torch.train import tree_size
     return tree_size(model.tree())
@@ -4667,6 +5331,10 @@ def main():
     timed("tp dist", tp_dist_path, dev, launches, err, smi)
     torch.cuda.empty_cache()
     timed("tp zoo", tp_zoo_path, dev, launches, err, smi)
+    torch.cuda.empty_cache()
+    timed("pod tp", pod_tp_path, dev, launches, err, smi)
+    torch.cuda.empty_cache()
+    timed("serve dist", serve_dist_path, dev, launches, smi)
     say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
         f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")

@@ -24,7 +24,9 @@ pad of the reserved range is used twice. A weighted round's weight word
 rides with the last chunk. With a pod axis the ranks
 form a ('pod', 'data') grid (``launch/mesh.py::make_pod_mesh``): each pod
 runs the round over its learners' ``World`` and the pods' results meet
-over the pod ``World`` (``chain.pod_mean_rank``).
+over the pod ``World`` (``chain.pod_mean_rank``); with model shards too
+(the ('pod', 'data', 'model') grid, ``dist.grid``) each pod's ring j runs
+chunk j's round and the pods' chunks meet over the pod group.
 
 Key provisioning (DESIGN.md §6): a ``provisioning_seed`` models the
 Round-0 out-of-band exchange (hop keys are KDF(provisioning, i, j)); each
@@ -198,16 +200,17 @@ class SecureAggregator:
         ``dist.grid_worlds``): ``values`` is chunk j (its model rank) of
         the vector, every chunk of one even length L; ``world`` is the ring
         of the ranks holding chunk j, and the result is words [j·L,
-        (j + 1)·L) of the published mean (see the module docstring). Every
-        rank of the grid calls it at once."""
+        (j + 1)·L) of the published mean (see the module docstring). With
+        ``pod_world`` too (the ('pod', 'data', 'model') grid,
+        ``dist.grid``), ring (p, j) runs chunk j's round in pod p and the
+        pods' chunks meet over the pod group: words [j·L, (j + 1)·L) of the
+        one-card ``pod_rounds``' mean. Every rank of the grid calls it at
+        once."""
         self.check_world(world, pod_world)
         values = torch.as_tensor(values, dtype=torch.float32).to(world.device).contiguous()
         if values.dim() != 1:
             raise ValueError(f"values: expected this rank's [V] vector, got {tuple(values.shape)}")
         if model_world is not None and model_world.size > 1:
-            if pod_world is not None:
-                raise ValueError("pods with model shards: the ('pod', 'data', 'model') round "
-                                 "is the dry run's production-mesh slice")
             if values.shape[0] % 2:
                 raise ValueError(f"a chunk of {values.shape[0]} words: model-sharded chunks "
                                  "have an even length, so each starts on a counter")

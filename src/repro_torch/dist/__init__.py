@@ -7,12 +7,14 @@ package's ``jax.lax`` collectives over it. The per-rank rounds are
 per-rank FedAvg round and train step take a ``world`` (or a live mesh).
 With model shards (``grid_worlds``, or a ('data', 'model') mesh and
 ``model_world_of``) a learner's model is split over its model group by
-Megatron tensor parallelism (``Model(cfg, tp_world=...)``).
+Megatron tensor parallelism (``Model(cfg, tp_world=...)``); ``grid``
+gives a rank its pod, ring and model Worlds of the ('pod', 'data',
+'model') grid.
 Importing this package starts no process group.
 """
 from repro_torch.dist import collectives
-from repro_torch.dist.world import (TRANSPORTS, World, close_world, grid_worlds, init_world,
-                                   model_world_of, rank_world, spawn)
+from repro_torch.dist.world import (TRANSPORTS, Grid, World, close_world, grid, grid_worlds,
+                                   init_world, model_world_of, pod_world_of, rank_world, spawn)
 
-__all__ = ["World", "TRANSPORTS", "init_world", "close_world", "rank_world", "model_world_of",
-           "grid_worlds", "spawn", "collectives"]
+__all__ = ["World", "Grid", "TRANSPORTS", "init_world", "close_world", "rank_world",
+           "model_world_of", "pod_world_of", "grid", "grid_worlds", "spawn", "collectives"]

@@ -18,6 +18,9 @@ over the learner axis:
   tensor, so the bits are that sum's (a backend's all-reduce adds in an
   order of its own); uint32: the sum mod 2^32;
 - ``pmean`` — f32: an all-gather, then ``mean(dim=0)``;
+- ``pmax`` — ``jax.lax.pmax``: an all-gather, then ``amax(dim=0)``
+  (the log-sum-exp merge of a sequence-sharded KV cache,
+  ``models/layers.py``);
 - ``broadcast(x, src)`` — ``src``'s tensor on every rank;
 - ``all_to_all(x, split_axis, concat_axis, tiled)`` — chunk j of ``x``
   along ``split_axis`` to rank j, the chunks received concatenated along
@@ -45,6 +48,10 @@ Megatron's three operators over the model group (tensor parallelism,
   after it is computed alike on every model rank, so a summed backward
   would count the gradient m times).
 
+Each operator is an ``autograd.Function`` only where autograd records:
+under ``torch.no_grad()`` or ``torch.inference_mode()`` (serving) it is
+the plain collective.
+
 uint32 crosses the wire as its int32 view, the bits unchanged (neither
 gloo nor NCCL takes ``torch.uint32``). With the ``host`` transport a CUDA
 tensor is copied to a pinned host buffer before the message and back to
@@ -54,23 +61,38 @@ in them, the device synchronised before each (queued kernels are not the
 transport's) and after it (an NCCL call returns once its work is queued,
 so only then has the message arrived). Untimed, the default, no
 collective synchronises the device.
+
+``stats["bytes"]`` counts, by op, the bytes each call would send from
+this rank (on a fake group too, where nothing moves: the dry run's
+records): ``psum`` (and ``pmean``), ``pmax`` and ``all_gather`` the
+(n − 1) copies of its tensor a direct exchange sends, ``all_to_all`` the
+(n − 1)/n of its buffer bound for other ranks, ``ppermute`` and ``send``
+one tensor a destination, ``broadcast`` (n − 1) copies from the source
+and nothing from the others. ``reset_stats`` zeroes them.
 """
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.crypto.fixedpoint import ring_add
 
-#: whether the collectives are timed, and their seconds since ``reset_stats``
-stats = {"timed": False, "seconds": 0.0}
+#: whether the collectives are timed, their seconds and the bytes they
+#: would send by op since ``reset_stats``
+stats = {"timed": False, "seconds": 0.0, "bytes": Counter()}
 
 
 def reset_stats(timed: bool = False) -> None:
-    """Zero ``stats["seconds"]`` and time the collectives from now on, or not."""
-    stats.update(timed=timed, seconds=0.0)
+    """Zero ``stats["seconds"]`` and ``stats["bytes"]``, and time the
+    collectives from now on, or not."""
+    stats.update(timed=timed, seconds=0.0, bytes=Counter())
+
+
+def _count(op: str, x: torch.Tensor, copies: float) -> None:
+    stats["bytes"][op] += int(x.numel() * x.element_size() * copies)
 
 
 def _dist():
@@ -135,6 +157,7 @@ def _back(t: torch.Tensor, dtype: torch.dtype, world) -> torch.Tensor:
 
 def send(x: torch.Tensor, dst: int, world) -> None:
     """Send ``x`` to rank ``dst`` (blocks until it is handed off)."""
+    _count("send", x, 1)
     with _Timed(world):
         _dist().send(_wire(x, world), world.global_rank(dst), group=world.group)
 
@@ -157,6 +180,7 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]], world) -> torch.T
     srcs = [s for s, d in perm if d == me]
     if len(srcs) > 1:
         raise ValueError(f"rank {me} is the destination of {len(srcs)} pairs")
+    _count("ppermute", x, len(dsts))
     with _Timed(world):
         wire = _wire(x, world)
         buf = _buffer(x.shape, x.dtype, world)
@@ -173,11 +197,14 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]], world) -> torch.T
     return out
 
 
-def all_gather(x: torch.Tensor, world, tiled: bool = False) -> torch.Tensor:
+def all_gather(x: torch.Tensor, world, tiled: bool = False, *,
+               op: str = "all_gather") -> torch.Tensor:
     """``jax.lax.all_gather``: every rank's ``x`` stacked [n, ...] in rank
-    order, or with ``tiled`` concatenated along dim 0."""
+    order, or with ``tiled`` concatenated along dim 0 (``op``: the name its
+    bytes count under)."""
     dist = _dist()
     n = world.size
+    _count(op, x, n - 1)
     with _Timed(world):
         wire = _wire(x, world)
         out = _buffer((n,) + tuple(x.shape), x.dtype, world)
@@ -212,7 +239,7 @@ def gather_to_host(x: torch.Tensor, dst: int, world, axis: int = 0) -> Optional[
 def psum(x: torch.Tensor, world) -> torch.Tensor:
     """``jax.lax.psum`` over the learners: f32 as the one-card sum over dim
     0 of the stacked [n, ...] tensor; uint32 mod 2^32."""
-    stack = all_gather(x, world)
+    stack = all_gather(x, world, op="psum")
     if x.dtype == torch.uint32:
         total = stack[0]
         for row in stack[1:]:
@@ -224,12 +251,20 @@ def psum(x: torch.Tensor, world) -> torch.Tensor:
 def pmean(x: torch.Tensor, world) -> torch.Tensor:
     """``jax.lax.pmean`` over the learners: the mean over dim 0 of the
     stacked [n, ...] tensor."""
-    return all_gather(x, world).mean(dim=0)
+    return all_gather(x, world, op="psum").mean(dim=0)
+
+
+def pmax(x: torch.Tensor, world) -> torch.Tensor:
+    """``jax.lax.pmax``: the elementwise max over the ranks (an all-gather,
+    then ``amax`` over dim 0: the same bits on every rank, whatever the
+    transport)."""
+    return all_gather(x, world, op="pmax").amax(dim=0)
 
 
 def broadcast(x: torch.Tensor, src: int, world) -> torch.Tensor:
     """Rank ``src``'s ``x`` on every rank (the others pass a tensor of the
     same shape and dtype, whose values are not read)."""
+    _count("broadcast", x, world.size - 1 if world.rank == src else 0)
     with _Timed(world):
         if world.rank == src:
             buf = _wire(x, world)
@@ -256,6 +291,7 @@ def _exchange(x: torch.Tensor, world, split_axis: int, concat_axis: int,
             raise ValueError(f"all_to_all: untiled, dim {split_axis} of {tuple(x.shape)} must "
                              f"be the {n} ranks")
         lead = x.movedim(split_axis, 0)
+    _count("all_to_all", x, (n - 1) / n)
     with _Timed(world):
         wire = _wire(lead, world)
         out = _buffer(lead.shape, x.dtype, world)
@@ -336,7 +372,7 @@ class _GatherFromModel(torch.autograd.Function):
 
 def copy_to_model(x: torch.Tensor, world) -> torch.Tensor:
     """Megatron's f: ``x`` unchanged; its gradient ``psum``'d over ``world``."""
-    if world is None or world.size == 1:
+    if world is None or world.size == 1 or not (torch.is_grad_enabled() and x.requires_grad):
         return x
     return _CopyToModel.apply(x, world)
 
@@ -370,5 +406,5 @@ def gather_from_model(x: torch.Tensor, world, dim: int = -1) -> torch.Tensor:
 
 
 __all__ = ["axis_index", "ppermute", "send", "recv", "all_gather", "gather_to_host", "psum",
-           "pmean", "broadcast", "all_to_all", "copy_to_model", "reduce_from_model",
+           "pmean", "pmax", "broadcast", "all_to_all", "copy_to_model", "reduce_from_model",
            "all_reduce_model", "gather_from_model", "stats", "reset_stats"]

@@ -92,6 +92,8 @@ def rank_world(mesh, axis: str = "data") -> Optional[World]:
     are dim 0 of one device."""
     if mesh is None or isinstance(mesh, World):
         return mesh
+    if isinstance(mesh, Grid):
+        return mesh.axis(axis)
     import torch.distributed as dist
     if not dist.is_initialized() or dist.get_backend() == "fake" or _CURRENT is None:
         return None
@@ -106,9 +108,11 @@ def rank_world(mesh, axis: str = "data") -> Optional[World]:
 def pod_world_of(mesh, axis: str = "pod") -> Optional[World]:
     """The pod ``World`` of a ('pod', 'data') mesh over a live group
     (``rank_world(mesh, axis)``); None for a ``World`` (a World is one
-    learner axis, with no pods) or no mesh."""
+    learner axis, with no pods) or no mesh; a ``Grid``'s pod World."""
     if mesh is None or isinstance(mesh, World):
         return None
+    if isinstance(mesh, Grid):
+        return mesh.pod
     return rank_world(mesh, axis)
 
 
@@ -117,13 +121,75 @@ def model_world_of(mesh, axis: str = "model") -> Optional[World]:
     (``rank_world(mesh, axis)``: the ranks holding one learner's model
     shards, consecutive in the reference's order, rank l·m + j being
     learner l's shard j); None for a ``World``, no mesh, or a mesh without
-    a model dimension or with one of size 1."""
+    a model dimension or with one of size 1; a ``Grid``'s model World."""
     if mesh is None or isinstance(mesh, World):
         return None
+    if isinstance(mesh, Grid):
+        return mesh.model
     if axis not in tuple(mesh.mesh_dim_names or ()):
         return None
     world = rank_world(mesh, axis)
     return world if world is not None and world.size > 1 else None
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """One rank's Worlds on the reference's ('pod', 'data', 'model') grid
+    (``grid``): ``data`` the learners' ring (the n learners of its pod
+    holding the same model shard), ``model`` its model group (None for
+    m = 1), ``pod`` its pod group (the P ranks of the same learner and
+    shard, one a pod; None for one pod). It stands where a mesh does:
+    ``rank_world(grid, axis)``, ``pod_world_of`` and ``model_world_of``
+    read it, so ``make_train_step(model, agg, grid, pod_axis="pod")`` and
+    ``make_federated_round`` take it as they take a ('pod', 'data',
+    'model') ``DeviceMesh``."""
+
+    data: World
+    model: Optional[World] = None
+    pod: Optional[World] = None
+
+    def axis(self, name: str) -> Optional[World]:
+        if name not in ("data", "model", "pod"):
+            raise ValueError(f"the grid has no {name!r} dimension (pod, data, model)")
+        return getattr(self, name)
+
+
+def grid(world: World, model_shards: int = 1, pods: int = 1) -> Grid:
+    """This rank's ``Grid`` of the P × n × m ranks of ``world`` in the
+    reference's device order, pod-major: rank r = (p·n + l)·m + j is pod
+    p's learner l, model shard j. Its ring is the n ranks (p, ·, j), its
+    model group the m ranks (p, l, ·) and its pod group the P ranks
+    (·, l, j). Every rank must call it (each ``new_group`` is collective,
+    in one order everywhere: the pod groups, the rings, the model
+    groups)."""
+    m, P = int(model_shards), int(pods)
+    if m < 1 or P < 1 or world.size % (m * P):
+        raise ValueError(f"{world.size} ranks do not split into {P} pods of model groups "
+                         f"of {m}")
+    n = world.size // (m * P)
+    if m == 1 and P == 1:
+        return Grid(data=world)
+    import torch.distributed as dist
+    base = [world.global_rank(r) for r in range(world.size)]
+
+    def at(p, l, j):
+        return base[(p * n + l) * m + j]
+
+    pod_groups = ({(l, j): dist.new_group([at(p, l, j) for p in range(P)])
+                   for l in range(n) for j in range(m)} if P > 1 else {})
+    rings = {(p, j): dist.new_group([at(p, l, j) for l in range(n)])
+             for p in range(P) for j in range(m)}
+    models = ({(p, l): dist.new_group([at(p, l, j) for j in range(m)])
+               for p in range(P) for l in range(n)} if m > 1 else {})
+    p, rest = divmod(world.rank, n * m)
+    l, j = divmod(rest, m)
+
+    def make(rank, size, group):
+        return World(rank=rank, size=size, device=world.device, transport=world.transport,
+                     group=group)
+    return Grid(data=make(l, n, rings[p, j]),
+                model=make(j, m, models[p, l]) if m > 1 else None,
+                pod=make(p, P, pod_groups[l, j]) if P > 1 else None)
 
 
 def grid_worlds(world: World, model_shards: int) -> tuple:
@@ -131,25 +197,11 @@ def grid_worlds(world: World, model_shards: int) -> tuple:
     ``world.size`` ranks of ``world``, without a ``DeviceMesh``: rank
     r = l·m + j is learner l's model shard j (the reference's device
     order), its ring the n ranks with the same j and its model group the m
-    consecutive ranks l·m .. l·m + m − 1. Every rank must call it (each
-    ``new_group`` is collective, in one order everywhere). With
-    ``model_shards`` 1 it returns (``world``, None)."""
-    m = int(model_shards)
-    if m < 1 or world.size % m:
-        raise ValueError(f"{world.size} ranks do not split into model groups of {m}")
-    if m == 1:
-        return world, None
-    import torch.distributed as dist
-    n = world.size // m
-    base = [world.global_rank(r) for r in range(world.size)]
-    rings = [dist.new_group([base[l * m + j] for l in range(n)]) for j in range(m)]
-    models = [dist.new_group(base[l * m:(l + 1) * m]) for l in range(n)]
-    l, j = divmod(world.rank, m)
-    ring = World(rank=l, size=n, device=world.device, transport=world.transport,
-                 group=rings[j])
-    model = World(rank=j, size=m, device=world.device, transport=world.transport,
-                  group=models[l])
-    return ring, model
+    consecutive ranks l·m .. l·m + m − 1 (``grid`` with one pod). Every
+    rank must call it. With ``model_shards`` 1 it returns (``world``,
+    None)."""
+    g = grid(world, model_shards)
+    return g.data, g.model
 
 
 def _pick(device: str, transport: Optional[str], local_rank: int,
@@ -287,5 +339,5 @@ def spawn(fn: Callable, world_size: int, device: str = "cuda", *,
                 for r in range(world_size)]
 
 
-__all__ = ["World", "TRANSPORTS", "init_world", "close_world", "rank_world", "pod_world_of",
-           "model_world_of", "grid_worlds", "spawn"]
+__all__ = ["World", "Grid", "TRANSPORTS", "init_world", "close_world", "rank_world",
+           "pod_world_of", "model_world_of", "grid", "grid_worlds", "spawn"]

@@ -26,15 +26,20 @@ memory and cost analyses. Here, per combination and mesh:
   ``collectives`` is empty by construction: the learners' ring is a roll
   of dim 0 of a learner-major tensor.
 
-  ``--per-rank`` (train_4k): rank 0's step with one learner a rank
-  (``repro_torch.dist``) instead — its own batch, its ZeRO-1 slice of the
-  master vector and moments and, for a MoE, its E/n experts — over a fake
-  process group of n ranks whose collectives move nothing; what one card a
-  rank must hold under ``torch.distributed.run`` (rank 0 initiates the
-  round at counter 0: it holds the initiator's mask too). With
-  ``--model-shards m`` rank 0 of the ('data', 'model') grid of n·m ranks:
-  learner 0's model shard 0, with its tensor-parallel shards, its chunk's
-  round and its ZeRO-1 part of that chunk.
+  ``--per-rank``: rank 0's program with one grid position a rank
+  (``repro_torch.dist``) instead, over a fake process group whose
+  collectives move nothing; what one card a rank must hold under
+  ``torch.distributed.run``. train_4k: its own batch, its ZeRO-1 slice of
+  the master vector and moments and, for a MoE, its E/n experts (rank 0
+  initiates the round at counter 0: it holds the initiator's mask too).
+  With ``--model-shards m`` rank 0 of the ('data', 'model') grid of n·m
+  ranks: learner 0's model shard 0, with its tensor-parallel shards, its
+  chunk's round and its ZeRO-1 part of that chunk. prefill_32k,
+  decode_32k and long_500k: its ``--batch`` rows (default: the global
+  batch over the data ranks) on its shards, long_500k's caches split by
+  slot over the data ranks. ``collectives`` then holds the bytes each
+  collective call of the rank would send, by op
+  (``dist/collectives.py``'s count).
 
   The count is the program's own tensors: cuBLAS's workspace (64 MiB on
   the H100, allocated at a process's first matrix product) is not in it,
@@ -47,12 +52,15 @@ memory and cost analyses. Here, per combination and mesh:
   torch built without CUDA cannot slice a fake CUDA tensor.
 
 ``pod256`` / ``pod512`` (``--multi-pod``): the reference's production
-  meshes, as ``DeviceMesh``es on a fake process group of 512 ranks
-  (``launch/mesh.py``). The arguments carry the reference's placements,
-  and the record holds ``argument_bytes`` per device with ``status:
-  "placements_only"``: temporary bytes and collectives on these meshes
-  need the production meshes' ('pod', 'data', 'model') program (ROADMAP
-  Queue 1 item 3).
+  meshes, 16 data × 16 model ranks and two pods of them. The record is
+  rank 0's program on meta tensors over a fake process group of 256 or 512
+  ranks (``MESH_GRIDS``; the specs' ``per_rank``: every rank of the grid
+  runs the same program on shards of the same shapes): the train step of the ('pod',
+  'data', 'model') grid, or its serving step, measured as above, with the
+  bytes its collectives would send by op. Where the port refuses a layout
+  that the reference's GSPMD runs (a split that cuts a head; expert
+  parallelism with pods) the record says ``status: "refused"`` with the
+  port's message.
 
 The reference's ``_shape_bytes`` and ``parse_collectives`` read XLA's HLO
 text and have no counterpart here. Records go to
@@ -73,7 +81,6 @@ import argparse
 import collections
 import dataclasses
 import json
-import math
 import os
 import sys
 import time
@@ -156,6 +163,7 @@ def measure(cfg, shape_name: str, *, shape=None, block: int = CUDA_BLOCK,
     memory, FLOP and kernel figures, or None where the reference skips the
     shape."""
     from repro_torch.compat import FlopCounterMode
+    from repro_torch.dist import collectives
     from repro_torch.kernels import ops
     from repro_torch.launch.input_specs import build_spec
     from repro_torch.train.flatten import leaves
@@ -170,12 +178,14 @@ def measure(cfg, shape_name: str, *, shape=None, block: int = CUDA_BLOCK,
             mem.add(t, category)
     arguments = mem.total
     ops.reset_fake_calls()
+    collectives.reset_stats()
     with mem, FlopCounterMode(display=False) as flops:
         spec.fn(*spec.args, **spec.kwargs)
     return {"description": spec.description, "argument_bytes": arguments,
             "peak_bytes": mem.peak, "peak_by_category": dict(sorted(mem.at_peak.items())),
             "matmul_flops": int(flops.get_total_flops()),
             "kernels": {k: dict(v) for k, v in ops.fake_calls.items() if v["calls"]},
+            "collective_bytes": dict(sorted(collectives.stats["bytes"].items())),
             "run_s": round(time.time() - t0, 2)}
 
 
@@ -215,26 +225,11 @@ def max_units_that_fit(cfg, shape_name: str, cap: int, peak_at_depth: int, *, sh
             "peak_bytes_by_units": by_units()}
 
 
-def _placements_only(cfg, shape_name: str, mesh_name: str, spec_kw: dict) -> dict:
-    from repro_torch.launch.input_specs import build_spec
-    from repro_torch.launch.mesh import make_production_mesh, start_fake_world
-    from repro_torch.train.flatten import leaves
-
-    start_fake_world(512)
-    mesh = make_production_mesh(multi_pod=mesh_name == "pod512")
-    spec = build_spec(cfg, mesh, shape_name, device="meta", **spec_kw)
-    if spec is None:
-        return None
-    args = leaves(spec.args)
-    return {"description": spec.description, "status": "placements_only",
-            "arguments": len(args),
-            "argument_bytes": int(sum(a.local_bytes(mesh) for a in args)),
-            "global_argument_bytes": int(sum(a.dtype.itemsize * math.prod(a.shape)
-                                             for a in args)),
-            "not_measured": "temporary bytes and collectives: the port's train step "
-                            "across ranks exists (--per-rank, with --model-shards for the "
-                            "('data', 'model') grid); running the production meshes' "
-                            "program is ROADMAP Queue 1 item 3"}
+#: the production meshes' grids: the reference's 16 x 16 mesh, and two pods of it
+MESH_GRIDS = {"pod256": dict(learners=16, model_shards=16, pods=1),
+              "pod512": dict(learners=16, model_shards=16, pods=2)}
+#: the port's refusals of a layout the reference's GSPMD runs
+REFUSALS = ("would cut a head", "expert parallelism with a pod axis")
 
 
 def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str = "safe",
@@ -245,7 +240,9 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
     smoke configuration; ``seq_len``: the shape's sequence length, if not
     its own; ``n_layers``: the depth, if not the configuration's).
     ``size_kw`` (``learners``, ``batch``, ``per_rank``, ``model_shards``)
-    size the train step."""
+    size the grid (the serving specs read them with ``per_rank``); on
+    ``pod256`` / ``pod512`` the record is rank 0's program of that mesh's
+    grid."""
     from repro_torch.launch.input_specs import INPUT_SHAPES
     from repro_torch.configs import get_config, get_smoke_config
 
@@ -263,9 +260,10 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
         record["config"] = cfg.arch_id
     if n_layers:
         record["n_layers"] = n_layers
-    spec_kw = dict(aggregator_mode=aggregator_mode, pipelined=pipelined,
-                    subgroups=subgroups, chain_model_sharded=chain_model_sharded,
-                    **{k: v for k, v in size_kw.items() if v}) if shape_name == "train_4k" else {}
+    spec_kw = {k: v for k, v in size_kw.items() if v}  # the serving specs read the grid's
+    if shape_name == "train_4k":
+        spec_kw.update(aggregator_mode=aggregator_mode, pipelined=pipelined,
+                       subgroups=subgroups, chain_model_sharded=chain_model_sharded)
     if seq_len:
         record["seq_len"] = seq_len
         spec_kw["shape"] = dict(INPUT_SHAPES[shape_name], seq_len=seq_len)
@@ -273,11 +271,15 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
                "reason": ("long_500k requires sub-quadratic attention; "
                           f"{arch} is pure global attention (DESIGN.md §5)")}
     if mesh != "one":
-        out = _placements_only(cfg, shape_name, mesh, spec_kw)
-        record.update(skipped if out is None else out)
+        spec_kw.update(per_rank=True, **MESH_GRIDS[mesh])
+    try:
+        m = measure(cfg, shape_name, **spec_kw)
+    except ValueError as e:
+        if not any(r in str(e) for r in REFUSALS):
+            raise
+        record.update(status="refused", reason=str(e))
+        print(f"[dryrun] {arch} {shape_name} {mesh}: refused ({e})", flush=True)
         return record
-
-    m = measure(cfg, shape_name, **spec_kw)
     if m is None:
         record.update(skipped)
         return record
@@ -291,10 +293,12 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
                    "total_per_device_bytes": m["peak_bytes"]},
         "matmul_flops": m["matmul_flops"],
         "kernels": m["kernels"],
-        "collectives": {"total_bytes": 0, "note": (
-            "not counted: rank 0's collectives over a fake group move nothing"
-            if size_kw.get("per_rank") else "none by construction on one card: the "
-            "learners' ring is a roll of dim 0 of a learner-major tensor")},
+        "collectives": ({"total_bytes": sum(m["collective_bytes"].values()),
+                         "by_op": m["collective_bytes"],
+                         "note": "bytes rank 0's collective calls would send"}
+                        if spec_kw.get("per_rank") else
+                        {"total_bytes": 0, "note": "none by construction on one card: the "
+                         "learners' ring is a roll of dim 0 of a learner-major tensor"}),
         "n_units": cfg.n_units,
         "fits": m["peak_bytes"] <= cap,
         "run_s": m["run_s"],
@@ -302,7 +306,7 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
     if not record["fits"]:
         record.update(max_units_that_fit(cfg, shape_name, cap, m["peak_bytes"],
                                          **spec_kw))
-    print(f"[dryrun] {arch} {shape_name} one: peak {m['peak_bytes'] / 1e9:.2f} GB "
+    print(f"[dryrun] {arch} {shape_name} {mesh}: peak {m['peak_bytes'] / 1e9:.2f} GB "
           f"({'fits' if record['fits'] else 'does not fit'} {cap / 1e9:.1f} GB"
           + ("" if record["fits"] else f"; {record['max_units_that_fit']} of "
              f"{cfg.n_units} units fit") + f") matmul {m['matmul_flops'] / 1e12:.2f} TFLOP "
@@ -332,8 +336,6 @@ def table(out_dir=None, mesh="one", tag="") -> str:
             r = json.load(f)
         if r["status"] == "skipped":
             cell = "skipped"
-        elif r["status"] == "placements_only":
-            cell = f"{r['argument_bytes'] / 1e9:.2f} GB"
         elif r["status"] != "ok":
             cell = r["status"]
         else:
@@ -355,7 +357,7 @@ def main(argv=None):
     ap.add_argument("--arch")
     ap.add_argument("--shape", choices=SHAPES)
     ap.add_argument("--mesh", choices=MESHES, default=None,
-                    help="one card (default), or a production mesh's placements")
+                    help="one card (default), or rank 0's program on a production mesh")
     ap.add_argument("--multi-pod", action="store_true", help="the same as --mesh pod512")
     ap.add_argument("--aggregator", default="safe", choices=["safe", "saf", "insec", "bon"])
     ap.add_argument("--pipelined", action="store_true",
@@ -367,11 +369,14 @@ def main(argv=None):
                     help="override MoE capacity factor")
     ap.add_argument("--smoke", action="store_true", help="the archs' smoke configurations")
     ap.add_argument("--learners", type=int, default=None,
-                    help="train_4k's learners (default: the mesh's 'data', 16)")
+                    help="train_4k's learners, with --per-rank the data ranks (default: the "
+                         "mesh's 'data', 16)")
     ap.add_argument("--batch", type=int, default=None,
-                    help="train_4k's sequences a learner (default: 256 over the learners)")
+                    help="train_4k's sequences a learner (default: 256 over the learners); "
+                         "with --per-rank a serving rank's rows (default: the global batch "
+                         "over the data ranks)")
     ap.add_argument("--per-rank", action="store_true",
-                    help="train_4k: rank 0's step with one learner a rank (a card a rank)")
+                    help="rank 0's program with one grid position a rank (a card a rank)")
     ap.add_argument("--model-shards", type=int, default=1,
                     help="with --per-rank: rank 0 of the ('data', 'model') grid, its model "
                          "split over this many ranks")

@@ -19,11 +19,15 @@ kinds of mesh:
   ``_with_sharding`` attaches them — parameters by ``param_pspecs``, flat
   vectors over 'data', the experts' AdamW state mirroring their weights,
   caches by ``cache_pspecs`` with the pod re-spec, tokens over the batch
-  axes. ``fn`` is None there: the dry run reports the arguments' bytes per
-  device, not a run. The port's train step across ranks exists (one
-  learner a rank, pods, and the ('data', 'model') grid: ``per_rank`` runs
-  rank 0's step); running the production meshes' ('pod', 'data',
-  'model') program is ROADMAP Queue 1 item 3.
+  axes. ``fn`` is None there: those specs hold the placements, which the
+  tests hold against the reference's. The program a rank of a grid runs
+  is ``per_rank``'s (with ``learners``, ``model_shards``, ``pods`` and
+  ``batch``; mesh None): rank 0 of the ('pod', 'data', 'model') grid
+  (``dist.grid``) over a fake process group, its entry point called on its
+  own meta tensors — the train step on its shards, chunk and ZeRO-1 part;
+  prefill and decode on its batch rows (over ('pod', 'data')), its heads
+  and, for long_500k, its slots of the sequence-sharded caches. The dry
+  run's production-mesh records are that program on their grids.
 
 Where the program reads a value on the host (the train step's optimizer
 step counters, ``int(state["fstep"])``), the spec hands it a real 0-d
@@ -129,11 +133,43 @@ def params_abstract(model: Model, mesh):
     return _with_sharding(params, specs, mesh), specs
 
 
+def _rank_grid(n: int, m: int, pods: int, device):
+    """Rank 0's ``Grid`` of the pods × n × m ranks, over a fake process
+    group of that many ranks whose collectives move nothing."""
+    from repro_torch.dist import World, grid
+    from repro_torch.launch.mesh import start_fake_world
+    size = start_fake_world(pods * n * m)
+    return grid(World(rank=0, size=size, device=torch.device(device), transport="gloo"), m, pods)
+
+
+def _serving_model(arch_cfg: ModelConfig, g) -> Model:
+    """Rank ``g``'s model on the meta device: its shards over the model
+    group and, for a MoE, its experts over the data ranks."""
+    cfg = arch_cfg
+    if cfg.uses_moe and cfg.moe is not None and g.data.size > 1:
+        cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=g.data.size)
+    return Model(cfg, device="meta", tp_world=g.model, ep_world=g.data)
+
+
+def _rank_rows(shape: dict, n: int, pods: int, batch: Optional[int]) -> int:
+    """A learner's (or serving rank's) batch rows: ``batch``, or the global
+    batch over ('pod', 'data')."""
+    rows = batch or shape["global_batch"] // (n * pods)
+    if rows < 1:
+        raise ValueError(f"a global batch of {shape['global_batch']} does not split over "
+                         f"{n * pods} ranks")
+    return rows
+
+
+def _grid_name(n: int, m: int, pods: int) -> str:
+    return f"rank 0 of n={n}{f' m={m}' if m > 1 else ''} pods={pods}"
+
+
 def train_spec(arch_cfg: ModelConfig, mesh, shape: dict, aggregator_mode: str = "safe",
                pipelined: bool = False, subgroups: int = 1,
                chain_model_sharded: bool = False, *, learners: Optional[int] = None,
                batch: Optional[int] = None, per_rank: bool = False,
-               model_shards: int = 1, device="cuda") -> DryrunSpec:
+               model_shards: int = 1, pods: int = 1, device="cuda") -> DryrunSpec:
     """train_4k: the SAFE train step. ``learners`` (default: the mesh's
     'data', 16 on one card) and ``batch`` (sequences a learner; default
     the global batch over the learners) size it. ``per_rank`` (one card,
@@ -142,49 +178,40 @@ def train_spec(arch_cfg: ModelConfig, mesh, shape: dict, aggregator_mode: str = 
     fake process group of n ranks whose collectives move nothing (rank 0
     initiates the round at counter 0). With ``model_shards`` m > 1, rank 0
     of the ('data', 'model') grid of n·m ranks: learner 0's model shard 0,
-    its tensor-parallel shards, its chunk's round and its ZeRO-1 part."""
+    its tensor-parallel shards, its chunk's round and its ZeRO-1 part;
+    with ``pods`` P > 1, rank 0 of the ('pod', 'data', 'model') grid of
+    P·n·m ranks, its chunk's pod round and the pmean over 'pod'."""
     from repro_torch.core import make_aggregator
     from repro_torch.train.train_step import make_train_step
 
-    axes = {"data": ONE_LEARNERS} if mesh is None else axes_sizes(mesh)
+    axes = {"data": ONE_LEARNERS, "pod": pods} if mesh is None else axes_sizes(mesh)
     n = learners or axes["data"]
     pods = axes.get("pod", 1)
-    pod_axis = "pod" if "pod" in axes else None
+    pod_axis = "pod" if pods > 1 else None
     cfg = arch_cfg
     # the port's step takes every model with expert leaves by expert
     # parallelism (the reference's mesh step only the giant MoEs; the
     # parameters' shapes and the SAFE partition are the same either way)
     if cfg.uses_moe and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=n)
-    world = tp = None
+    g = None
     if model_shards > 1 and not per_rank:
         raise ValueError("model_shards sizes one rank of the ('data', 'model') grid: per_rank")
     if per_rank:
         if mesh is not None:
             raise ValueError("per_rank sizes one rank of the one-card layout: mesh must be None")
-        from repro_torch.dist import World
-        from repro_torch.launch.mesh import make_test_mesh, start_fake_world
-        start_fake_world(n * model_shards)
-        world = World(rank=0, size=n, device=torch.device(device), transport="gloo")
-        if model_shards > 1:
-            grid = make_test_mesh(n, model_shards, device_type="cpu")
-            world = dataclasses.replace(world, group=grid.get_group("data"))
-            tp = World(rank=0, size=model_shards, device=torch.device(device),
-                       transport="gloo", group=grid.get_group("model"))
-    model = Model(cfg, device="meta", ep_world=world, tp_world=tp)
+        g = _rank_grid(n, model_shards, pods, device)
+    model = Model(cfg, device="meta", ep_world=g and g.data, tp_world=g and g.model)
     agg = make_aggregator(aggregator_mode, n, pipelined=pipelined, subgroups=subgroups,
                           pod_axis=pod_axis, device=device)
-    bundle = make_train_step(model, agg, world, pod_axis=pod_axis, donate=True,
+    bundle = make_train_step(model, agg, g, pod_axis=pod_axis, donate=True,
                              chain_model_sharded=chain_model_sharded)
-    B_l = batch or shape["global_batch"] // (n * pods)
-    if B_l < 1:
-        raise ValueError("global batch too small for the mesh")
+    B_l = _rank_rows(shape, n, pods, batch)
     S = shape["seq_len"]
     lead = (B_l,) if per_rank else (n * pods, B_l)   # a rank's tokens are its own
     tok_shape = lead + token_shape(cfg, 1, S)[1:]
-    description = (f"train_step{' rank 0 of' if per_rank else ''} n={n}"
-                   f"{f' m={model_shards}' if model_shards > 1 else ''} pods={pods} "
-                   f"B_l={B_l} agg={aggregator_mode}"
+    where = _grid_name(n, model_shards, pods) if per_rank else f"n={n} pods={pods}"
+    description = (f"train_step {where} B_l={B_l} agg={aggregator_mode}"
                    f"{'+pipelined' if pipelined else ''}"
                    f"{'+msharded' if chain_model_sharded else ''}"
                    f"{f'+g{subgroups}' if subgroups > 1 else ''}")
@@ -242,9 +269,25 @@ def _serving(fn):
     return run
 
 
-def prefill_spec(arch_cfg: ModelConfig, mesh, shape: dict, *, device="cuda") -> DryrunSpec:
+def prefill_spec(arch_cfg: ModelConfig, mesh, shape: dict, *, device="cuda",
+                 per_rank: bool = False, learners: Optional[int] = None,
+                 model_shards: int = 1, pods: int = 1,
+                 batch: Optional[int] = None) -> DryrunSpec:
+    """prefill_32k: ``Model.prefill`` of the global batch on one card, the
+    placements on ``mesh``, or with ``per_rank`` rank 0's prefill of its
+    ``batch`` rows (default: the global batch over ('pod', 'data')) on its
+    shards over a fake grid of ``pods`` × ``learners`` × ``model_shards``
+    ranks (a MoE's experts over the data ranks: the reference's manual
+    expert parallelism)."""
     B, S = shape["global_batch"], shape["seq_len"]
-    model = Model(arch_cfg, device="meta")
+    if per_rank:
+        n = learners or ONE_LEARNERS
+        g = _rank_grid(n, model_shards, pods, device)
+        model = _serving_model(arch_cfg, g)
+        B = _rank_rows(shape, n, pods, batch)
+        mesh = None
+    else:
+        model = Model(arch_cfg, device="meta")
     if mesh is None:
         args = [_zeros(model.tree(), device),
                 torch.zeros(token_shape(arch_cfg, B, S), dtype=torch.int32, device=device)]
@@ -252,7 +295,8 @@ def prefill_spec(arch_cfg: ModelConfig, mesh, shape: dict, *, device="cuda") -> 
             args.append(torch.zeros((B, arch_cfg.prefix_embeds, arch_cfg.d_model),
                                     dtype=torch.bfloat16, device=device))
         return DryrunSpec(fn=_serving(model.prefill), args=tuple(args),
-                          description=f"prefill B={B} S={S}",
+                          description=(f"prefill {_grid_name(n, model_shards, pods)} B_r={B} "
+                                       f"S={S}" if per_rank else f"prefill B={B} S={S}"),
                           memory={"parameters": args[0], "inputs": tuple(args[1:])})
 
     axes = axes_sizes(mesh)
@@ -270,12 +314,37 @@ def prefill_spec(arch_cfg: ModelConfig, mesh, shape: dict, *, device="cuda") -> 
     return DryrunSpec(fn=None, args=tuple(args), description=f"prefill B={B} S={S}")
 
 
-def decode_spec(arch_cfg: ModelConfig, mesh, shape: dict, *, device="cuda") -> DryrunSpec:
+def decode_spec(arch_cfg: ModelConfig, mesh, shape: dict, *, device="cuda",
+                per_rank: bool = False, learners: Optional[int] = None,
+                model_shards: int = 1, pods: int = 1,
+                batch: Optional[int] = None) -> DryrunSpec:
+    """decode_32k and long_500k: one ``Model.decode_step`` on a prefilled
+    cache, which it takes as donated: on one card, the placements on
+    ``mesh``, or with ``per_rank`` rank 0's step through
+    ``make_serve_step(model, grid)`` — its ``batch`` rows (default: the
+    global batch over ('pod', 'data')) and heads, or at batch 1 (long_500k)
+    its slots of every attention cache over the data ranks."""
     B, S = shape["global_batch"], shape["seq_len"]
-    model = Model(arch_cfg, device="meta")
-    tok_shape = (B, arch_cfg.num_codebooks) if arch_cfg.num_codebooks > 1 else (B,)
     batch_sharded = B > 1
     seq_axis = None if batch_sharded else "data"
+    if per_rank:
+        from repro_torch.serve.engine import make_serve_step
+        n = learners or ONE_LEARNERS
+        g = _rank_grid(n, model_shards, pods, device)
+        model = _serving_model(arch_cfg, g)
+        B = _rank_rows(shape, n, pods, batch) if batch_sharded else 1
+        seq_world = None if batch_sharded else g.data
+        tok_shape = (B, arch_cfg.num_codebooks) if arch_cfg.num_codebooks > 1 else (B,)
+        params = _zeros(model.tree(), device)
+        cache = model.init_cache(B, S, prefilled=True, device=device, seq_world=seq_world)
+        tokens = torch.zeros(tok_shape, dtype=torch.int32, device=device)
+        return DryrunSpec(fn=make_serve_step(model, g, seq_axis=seq_axis),
+                          args=(params, tokens, cache),
+                          description=(f"decode {_grid_name(n, model_shards, pods)} B_r={B} "
+                                       f"cache={S}{' seq-sharded' if seq_axis else ''}"),
+                          memory={"parameters": params, "cache": cache, "inputs": tokens})
+    model = Model(arch_cfg, device="meta")
+    tok_shape = (B, arch_cfg.num_codebooks) if arch_cfg.num_codebooks > 1 else (B,)
     description = f"decode B={B} cache={S}{' seq-sharded' if seq_axis and mesh else ''}"
     if mesh is None:
         params = _zeros(model.tree(), device)
@@ -300,16 +369,22 @@ def decode_spec(arch_cfg: ModelConfig, mesh, shape: dict, *, device="cuda") -> D
                       description=description)
 
 
+RANK_KEYS = ("per_rank", "learners", "model_shards", "pods", "batch")
+
+
 def build_spec(arch_cfg: ModelConfig, mesh, shape_name: str, *, shape: Optional[dict] = None,
                device="cuda", **train_kw) -> Optional[DryrunSpec]:
     """The spec of ``shape_name`` on ``mesh`` (None: one card), or None
     where the reference skips it (long_500k without sub-quadratic
-    attention). ``shape`` replaces ``INPUT_SHAPES[shape_name]``'s sizes."""
+    attention). ``shape`` replaces ``INPUT_SHAPES[shape_name]``'s sizes;
+    ``train_kw`` go to the train spec, and the grid's (``RANK_KEYS``) to
+    the serving specs too."""
     shape = shape or INPUT_SHAPES[shape_name]
     if shape_name == "long_500k" and not arch_cfg.subquadratic:
         return None  # documented skip (DESIGN.md §5)
     if shape["kind"] == "train":
         return train_spec(arch_cfg, mesh, shape, device=device, **train_kw)
+    rank_kw = {k: v for k, v in train_kw.items() if k in RANK_KEYS}
     if shape["kind"] == "prefill":
-        return prefill_spec(arch_cfg, mesh, shape, device=device)
-    return decode_spec(arch_cfg, mesh, shape, device=device)
+        return prefill_spec(arch_cfg, mesh, shape, device=device, **rank_kw)
+    return decode_spec(arch_cfg, mesh, shape, device=device, **rank_kw)

@@ -32,8 +32,24 @@ replicated and each rank takes the one its q heads share), runs qk-norm
 (its scales through ``copy_to_model``, since each rank normalizes only
 its heads), RoPE, the masks, the softcap and flash or dense attention on
 them, and wo row-parallel behind ``reduce_from_model``; the MLP splits ff
-the same way. Norms stay replicated. The train path only: serving over a
-model axis is a later slice.
+the same way. Norms stay replicated. Serving takes the same split: the
+decode cache holds this rank's kv heads where m divides them; where it
+does not, the reference's ``cache_pspecs`` replicates the kv heads over
+'model', so every rank projects and writes all of them (the copies stay
+equal) and attends with the one its q heads share.
+
+Sequence-sharded decode (``seq``, the data group's ``World``; the
+reference's long_500k layout, ``decode_spec``'s ``seq_axis``): rank i of
+n holds the contiguous slots [i·S_c/n, (i+1)·S_c/n) of every attention
+cache, the global caches and the ring buffers of local and chunked layers
+alike. Only the rank owning the new token's slot (``pos % S_c`` in a
+ring buffer, ``min(pos, S_c − 1)`` in a global cache) writes it, and each
+rank reads its slots' absolute positions from their global indices. The
+attention is the dense path's masking and softcap on the rank's slots in
+f32, then a log-sum-exp merge over the group: each rank's max, sum of
+exponentials and weighted v, the ``pmax`` of the maxes, each rank's sum
+and accumulator rescaled to it, and their ``psum`` (``_merged_attention``).
+A prefill into such a cache writes each rank's slots only.
 
 The decode cache follows the reference's dtypes, which a plain port
 would not: ``attention_init_cache`` makes bf16 k and v whatever the
@@ -53,7 +69,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.dist.collectives import copy_to_model, reduce_from_model
+from repro_torch.dist.collectives import copy_to_model, pmax, psum, reduce_from_model
 
 FLASH_THRESHOLD = 4096  # dense attention above this many tokens would not fit
 FLASH_QBLOCK = 2048
@@ -165,6 +181,50 @@ def _dense_attention(qg, k_all, v_all, q_pos, k_pos, valid, cfg, base_kind):
     return torch.einsum("bngst,btnh->bsngh", probs, v_all)
 
 
+def _merged_attention(qg, k_all, v_all, q_pos, k_pos, valid, cfg, base_kind, seq):
+    """``_dense_attention`` over a cache whose slots are spread over the
+    ranks of ``seq``: this rank's scores, masked and softcapped as there,
+    its max m_i, sum of exponentials l_i and weighted v in f32, merged by
+    the log-sum-exp rule — m = pmax(m_i), then psum(l_i·e^(m_i − m)) and
+    psum(acc_i·e^(m_i − m)) — and divided once. A rank whose slots are all
+    masked has m_i = -1e30, so its rescale is e^(-1e30 − m) = 0."""
+    hd = qg.shape[-1]
+    scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k_all.float())
+    scores = scores / float(np.float32(np.sqrt(hd)))
+    if cfg.attn_softcap is not None:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    mask = _attn_mask(q_pos, k_pos, base_kind, cfg.window, cfg.chunk) & valid[..., None, :]
+    scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+    m_i = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m_i)
+    m = pmax(m_i, seq)
+    rescale = torch.exp(m_i - m)
+    l = psum(p.sum(-1, keepdim=True) * rescale, seq)
+    acc = psum(torch.einsum("bngst,btnh->bngsh", p, v_all.float()) * rescale, seq)
+    return (acc / l).permute(0, 3, 1, 2, 4).to(qg.dtype)  # [B, Sq, nkv, g, hd]
+
+
+def _prefill_slots(S: int, S_c: int, base_kind: str, seq) -> tuple:
+    """(token indices, slots of this rank's cache) a prefill of S tokens
+    writes: the last S_c tokens at ``t % S_c`` in a ring buffer, token t at
+    slot t in a global cache (only the slots that exist, as JAX drops a
+    scatter's out-of-bounds updates), cut to the slots ``seq``'s rank
+    holds, S_c being the whole cache's slots."""
+    S_w = min(S, S_c)
+    if base_kind in ("local", "chunked"):
+        toks = np.arange(S - S_w, S)
+        slots = toks % S_c
+    else:
+        toks = np.arange(S - S_w, min(S, S_c))
+        slots = toks
+    if seq is not None:
+        S_loc = S_c // seq.size
+        lo = seq.rank * S_loc
+        keep = (slots >= lo) & (slots < lo + S_loc)
+        toks, slots = toks[keep], slots[keep] - lo
+    return toks, slots
+
+
 def _block(S: int, target: int) -> int:
     """The largest divisor of S not above ``target`` (a frontend's prefix
     makes S a non-power of two, 4096 + 256 for instance)."""
@@ -215,14 +275,16 @@ def attention_apply(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
     tp=None,
+    seq=None,
 ) -> tuple:
     """GQA attention. x: [B, S, D].
 
     Train and prefill: S tokens, attended among themselves; a given cache
     (assumed empty) is filled with the last S_c of them. Decode: S == 1
     against ``cache`` = {"k", "v": [B, S_c, nkv, hd], "pos": int32[B]}.
-    ``tp``: the model group's World (this rank's heads; see the module
-    docstring). Returns (y, new_cache), new_cache None without a cache."""
+    ``tp``: the model group's World (this rank's heads); ``seq``: the
+    group whose ranks hold the cache's slots (see the module docstring).
+    Returns (y, new_cache), new_cache None without a cache."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -232,23 +294,23 @@ def attention_apply(
 
     wk, wv = params["wk"].to(x.dtype), params["wv"].to(x.dtype)
     q_norm, k_norm = params.get("q_norm"), params.get("k_norm")
+    kv_read = None  # with a replicated cache: the kv head this rank's q heads share
     if tp is not None and tp.size > 1:
-        if cache is not None:
-            raise ValueError("serving over a model axis is a later slice: decode and "
-                             "prefill run on an unsplit model")
         m = tp.size
         x = copy_to_model(x, tp)
         nh //= m
         if nkv % m:  # fewer kv heads than ranks: replicated, one used here
             kv = tp.rank * nkv // m
-            wk = copy_to_model(wk, tp)[:, kv * hd:(kv + 1) * hd]
-            wv = copy_to_model(wv, tp)[:, kv * hd:(kv + 1) * hd]
-            nkv = 1
+            wk, wv = copy_to_model(wk, tp), copy_to_model(wv, tp)
+            if cache is None:
+                wk, wv = wk[:, kv * hd:(kv + 1) * hd], wv[:, kv * hd:(kv + 1) * hd]
+                nkv = 1
+            else:  # the cache holds every kv head on every rank: all are written
+                kv_read = kv
         else:
             nkv //= m
         if cfg.qk_norm:
             q_norm, k_norm = copy_to_model(q_norm, tp), copy_to_model(k_norm, tp)
-    groups = nh // nkv
 
     q = (x @ params["wq"].to(x.dtype)).reshape(B, S, nh, hd)
     k = (x @ wk).reshape(B, S, nkv, hd)
@@ -264,46 +326,53 @@ def attention_apply(
         k_all, v_all, k_pos, q_pos = k, v, positions, positions
         valid = None
         if cache is not None:
-            S_c = cache["k"].shape[1]
-            S_w = min(S, S_c)
-            if base_kind in ("local", "chunked"):
-                slots = torch.arange(S - S_w, S, device=x.device) % S_c
-                cache["k"][:, slots] = k[:, S - S_w:].to(cache["k"].dtype)
-                cache["v"][:, slots] = v[:, S - S_w:].to(cache["v"].dtype)
-            else:
-                # slot = token index; a prompt longer than the cache writes
-                # only the slots that exist, as JAX drops a scatter's
-                # out-of-bounds updates
-                lo, hi = S - S_w, min(S, S_c)
-                cache["k"][:, lo:hi] = k[:, lo:hi].to(cache["k"].dtype)
-                cache["v"][:, lo:hi] = v[:, lo:hi].to(cache["v"].dtype)
+            S_c = cache["k"].shape[1] * (1 if seq is None else seq.size)
+            toks, slots = _prefill_slots(S, S_c, base_kind, seq)
+            if len(toks):
+                toks = torch.from_numpy(toks).to(x.device)
+                slots = torch.from_numpy(slots).to(x.device)
+                cache["k"][:, slots] = k[:, toks].to(cache["k"].dtype)
+                cache["v"][:, slots] = v[:, toks].to(cache["v"].dtype)
             new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + S}
     else:
-        S_c = cache["k"].shape[1]
+        S_loc = cache["k"].shape[1]
+        S_c, lo = (S_loc, 0) if seq is None else (S_loc * seq.size, seq.rank * S_loc)
         pos = cache["pos"]  # int32[B]: the tokens already in the cache
         bidx = torch.arange(B, device=x.device)
-        ar = torch.arange(S_c, dtype=torch.int32, device=x.device)[None, :]
+        ar = torch.arange(lo, lo + S_loc, dtype=torch.int32, device=x.device)[None, :]
         if base_kind in ("local", "chunked"):
             # a ring buffer: windowed and chunked layers keep S_c slots only
             slot = (pos % S_c).long()
             abs_pos = pos[:, None] - torch.remainder(pos[:, None] - ar, S_c)
         else:
             slot = torch.clamp_max(pos, S_c - 1).long()
-            abs_pos = ar.expand(B, S_c)
+            abs_pos = ar.expand(B, S_loc)
         # in place where the cache already has the activations' dtype
         k_all = cache["k"] if cache["k"].dtype == x.dtype else cache["k"].to(x.dtype)
         v_all = cache["v"] if cache["v"].dtype == x.dtype else cache["v"].to(x.dtype)
-        k_all[bidx, slot] = k[:, 0]
-        v_all[bidx, slot] = v[:, 0]
+        if seq is None:
+            k_all[bidx, slot] = k[:, 0]
+            v_all[bidx, slot] = v[:, 0]
+        else:  # only the rank holding the slot writes it
+            local = slot - lo
+            owned = ((local >= 0) & (local < S_loc))[:, None, None]
+            local = local.clamp(0, S_loc - 1)
+            k_all[bidx, local] = torch.where(owned, k[:, 0], k_all[bidx, local])
+            v_all[bidx, local] = torch.where(owned, v[:, 0], v_all[bidx, local])
         new_cache = {"k": k_all, "v": v_all, "pos": pos + 1}
         k_pos, q_pos = abs_pos, positions
         # a slot holds a token if 0 <= abs_pos <= pos (ring slots never
         # written carry negative absolute positions)
         valid = (abs_pos <= pos[:, None]) & (abs_pos >= 0)
 
-    qg = q.reshape(B, S, nkv, groups, hd)
+    if kv_read is not None:
+        k_all, v_all = k_all[:, :, kv_read:kv_read + 1], v_all[:, :, kv_read:kv_read + 1]
+        nkv = 1
+    qg = q.reshape(B, S, nkv, nh // nkv, hd)
     if cache is None and S > FLASH_THRESHOLD:
         out = _flash_attention(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind)
+    elif seq is not None and S == 1:
+        out = _merged_attention(qg, k_all, v_all, q_pos, k_pos, valid, cfg, base_kind, seq)
     else:
         out = _dense_attention(qg, k_all, v_all, q_pos, k_pos, valid, cfg, base_kind)
     y = out.reshape(B, S, nh * hd) @ params["wo"].to(x.dtype)
@@ -312,17 +381,25 @@ def attention_apply(
 
 def attention_init_cache(cfg, kind: str, batch: int, seq_len: int,
                          dtype=torch.bfloat16, prefilled: bool = True,
-                         device="cuda") -> dict:
+                         device="cuda", model_shards: int = 1, seq_shards: int = 1) -> dict:
     """Decode cache of one attention layer: bf16 k and v by default, as the
     reference's; windowed and chunked layers keep only ``window`` or
-    ``chunk`` slots (a ring buffer)."""
+    ``chunk`` slots (a ring buffer). ``model_shards`` m: this rank's
+    nkv/m kv heads where m divides them (all of them, replicated, where it
+    does not); ``seq_shards`` n: this rank's S_c/n slots (n must divide
+    S_c)."""
     base_kind = _base_kind(kind)
     S_c = seq_len
     if base_kind == "local":
         S_c = min(cfg.window, seq_len)
     elif base_kind == "chunked":
         S_c = min(cfg.chunk, seq_len)
-    shape = (batch, S_c, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if S_c % seq_shards:
+        raise ValueError(f"a {kind} cache of {S_c} slots does not split over {seq_shards} "
+                         "sequence ranks")
+    nkv = cfg.n_kv_heads
+    nkv = nkv // model_shards if nkv % model_shards == 0 else nkv
+    shape = (batch, S_c // seq_shards, nkv, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.full((batch,), seq_len if prefilled else 0, dtype=torch.int32,

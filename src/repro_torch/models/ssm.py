@@ -40,7 +40,10 @@ local and ``wo`` is row-parallel. The replicated per-head and per-channel
 vectors (A_log, D, dt_bias, norm_scale; w0, u, ln_scale, and RWKV6's
 lerp coefficients ``mu``) go through ``copy_to_model`` and are then
 sliced to the rank's heads, so each one's gradient is the same on every
-rank of the group. The train path only.
+rank of the group. Serving splits the same way: a rank's decode cache
+holds the states of its H/m heads (the reference's ``cache_pspecs``),
+and RWKV6's ``prev`` (the replicated input's last token) and ``pos`` are
+replicated over the group.
 
 Simplifications against the source models are the reference's
 (DESIGN.md §5): Mamba2 without the depthwise conv1d prefix and with one
@@ -140,9 +143,6 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = Non
     D, norm_scale = params["D"], params["norm_scale"]
     split = tp is not None and tp.size > 1
     if split:
-        if cache is not None:
-            raise ValueError("serving over a model axis is a later slice: decode and "
-                             "prefill run on an unsplit model")
         x = copy_to_model(x, tp)
         H //= tp.size
         D = copy_to_model(D, tp)[tp.rank * H:(tp.rank + 1) * H]
@@ -193,8 +193,9 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = Non
     return reduce_from_model(out, tp), new_cache
 
 
-def mamba2_init_cache(cfg, batch: int, device="cuda") -> dict:
-    H = cfg.ssm_heads or (cfg.d_model // 64)
+def mamba2_init_cache(cfg, batch: int, device="cuda", model_shards: int = 1) -> dict:
+    """Mamba2's decode cache (this rank's H/m heads with ``model_shards``)."""
+    H = (cfg.ssm_heads or (cfg.d_model // 64)) // model_shards
     return {"state": torch.zeros((batch, H, 64, cfg.ssm_state), dtype=torch.float32,
                                  device=device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -242,9 +243,6 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None
     H = d // hd
     mu, w0, u, ln_scale = params["mu"], params["w0"], params["u"], params["ln_scale"]
     if tp is not None and tp.size > 1:
-        if cache is not None:
-            raise ValueError("serving over a model axis is a later slice: decode and "
-                             "prefill run on an unsplit model")
         # the lerp's inputs enter this rank's column-parallel products, so
         # x's and mu's gradients are summed over the group; the per-head
         # and per-channel vectors are sliced after the copy
@@ -313,11 +311,12 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None
     return reduce_from_model(y @ params["wo"].to(x.dtype), tp), new_cache
 
 
-def rwkv6_init_cache(cfg, batch: int, d: int, device="cuda") -> dict:
+def rwkv6_init_cache(cfg, batch: int, d: int, device="cuda", model_shards: int = 1) -> dict:
     """RWKV6's decode cache; ``prev`` is bf16 whatever the model's dtype,
-    as the reference's."""
+    as the reference's (this rank's H/m heads' states with
+    ``model_shards``; ``prev`` whole)."""
     hd = cfg.rwkv_head_size
-    H = d // hd
+    H = d // hd // model_shards
     return {"state": torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),
             "prev": torch.zeros((batch, d), dtype=torch.bfloat16, device=device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

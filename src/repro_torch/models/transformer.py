@@ -72,13 +72,14 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device,
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, cache: Optional[dict] = None,
-                ep_world=None, tp_world=None) -> tuple:
+                ep_world=None, tp_world=None, seq_world=None) -> tuple:
     """Pre-norm residual block. Returns (x, new_cache, aux loss): new_cache
     None without a cache, aux None for a block without MoE (the reference
     adds a zero). ``ep_world``: the learners' World of expert parallelism
     across ranks (``models/moe.py``); ``tp_world``: the model group's
     World of tensor parallelism (``models/layers.py``, ``models/ssm.py``,
-    ``models/moe.py``)."""
+    ``models/moe.py``); ``seq_world``: the group over whose ranks the
+    attention caches' slots lie (``models/layers.py``)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba2":
         mix, new_cache = mamba2_apply(params["mamba"], h, cfg, cache, tp=tp_world)
@@ -86,7 +87,7 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         mix, new_cache = rwkv6_apply(params["rwkv"], h, cfg, cache, tp=tp_world)
     else:
         mix, new_cache = attention_apply(params["attn"], h, cfg, kind, positions, cache,
-                                         tp=tp_world)
+                                         tp=tp_world, seq=seq_world)
     x = x + mix
     if "moe" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -100,17 +101,21 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                     prefilled: bool = True, device="cuda") -> dict:
+                     prefilled: bool = True, device="cuda", model_shards: int = 1,
+                     seq_shards: int = 1) -> dict:
     """One block's decode cache; a recurrent block's ``pos`` is ``seq_len``
-    when ``prefilled``, as an attention block's."""
+    when ``prefilled``, as an attention block's. ``model_shards`` and
+    ``seq_shards``: one rank's part (``attention_init_cache``)."""
     if kind in ("mamba2", "rwkv6"):
-        c = (mamba2_init_cache(cfg, batch, device=device) if kind == "mamba2"
-             else rwkv6_init_cache(cfg, batch, cfg.d_model, device=device))
+        c = (mamba2_init_cache(cfg, batch, device=device, model_shards=model_shards)
+             if kind == "mamba2" else
+             rwkv6_init_cache(cfg, batch, cfg.d_model, device=device, model_shards=model_shards))
         if prefilled:
             c["pos"].fill_(seq_len)
         return c
     # no dtype: the attention cache is bf16 whatever the model's, as the reference's
-    return attention_init_cache(cfg, kind, batch, seq_len, prefilled=prefilled, device=device)
+    return attention_init_cache(cfg, kind, batch, seq_len, prefilled=prefilled, device=device,
+                                model_shards=model_shards, seq_shards=seq_shards)
 
 
 def _stack(trees: list) -> dict:
@@ -161,7 +166,16 @@ class Model(nn.Module):
     column); zamba2's shared block is cut as the dense blocks are and its
     ``_shared`` placeholder stays replicated. With both ``ep_world`` (the
     learners' ring of the grid) and ``tp_world`` a rank holds [E/n, d,
-    f/m] of each expert matrix. The train path only.
+    f/m] of each expert matrix.
+
+    Serving across ranks: ``init_cache``, ``prefill`` and ``decode_step``
+    run on the rank's shards with its part of the reference's cache
+    placement (``serve/engine.py::cache_pspecs``): the batch rows the
+    caller gives it (the reference's ('pod', 'data') rows), this rank's
+    kv heads and recurrent heads over the model group, and with
+    ``seq_world`` (long_500k's layout) this rank's slots of every
+    attention cache (``models/layers.py``). A MoE serves by expert
+    parallelism over ``ep_world`` as it trains.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
@@ -288,35 +302,42 @@ class Model(nn.Module):
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, prefilled: bool = True,
-                   device=None) -> list:
+                   device=None, seq_world=None) -> list:
         """Stacked decode caches, one dict a pattern position, each leaf
         [n_units, ...] (its own memory: the attention writes are in place).
-        On the model's device unless ``device`` says otherwise."""
+        On the model's device unless ``device`` says otherwise. With
+        ``tp_world``, this rank's heads; with ``seq_world``, this rank's
+        slots of every attention cache."""
         cfg = self.cfg
         device = self.embed.device if device is None else device
+        m = 1 if self.tp_world is None else self.tp_world.size
+        n = 1 if seq_world is None else seq_world.size
         return [{k: v[None].repeat((cfg.n_units,) + (1,) * v.dim()) for k, v in
-                 block_init_cache(cfg, kind, batch, seq_len, prefilled, device).items()}
+                 block_init_cache(cfg, kind, batch, seq_len, prefilled, device, m, n).items()}
                 for kind in cfg.pattern]
 
     def prefill(self, params: dict, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None,
-                cache: Optional[list] = None) -> tuple:
+                cache: Optional[list] = None, seq_world=None) -> tuple:
         """Run the prompt through the model and fill the decode caches (a
         fresh cache of the prompt's length if None). tokens: int[B, S] (or
-        [B, S, nc]). Returns (the last position's logits [B, vocab] (or
-        [B, nc, vocab]), cache)."""
+        [B, S, nc]). ``seq_world``: the cache holds this rank's slots.
+        Returns (the last position's logits [B, vocab] (or [B, nc,
+        vocab]), cache)."""
         x = self._embed(params, _clamp_vocab(tokens, self.cfg))
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         if cache is None:
-            cache = self.init_cache(B, S, prefilled=False, device=x.device)
+            cache = self.init_cache(B, S, prefilled=False, device=x.device, seq_world=seq_world)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
-        return self._run_with_cache(params, x, cache, positions)
+        return self._run_with_cache(params, x, cache, positions, seq_world)
 
-    def decode_step(self, params: dict, tokens: torch.Tensor, cache: list) -> tuple:
+    def decode_step(self, params: dict, tokens: torch.Tensor, cache: list,
+                    seq_world=None) -> tuple:
         """One token a row: tokens int[B] (or [B, nc]). Returns (logits
-        [B, vocab] (or [B, nc, vocab]), new cache).
+        [B, vocab] (or [B, nc, vocab]), new cache). ``seq_world``: the
+        attention caches hold this rank's slots (long_500k's layout).
 
         ``cache`` is donated, as the reference's decode dry run donates it
         (``jax.jit(decode_step, donate_argnums=(2,))``): k and v are written
@@ -326,19 +347,18 @@ class Model(nn.Module):
         tok = tokens[:, None] if tokens.dim() == 1 else tokens[:, None, :]
         x = self._embed(params, _clamp_vocab(tok, self.cfg))  # [B, 1, d]
         positions = cache[0]["pos"][0][:, None].to(torch.int32)  # unit 0's; all agree
-        return self._run_with_cache(params, x, cache, positions)
+        return self._run_with_cache(params, x, cache, positions, seq_world)
 
     def _run_with_cache(self, params: dict, x: torch.Tensor, cache: list,
-                        positions: torch.Tensor) -> tuple:
+                        positions: torch.Tensor, seq_world=None) -> tuple:
         """The units in turn, each on its slice of every stacked cache leaf;
         a leaf written in place comes back as the same stacked tensor, any
         other is restacked. ``cache`` is donated (see ``decode_step``): a
         leaf written in place is the caller's tensor, changed. Returns
         (last position's logits, new cache)."""
         cfg = self.cfg
-        if self.tp_world is not None:
-            raise ValueError("serving over a model axis is a later slice: prefill and "
-                             "decode_step run on a model built without tp_world")
+        if seq_world is not None and seq_world.size == 1:
+            seq_world = None
         units = [None if kind == "shared_attn" else _unbind(b, cfg.n_units)
                  for kind, b in zip(cfg.pattern, params["blocks"])]
         slices = [{k: [v[u] for u in range(cfg.n_units)] for k, v in c.items()}
@@ -348,7 +368,8 @@ class Model(nn.Module):
             for pos, kind in enumerate(cfg.pattern):
                 bp = params["shared_attn"] if kind == "shared_attn" else units[pos][u]
                 bc = {k: v[u] for k, v in slices[pos].items()}
-                x, nc, _ = block_apply(bp, x, cfg, kind, positions, bc)
+                x, nc, _ = block_apply(bp, x, cfg, kind, positions, bc, ep_world=self.ep_world,
+                                       tp_world=self.tp_world, seq_world=seq_world)
                 for k, v in nc.items():
                     new[pos][k].append(v)
         new_cache = [{k: (cache[pos][k] if all(a is b for a, b in zip(vs, slices[pos][k]))

@@ -14,8 +14,10 @@ keeps one shape. Sampling is greedy (argmax) or, with ``temperature >
 Everything runs under ``torch.inference_mode()``: the model's leaves are
 ``nn.Parameter``s, and a graph kept a decode step would grow without
 bound. The engine runs on the model's device. ``cache_pspecs`` gives the
-reference's partition specs of a cache over a mesh (the dry run's pod
-meshes read them; on one card they do not apply).
+reference's partition specs of a cache over a mesh; across ranks a
+rank's ``Model.init_cache`` is its part of them, and ``make_serve_step(model,
+mesh)`` its step. ``ServeEngine`` stays on one card, as the reference's
+takes no mesh.
 
 The decode step takes the cache it is given as donated, as the
 reference's decode dry run does (``jax.jit(decode_step,
@@ -77,12 +79,43 @@ def cache_pspecs(cache, batch_sharded: bool, seq_axis: Optional[str] = None,
     return tree_map(spec_for, cache)
 
 
-def make_serve_step(model: Model) -> Callable:
+def _members(world) -> Optional[list]:
+    """The default group's ranks of ``world``, in its rank order."""
+    return None if world is None else [world.global_rank(r) for r in range(world.size)]
+
+
+def make_serve_step(model: Model, mesh=None, *, seq_axis: Optional[str] = None) -> Callable:
     """(params, tokens, cache) -> (logits, cache): one token a row, under
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``.
+
+    ``mesh`` (the reference's argument): a ``DeviceMesh`` over the live
+    group, or a ``dist.Grid``, with this rank one of its positions. The
+    model's Worlds must be the mesh's — its ``tp_world`` the 'model'
+    dimension, its ``ep_world`` (a MoE's) the 'data' one — and the step is
+    then this rank's: its batch rows (over ('pod', 'data')) and its shards.
+    ``seq_axis`` (long_500k's layout, ``cache_pspecs``' argument): the
+    attention caches' slots lie over that dimension's ranks
+    (``Model.init_cache(..., seq_world=)``)."""
+    from repro_torch.dist.world import model_world_of, rank_world
+    seq_world = None
+    if mesh is not None:
+        tp = model_world_of(mesh)
+        if _members(tp) != _members(model.tp_world):
+            raise ValueError(f"{model.cfg.arch_id}: the model's tp_world is not the mesh's "
+                             "'model' dimension: build it with Model(cfg, "
+                             "tp_world=model_world_of(mesh))")
+        if model.ep_world is not None and (_members(model.ep_world)
+                                           != _members(rank_world(mesh, "data"))):
+            raise ValueError(f"{model.cfg.arch_id}: the model's ep_world is not the mesh's "
+                             "'data' dimension")
+        if seq_axis is not None:
+            seq_world = rank_world(mesh, seq_axis)
+    elif seq_axis is not None:
+        raise ValueError("seq_axis names a dimension of the mesh: give the mesh")
+
     def serve_step(params, tokens, cache):
         with torch.inference_mode():
-            return model.decode_step(params, tokens, cache)
+            return model.decode_step(params, tokens, cache, seq_world=seq_world)
 
     return serve_step
 

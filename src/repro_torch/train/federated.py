@@ -27,7 +27,8 @@ Two runtimes consume the same local update (``make_local_update``):
 With model shards (a model built with ``tp_world``, the model group of a
 ('data', 'model') grid) the local steps run tensor-parallel, their clip
 reading the norm over every rank's shards, and the delta's chunk goes
-through the sharded round (``_tp_round``).
+through the sharded round (``_tp_round``), with pods (``dist.grid``)
+each pod's chunk meeting the other pods' over the pod group.
 
 The two share the local update and one fixed-point and PRF substrate, so
 a wire round's published delta is bit-identical to ``round_fn``'s for the
@@ -189,13 +190,13 @@ def make_federated_round(
     local_update = make_local_update(model, local_steps=local_steps,
                                      local_lr=local_lr)
     world = rank_world(mesh, learner_axis)
+    pod_world = None if pod_axis is None else pod_world_of(mesh, pod_axis)
     if model.tp_world is not None:
-        if world is None or pod_axis is not None:
+        if world is None:
             raise ValueError(f"{model.cfg.arch_id}: a model split over model ranks runs one "
-                             "learner a ring rank (grid_worlds), without pods")
-        return _tp_round(model, aggregator, world, local_update, return_delta)
+                             "learner a ring rank (grid_worlds, or dist.grid with pods)")
+        return _tp_round(model, aggregator, world, pod_world, local_update, return_delta)
     if world is not None:
-        pod_world = None if pod_axis is None else pod_world_of(mesh, pod_axis)
         return _rank_round(aggregator, world, pod_world, local_update, return_delta)
 
     def deltas_fn(params, tokens):
@@ -265,8 +266,8 @@ def _rank_round(aggregator: SecureAggregator, world, pod_world, local_update: Ca
     return FederatedBundle(round_fn=round_fn, init_state_fn=lambda p: p, deltas_fn=None)
 
 
-def _tp_round(model: Model, aggregator: SecureAggregator, world, local_update: Callable,
-              return_delta: bool) -> FederatedBundle:
+def _tp_round(model: Model, aggregator: SecureAggregator, world, pod_world,
+              local_update: Callable, return_delta: bool) -> FederatedBundle:
     """``make_federated_round`` on ('data', 'model'): learner ``world.rank``'s
     model shard ``tp.rank``. The local steps run tensor-parallel; the
     delta's chunk j of the full flat vector, padded to a multiple of 2·n·m
@@ -274,9 +275,11 @@ def _tp_round(model: Model, aggregator: SecureAggregator, world, local_update: C
     and goes through ring j's round (the weight word with the last chunk);
     the published chunks are all-gathered over the group and each rank adds
     its shards' words, as ``apply_delta`` adds the whole vector. The round
-    reserves ``padded_size + 1`` words."""
+    reserves ``padded_size + 1`` words. With ``pod_world`` (the ('pod',
+    'data', 'model') grid) the pods' chunks meet over the pod group and
+    ``local_loss`` is pod 0's, as in ``_rank_round``."""
     n = aggregator.cfg.num_learners
-    aggregator.check_world(world)
+    aggregator.check_world(world, pod_world)
     tp = model.tp_world
     m, j = tp.size, tp.rank
     layout = model.shard_layout()
@@ -297,7 +300,7 @@ def _tp_round(model: Model, aggregator: SecureAggregator, world, local_update: C
             write_chunk(layout, _split(delta, params), tp, chunk, j * L)
         del delta
         avg = aggregator.aggregate_rank(chunk, int(counter), alive=alive, weights=w,
-                                        world=world, model_world=tp)
+                                        world=world, model_world=tp, pod_world=pod_world)
         del chunk
         full = collectives.all_gather(avg, tp, tiled=True)[:size]
         del avg
@@ -305,7 +308,10 @@ def _tp_round(model: Model, aggregator: SecureAggregator, world, local_update: C
             out_params = tree_unflatten(params, [
                 (leaf.detach().float() + sh.of(full)).to(leaf.dtype)
                 for leaf, sh in zip(leaves(params), layout)])
-        metrics = {"local_loss": collectives.pmean(loss, world),
+        loss = collectives.pmean(loss, world)
+        if pod_world is not None:  # the reference returns pod 0's learner mean
+            loss = collectives.broadcast(loss, 0, pod_world)
+        metrics = {"local_loss": loss,
                    "delta_norm": torch.sqrt(torch.sum(torch.square(full)))}
         if return_delta:
             metrics["avg_delta"] = full

@@ -72,6 +72,11 @@ the published words those of one chain over the whole vector); ZeRO-1
 runs over all n·m ranks, rank (l, j) updating the l-th of the n parts of
 chunk j; the parts are all-gathered over the ring, then the chunks over
 the model group, and each rank cuts its shards from the whole vector.
+With the aggregator's pod axis and a ('pod', 'data', 'model') grid
+(``dist.grid``, or such a ``DeviceMesh``) ring (p, j) runs chunk j's round
+in pod p, the pods' chunks meet over the pod group, ZeRO-1 runs within
+each pod, and the rebuilt vector and the loss take the reference's
+``pmean`` over 'pod' (its pod512 ``train_4k`` program).
 ``chain_model_sharded`` says which of the two the reference compiles;
 both publish the same words, so here it is accepted and the model's
 ``tp_world`` decides. A MoE there takes both splits (``Model(cfg,
@@ -105,6 +110,9 @@ if TYPE_CHECKING:  # the model package imports this package's flatten
     from repro_torch.models.transformer import Model
 
 LEAFWISE_BYTES = 8e9  # flat f32 vectors above this aggregate leaf by leaf
+_EP_PODS = ("{}: expert parallelism with a pod axis: the reference keeps a copy of each "
+            "pod's experts that its step never reconciles across pods (no pmean over 'pod' "
+            "of the expert update); train pods on a model without experts, or one pod")
 
 
 @dataclasses.dataclass
@@ -320,16 +328,16 @@ def make_train_step(
             raise ValueError(f"{cfg.arch_id}: a model split over model ranks steps with one "
                              "learner a ring rank: pass the learners' ring (grid_worlds) or "
                              "the ('data', 'model') mesh")
-        if agg_pods is not None:
-            raise ValueError("pods with model shards: the ('pod', 'data', 'model') train step "
-                             "is the dry run's production-mesh slice")
-        aggregator.check_world(world)
+        pod_world = None if agg_pods is None else pod_world_of(mesh, agg_pods)
+        aggregator.check_world(world, pod_world)
         if use_ep:
             _check_ep_world(model, world)
+            if pod_world is not None:
+                raise ValueError(_EP_PODS.format(cfg.arch_id))
         sec_size = sum(sh.numel for sh in model.shard_layout(_in_safe))
         if leafwise is None:
             leafwise = sec_size * 4 > LEAFWISE_BYTES
-        return _tp_step(model, aggregator, world, tp, flat_opt, sec_opt,
+        return _tp_step(model, aggregator, world, tp, pod_world, flat_opt, sec_opt,
                         ep_opt if use_ep else None, sec_size,
                         tp_padded_size(sec_size, n, tp.size), leafwise, donate)
     sec_size = tree_size(_split(model.tree())[0])
@@ -343,11 +351,7 @@ def make_train_step(
         if use_ep and world.size > 1:
             _check_ep_world(model, world)
             if pod_world is not None:
-                raise ValueError(
-                    f"{cfg.arch_id}: expert parallelism with a pod axis: the reference "
-                    "keeps a copy of each pod's experts that its step never reconciles "
-                    "across pods (no pmean over 'pod' of the expert update); train pods "
-                    "on a model without experts, or one pod")
+                raise ValueError(_EP_PODS.format(cfg.arch_id))
         return _rank_step(model, aggregator, world, pod_world, flat_opt, sec_opt, ep_opt,
                           sec_size, padded_size, leafwise, donate, use_ep)
 
@@ -572,9 +576,9 @@ def tp_norm(tensors: list, splits: list, tp) -> torch.Tensor:
     return torch.sqrt(collectives.psum(sq(cut), tp) + sq(rep))
 
 
-def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: FlatAdamW,
-             sec_opt: AdamW, ep_opt: Optional[AdamW], sec_size: int, padded_size: int,
-             leafwise: bool, donate: bool) -> TrainStepBundle:
+def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, pod_world,
+             flat_opt: FlatAdamW, sec_opt: AdamW, ep_opt: Optional[AdamW], sec_size: int,
+             padded_size: int, leafwise: bool, donate: bool) -> TrainStepBundle:
     """The train step on ('data', 'model'): learner ``world.rank``'s model
     shard ``tp.rank`` (see the module docstring). The state's parameters
     are this rank's shards and its master, m and v the l-th of n parts of
@@ -599,6 +603,12 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: Fl
     the rank's [E/n, d, f/m] expert gradient, and the tree ``AdamW``
     without clipping updates those shards, its m and v in
     ``state["ep_opt"]``.
+
+    Pods (``pod_world``, the ('pod', 'data', 'model') grid): ring (p, j)
+    runs chunk j's round in pod p and the pods' chunks meet over the pod
+    group (``aggregate_rank``); ZeRO-1 runs over the n·m ranks of each
+    pod; the rebuilt flat vector takes the reference's ``pmean`` over
+    'pod', and so does the loss.
 
     ``step_fn(state, tokens, prefix=None, weights=None, counter=0,
     alive=None, mark=None)`` as ``_rank_step``'s: ``tokens`` this learner's
@@ -668,7 +678,8 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: Fl
         w = w.reshape(-1)[l if w.numel() == n else 0]
         counter = int(counter) & 0xFFFFFFFF
         rotate = counter % (2 * n + 1)  # §8: rotate the initiator every round
-        agg = dict(alive=alive, rotate=rotate, world=world, model_world=tp)
+        agg = dict(alive=alive, rotate=rotate, world=world, model_world=tp,
+                   pod_world=pod_world)
 
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         is_ep = [is_expert_path(path) for path in leaf_paths(p)]
@@ -714,6 +725,8 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: Fl
             # ZeRO-1's gather: the parts over the ring, then the chunks over the group
             flat = collectives.all_gather(collectives.all_gather(master, world, tiled=True),
                                           tp, tiled=True)
+            if pod_world is not None:  # the reference's pmean of it over the pods
+                flat = pod_mean_rank(flat, pod_world)
             mark("all_gather")
             with torch.no_grad():
                 if donate:
@@ -731,7 +744,10 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, flat_opt: Fl
         del ep_g
         new = combine_trees(new_sec, new_ep) if use_ep else new_sec
         mark("rebuild")
-        metrics = {"loss": collectives.pmean(loss.detach(), world), "grad_scale": grad_norm,
+        loss = collectives.pmean(loss.detach(), world)
+        if pod_world is not None:
+            loss = collectives.pmean(loss, pod_world)
+        metrics = {"loss": loss, "grad_scale": grad_norm,
                    "weight": w.to(device=dev, dtype=torch.float32)}
         new_state = {"params": new, "master": master, "fm": fm, "fv": fv, "fstep": fstep,
                      "ep_opt": ep_state, "sec_opt": sec_state, "step": state["step"] + 1}

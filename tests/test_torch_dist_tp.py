@@ -485,8 +485,11 @@ def test_a_split_that_cuts_a_head_raises_where_the_reference_cuts():
 
 def test_refusals():
     """A split that cuts a head (the MoE, Mamba2, RWKV6 and zamba2 now
-    split: tests/test_torch_dist_tp_zoo.py), pods with model shards, and a
-    WORLD_SIZE that is not learners x model shards."""
+    split: tests/test_torch_dist_tp_zoo.py), expert parallelism with pods
+    on a model split over model ranks (pods with model shards now run:
+    tests/test_torch_dist_pod_tp.py), and a WORLD_SIZE that is not
+    learners x model shards."""
+    from repro_torch.dist import Grid
     from repro_torch.launch.train import parse_args, run
     two = World(rank=0, size=2, device=torch.device("cpu"), transport="gloo")
     for arch in ("qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-2.7b"):
@@ -496,9 +499,12 @@ def test_refusals():
     data = World(rank=0, size=N, device=torch.device("cpu"), transport="gloo")
     pod = World(rank=0, size=2, device=torch.device("cpu"), transport="gloo")
     agg = make_aggregator("safe", N, pod_axis="pod", device="cpu")
-    with pytest.raises(ValueError, match="pods with model shards"):
-        agg.aggregate_rank(torch.zeros(8), world=data, pod_world=pod, model_world=two)
-    with pytest.raises(ValueError, match="pods with model shards"):
+    moe = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"), ep_axis="data",
+                              ep_ranks=N)
+    with pytest.raises(ValueError, match="expert parallelism with a pod axis"):
+        make_train_step(Model(moe, device="meta", tp_world=two, ep_world=data), agg,
+                        Grid(data=data, model=two, pod=pod), pod_axis="pod")
+    with pytest.raises(ValueError, match="the per-rank round needs the pod World"):
         make_train_step(Model(_cfg(), device="cpu", tp_world=two), agg, data, pod_axis="pod")
     with pytest.raises(ValueError, match="even length"):
         make_aggregator("safe", N, device="cpu").aggregate_rank(torch.zeros(7), world=data,

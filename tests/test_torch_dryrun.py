@@ -266,6 +266,70 @@ def test_max_units_that_fit_predicts_then_confirms(shape_name, units, fit):
     assert r["max_units_that_fit"] == 0
 
 
+# ---- the production meshes: rank 0's program ----------------------------------------------
+
+# smoke configurations whose heads split 16 ways (16 of 16 columns at d = 256):
+# every published one cuts a head or its kv heads at m = 16 only where its full
+# configuration does; one layer (gemma3 one unit: a local and a global layer)
+def _wide(arch, **kw):
+    return dataclasses.replace(get_smoke_config(arch), n_heads=16, n_kv_heads=16, **kw)
+
+
+POD_SMALL = {"train_4k": dict(seq_len=64, global_batch=64, kind="train"),
+             "prefill_32k": dict(seq_len=64, global_batch=32, kind="prefill"),
+             "decode_32k": dict(seq_len=128, global_batch=128, kind="decode"),
+             "long_500k": dict(seq_len=1024, global_batch=1, kind="decode")}
+POD_ARCH = {"train_4k": "internlm2-1.8b", "prefill_32k": "internlm2-1.8b",
+            "decode_32k": "internlm2-1.8b", "long_500k": "gemma3-12b"}
+
+
+@pytest.fixture
+def _fake_group_after():
+    """The fake group the dry run starts, destroyed after the test: one left
+    running makes ``init_world`` raise in a later test of this process."""
+    import torch.distributed as dist
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mesh", ["pod256", "pod512"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_production_mesh_record_is_rank_zeros_program(shape, mesh, _fake_group_after):
+    """Rank 0 of the mesh's grid (16 data x 16 model ranks, two pods on
+    pod512) runs its program on meta tensors: a record with its peak, FLOPs
+    and the bytes its collectives would send by op; for one decode block
+    (embedding, attention, MLP, head) those bytes are the hand count: three
+    bf16 psums of the rank's [B_r, 1, d] activations and the all-gather of
+    its [B_r, 1, V/16] logits, each (16 - 1) copies."""
+    cfg = _wide(POD_ARCH[shape], n_layers=len(get_smoke_config(POD_ARCH[shape]).pattern))
+    grid = dryrun.MESH_GRIDS[mesh]
+    m = dryrun.measure(cfg, shape, shape=POD_SMALL[shape], per_rank=True, **grid)
+    assert m["description"].split(" B")[0].endswith(
+        f"rank 0 of n=16 m=16 pods={grid['pods']}"), m["description"]
+    assert m["peak_bytes"] > m["argument_bytes"] > 0 and m["matmul_flops"] > 0
+    assert m["collective_bytes"]["psum"] > 0 and m["collective_bytes"]["all_gather"] > 0
+    if shape == "train_4k":  # rank 0's chunk round: its share of the SAFE kernels
+        assert m["kernels"]["mask_add"]["calls"] == 3
+    if shape == "decode_32k":
+        rows = POD_SMALL[shape]["global_batch"] // (16 * grid["pods"])
+        assert m["collective_bytes"] == {"psum": 3 * 15 * rows * cfg.d_model * 2,
+                                         "all_gather": 15 * rows * (cfg.vocab // 16) * 2}
+    if shape == "long_500k":  # the log-sum-exp merge over the data ranks
+        assert m["collective_bytes"]["pmax"] > 0
+
+
+@pytest.mark.parametrize("mesh", ["pod256", "pod512"])
+def test_production_mesh_records_refuse_what_the_port_refuses(mesh, _fake_group_after):
+    """The smoke qwen3-14b's 5 q heads cut over 16 model ranks, as the full
+    configuration's 40 do: ``refused`` with the port's message, as the
+    record of a layout the reference's GSPMD runs and the port does not."""
+    rec = dryrun.run_one("qwen3-14b", "decode_32k", mesh, smoke=True)
+    assert rec["status"] == "refused" and "would cut a head" in rec["reason"]
+    rec = dryrun.run_one("internlm2-1.8b", "long_500k", mesh, smoke=True)
+    assert rec["status"] == "skipped"
+
+
 # last: the sweep runs in its subprocess while the tests above run
 def test_dry_run_sweeps_every_smoke_combination_on_one_card(background):
     _finish(background["sweep"])
