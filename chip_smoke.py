@@ -29,18 +29,18 @@ no CPU fallback):
    ``wire round``, host only: ``run_safe_round_net`` at n = 36, V = 10,000
    clean and with ranks {13} and {0} dead, and ``run_bon_round_net`` clean;
    then the FedAvg path: three rounds of
-   ``make_federated_round`` on internlm2-1.8b at full width (2 of its 24
+   ``make_federated_round`` on internlm2-1.8b at full width (1 of its 24
    layers), n = 4 learners of 4 local AdamW steps on 2 x 256 tokens each,
-   the deltas (P = 315,369,472 words) averaged by weighted SAFE; then the
+   the deltas (P = 252,450,816 words) averaged by weighted SAFE; then the
    train-step path: three steps of ``make_train_step`` on the same model at
-   12 layers (n = 4, 2 x 256 tokens a learner, one repeated batch), each learner's
+   6 layers (n = 4, 2 x 256 tokens a learner, one repeated batch), each learner's
    gradient a row of f32[4, padded_size] averaged by SAFE, then FlatAdamW
    on the f32 master vector, counters from ``reserve_round``; then the
    rest of the zoo through the same step, three steps each at full width:
    qwen3-moe-235b-a22b (1 of 94 layers, vocabulary cut to 18,992) by expert
    parallelism over the 4 learners (the experts' summed gradients updated
    outside the SAFE chain), zamba2-2.7b (6 of 54 layers: Mamba2 and the
-   shared attention block) and rwkv6-1.6b (2 of 24 layers); then the wire
+   shared attention block) and rwkv6-1.6b (1 of 24 layers); then the wire
    FedAvg path: ``make_wire_federated``'s callables at the smoke size of
    internlm2-1.8b (n = 4, k = 2) on the card, their deltas through the
    port's broker on 127.0.0.1, a clean round and one with node 3 failed; then
@@ -48,7 +48,7 @@ no CPU fallback):
    card (two uninterrupted runs, one resumed from its checkpoint,
    ``--federated``); then ``net.run_engine_load`` against the port's broker
    in front of an engine on the card (n = 36, V = 2^20, 4 tenants); then
-   serving: internlm2-1.8b at full width and all 24 layers (bf16, random
+   serving: internlm2-1.8b at full width and 12 of its 24 layers (bf16, random
    weights from seed 0) through ``ServeEngine``, traffic A (the reference
    launcher's defaults: 8 requests of 4-31 tokens, 4 slots of 256, 32 new
    tokens each, greedy) and traffic B (16 requests of 1024-3072 tokens, 8
@@ -56,9 +56,9 @@ no CPU fallback):
    repro_torch.launch.serve --arch internlm2-1.8b`` as a subprocess on the
    card; no SAFE kernel runs there, and its launch line says so; last, the
    dry run (``repro_torch.launch.dryrun.measure``, meta tensors): the
-   train-step path's step at 12 and 24 layers and one decode step of
+   train-step path's step at 6 and 24 layers and one decode step of
    traffic B at 24, the most layers of that step that fit the card, then
-   that 12-layer step, that decode step and the step at the most layers
+   that 6-layer step, that decode step and the step at the most layers
    that fit, each for real; then the dist path, one learner a process:
    four ranks spawned by ``repro_torch.dist.spawn`` share the card over
    gloo, each CUDA tensor staged through pinned host buffers
@@ -101,14 +101,21 @@ no CPU fallback):
    1 layer: two train steps (learner 1 of each pod dead in the second) and
    a weighted FedAvg round, each pod's ring j on chunk j and the pods'
    chunks meeting over the pod group; ``serve_dist``, decode and prefill
-   across 4 data x 2 model ranks: (a) internlm2-1.8b at all 24 layers, 8 of
+   across 4 data x 2 model ranks: (a) internlm2-1.8b at 12 layers, 8 of
    traffic B's prompts (2 a data rank) prefilled into caches of 4096 and 16
    decode steps teacher-forced on the one-process run's tokens through
    ``make_serve_step(model, grid)``; (b) gemma3-12b at one unit (6 layers)
    in f32 with long_500k's caches (524,288 slots) split by slot over the
    data ranks, seeded random k and v, pos in data rank 2's slots and at a
    full cache, 8 decode steps through ``make_serve_step(model, grid,
-   seq_axis="data")`` (no SAFE kernel runs there);
+   seq_axis="data")`` (no SAFE kernel runs there); ``tp_heads``, whole
+   units split unevenly over 'model': internvl2-1b at full width and 1
+   layer, text only, 3 learners x 4 model shards = 12 ranks sharing the
+   card, its 14 q heads 4, 4, 3 and 3 a model rank (rank 1's reading both
+   kv heads, which every rank holds), two train steps (learner 1 dead in
+   the second), a weighted FedAvg round and 3 of traffic B's prompts, one a
+   data rank, prefilled and decoded 8 steps through
+   ``make_serve_step(model, grid)`` teacher-forced on seeded tokens;
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -153,7 +160,7 @@ no CPU fallback):
    within 2e-2 of its own full forward (bf16) and within 1e-3 of the port's
    CPU path (f32); the dry run's peak within 1% of
    ``torch.cuda.max_memory_allocated`` over each real call, its verdict
-   that 12 layers of the train step fit the card and 24 do not, the step at
+   that 6 layers of the train step fit the card and 24 do not, the step at
    the most layers it says fit running on the card, and the card holding at
    least ``dryrun.H100_USABLE_BYTES`` for a process to allocate; the
    dist path: every rank's mean, parameters and published delta equal to
@@ -196,7 +203,14 @@ no CPU fallback):
    SERVE_TOL of the one-process decode's, (b)'s within SD_B_TOL of one
    process's dense decode of the whole cache, the ranks holding a row (in
    (b) every rank) agreeing bit for bit, rank 0's peak over a decode step
-   within DRY_TOL of the dry run's for each layout;
+   within DRY_TOL of the dry run's for each layout; tp_heads: the model
+   ranks' q heads 4, 4, 3, 3, every published chunk of the second step
+   equal (sha256) to the one-card round of its rows, every ZeRO-1 part
+   FlatAdamW of its words of the published chunks, the float math within
+   tp_dist's bounds of the one-card step and FedAvg round, prefill and
+   decode within SERVE_TOL of one process, rank 0's first-step peak within
+   DRY_TOL of the dry run's (``--per-rank --model-shards 4``), the kernels at
+   the path's chunks equal to their plain versions;
 6. timings at the main paths' shapes: each kernel (CUDA events) beside its
    plain version, its least possible time on the card and what bounds it;
    wall time per round of every path and per engine step, the device's
@@ -227,7 +241,8 @@ no CPU fallback):
    and each kernel timed by CUDA events in each rank, one rank at a time;
    the same walls, transport shares and peaks for moe_dist, the pod rounds,
    the per-rank engine's steps, the pod steps, tp_dist, tp_zoo (with
-   each tp_zoo rank's seconds by part) and pod_tp; serve_dist's prefill and
+   each tp_zoo rank's seconds by part), pod_tp and tp_heads (with its
+   decode step); serve_dist's prefill and
    decode step walls and peaks a rank, and the bytes the dry run counts its
    collectives sending by op.
 
@@ -259,6 +274,8 @@ each depth in turn, up to the first that does not fit, with each rank's
 peak memory.
 """
 import asyncio
+import atexit
+import contextlib
 import json
 import math
 import os
@@ -327,26 +344,28 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "rank_engine": {"mask_add", "chain_combine_batched"},
                 "pod_steps": {"mask_add", "chain_combine"},
                 "tp_zoo": {"mask_add", "chain_combine", "chain_combine_batched"},
-                "pod_tp": {"mask_add", "chain_combine"}}
+                "pod_tp": {"mask_add", "chain_combine"},
+                "tp_heads": {"mask_add", "chain_combine"}}
 
-# The FedAvg path: internlm2-1.8b at full width, cut to 2 of its 24 layers
+# The FedAvg path: internlm2-1.8b at full width, cut to 1 of its 24 layers
 # (at 24 the learners' f32 deltas, the weighted payload and the chain's
 # ciphertexts need more than the card's 80 GB; 12 until the script's time
-# limit needed the room for pod_tp and serve_dist: its float64 checks follow
-# P), with the reference launcher's traffic (src/repro/launch/train.py: 4
+# limit needed the room for pod_tp and serve_dist, 2 until tp_heads: its
+# float64 checks follow P), with the reference launcher's traffic (src/repro/launch/train.py: 4
 # learners, batch 2 of 256 tokens, 4 local steps, lr 1e-3).
-FED_ARCH, FED_LAYERS = "internlm2-1.8b", 2
+FED_ARCH, FED_LAYERS = "internlm2-1.8b", 1
 FED_N, FED_B, FED_S, FED_K, FED_LR, FED_ROUNDS = 4, 2, 256, 4, 1e-3, 3
 FED_DEAD = 1                # the failover check's dead learner
 CHUNK = 1 << 26             # words per pass of the float64 reference mean
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet)
 
-# The train-step path: the same model at 12 layers, with the reference
+# The train-step path: the same model at 6 layers (12 until the script's time
+# limit needed the room for tp_heads), with the reference
 # launcher's train-step traffic (src/repro/launch/train.py: 4 learners, batch 2
 # of 256 tokens, lr 1e-3) on one repeated batch, as tests/test_train.py trains;
 # the SAFE-against-INSEC comparison runs at TS_CMP_LAYERS layers, so that its
 # two states fit beside each other.
-TS_ARCH, TS_LAYERS, TS_CMP_LAYERS = FED_ARCH, 12, 2
+TS_ARCH, TS_LAYERS, TS_CMP_LAYERS = FED_ARCH, 6, 2
 TS_N, TS_B, TS_S, TS_LR, TS_STEPS = 4, 2, 256, 1e-3, 3
 # The rest of the zoo through the same train step, with the same traffic, each
 # at the published widths of its configuration and cut in depth (or in
@@ -354,15 +373,15 @@ TS_N, TS_B, TS_S, TS_LR, TS_STEPS = 4, 2, 256, 1e-3, 3
 # expert parallelism over the 4 learners, its vocabulary an eighth (the
 # embedding and head one of 8 vocabulary-parallel cards would hold); zamba2-2.7b
 # at 6 of 54 layers (one unit of 5 Mamba2 blocks and the shared attention
-# block); rwkv6-1.6b at 2 of 24 layers. (18 and 8 layers until the script's
-# time limit needed the room for tp_zoo, and rwkv6 4 until pod_tp and
-# serve_dist: both steps are host-bound chunk loops whose time follows the
-# depth; PERF.md §4.)
+# block); rwkv6-1.6b at 1 of 24 layers. (18 and 8 layers until the script's
+# time limit needed the room for tp_zoo, rwkv6 4 until pod_tp and serve_dist
+# and 2 until tp_heads: both steps are host-bound chunk loops whose time
+# follows the depth; PERF.md §4.)
 ZOO_PATHS = {
     "moe": ("qwen3-moe-235b-a22b", dict(n_layers=1, vocab=18_992, ep_axis="data",
                                         ep_ranks=TS_N)),
     "zamba2": ("zamba2-2.7b", dict(n_layers=6)),
-    "rwkv6": ("rwkv6-1.6b", dict(n_layers=2)),
+    "rwkv6": ("rwkv6-1.6b", dict(n_layers=1)),
 }
 ZOO_STEPS = 3
 # The wire FedAvg path: the smoke configuration (the learners mask with host
@@ -372,13 +391,14 @@ WIRE_FED_ARCH, WIRE_FED_K = "internlm2-1.8b", 2
 LAUNCH_STEPS, LAUNCH_TIMEOUT_S = 4, 300
 LOAD_TENANTS, LOAD_ROUNDS = 4, 2
 
-# The serving path: internlm2-1.8b at its published widths and all 24 layers
-# (weights and caches fit: 3.40 GB of bf16 weights, a 3.22 GB KV cache at 8
-# slots x 4096), random weights from seed 0. Traffic A is the reference
+# The serving path: internlm2-1.8b at its published widths and SERVE_LAYERS of
+# its 24 layers (all 24 until the script's time limit needed the room for
+# tp_heads; at 24, 3.40 GB of bf16 weights and a 3.22 GB KV cache at 8 slots x
+# 4096 fit), random weights from seed 0. Traffic A is the reference
 # launcher's defaults (src/repro/launch/serve.py:14-19, 37-41); traffic B is
 # long context, two waves through the slots. A traffic: (requests, slots,
 # max_seq, max_new, prompt seed, prompt lengths [lo, hi)).
-SERVE_ARCH = "internlm2-1.8b"
+SERVE_ARCH, SERVE_LAYERS = "internlm2-1.8b", 12
 SERVE_TRAFFIC = {"A": (8, 4, 256, 32, 0, 4, 32),
                  "B": (16, 8, 4096, 64, 1, 1024, 3073)}
 SERVE_GATE_REQUESTS, SERVE_GATE_STEPS = 2, 16   # traffic B's, against the full forward
@@ -508,7 +528,8 @@ NCCL_TP_ZOO = ("zamba2-2.7b", "rwkv6-1.6b")
 # FedAvg round against the one-card pod step, within tp_dist's bounds.
 PT_WEIGHTS = DIST_WEIGHTS[:POD_STEP_N]
 # Serving across ranks (serve_dist): SD_DATA data x TP_M model ranks sharing
-# the card. (a) the decode_32k layout: internlm2-1.8b at all 24 layers, the
+# the card. (a) the decode_32k layout: internlm2-1.8b at SERVE_LAYERS (all 24
+# until tp_heads), the
 # first SD_A_ROWS of traffic B's prompts (1024-3072 tokens), SD_A_ROWS /
 # SD_DATA a data rank, each prefilled alone into a cache of SD_A_MAX, then
 # SD_A_STEPS decode steps teacher-forced on the one-process run's greedy
@@ -527,6 +548,25 @@ SD_A_ROWS, SD_A_MAX, SD_A_STEPS = 8, 4096, 16
 SD_B_ARCH, SD_B_LAYERS, SD_B_SEQ, SD_B_STEPS = "gemma3-12b", 6, 524_288, 8
 SD_B_POS = (327_680, 524_288)
 SD_B_TOL = SERVE_CARD_TOL
+# Whole-unit uneven splits over the 'model' axis (tp_heads): internvl2-1b at its
+# published widths (d_model 896, 14 q heads of 64, 2 kv heads, d_ff 4864; its
+# vocabulary of 151,655, which 4 does not divide, replicated as the
+# reference's sanitize_spec keeps it), text only, TH_N learners x TH_M model
+# shards = 12 ranks sharing the card (dist.grid: rank l·4 + j). m = 4 is the
+# smallest model axis at which the reference's GSPMD cuts one of its heads (896
+# columns divide by 4, 14 heads do not); the port's ranks hold 4, 4, 3 and 3
+# whole q heads, rank 1's q heads 4-7 reading kv heads 0 and 1, the 2 kv
+# heads on every rank. Depth TH_LAYERS of 24 (the embedding alone is 136 M
+# words on every rank). Two SAFE train steps (learner DIST_DEAD dead in the
+# second) and a weighted FedAvg round against the one-card port within
+# tp_dist's bounds; then TH_N of traffic B's prompts, one a data rank,
+# prefilled into caches of SD_A_MAX and TH_SERVE_STEPS decode steps
+# teacher-forced on seeded tokens, within SERVE_TOL of one process.
+# Text only (prefix_embeds 256 -> 0): the FedAvg round, the port's as the
+# reference's, takes no prefix, and its loss would then drop the first 256
+# text positions.
+TH_ARCH, TH_N, TH_M, TH_LAYERS, TH_SERVE_STEPS = "internvl2-1b", 3, 4, 1, 8
+TH_WEIGHTS = DIST_WEIGHTS[:TH_N]
 
 
 def say(*parts):
@@ -1916,8 +1956,16 @@ def serve_gate_smoke(dev):
     return out
 
 
+def serve_config():
+    """The serving paths' configuration: SERVE_ARCH at SERVE_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+
+
 def serve_paths(dev, launches, smi):
-    """Phases 4-6 of serving: SERVE_ARCH at full width and depth through
+    """Phases 4-6 of serving: SERVE_ARCH at full width and SERVE_LAYERS through
     ``ServeEngine`` with traffics A and B, and the serving launcher as a
     subprocess; the consistency gates; the timings."""
     import re
@@ -1927,7 +1975,7 @@ def serve_paths(dev, launches, smi):
     from repro_torch.models import Model
     from repro_torch.serve import ServeEngine, make_serve_step
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = serve_config()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev)  # random weights from seed 0
     params = model.tree()
@@ -2680,21 +2728,54 @@ def _dist_rank(world, layers):
     return out
 
 
-def spawn_ranks(fn, ranks, args=()):
-    """``ranks`` spawned ranks of ``fn`` sharing the card over the host
-    transport, each rank's allocator set to DIST_ALLOC_CONF (read when a
-    rank's allocator starts; this process's has started): their results,
-    in rank order."""
-    from repro_torch.dist import spawn
+@contextlib.contextmanager
+def _alloc_env():
+    """The environment a rank starts in: this process's, its allocator set
+    to DIST_ALLOC_CONF (read when a rank's allocator starts; this process's
+    has started)."""
     before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = DIST_ALLOC_CONF
     try:
-        return [r["result"] for r in spawn(fn, ranks, "cuda", transport="host", args=args)]
+        yield
     finally:
         if before is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+
+
+#: the rank pool ``spawn_ranks`` keeps for its next call of the same rank
+#: count (None between pools), and each closed pool's (ranks, start-up s,
+#: paths run)
+POOL = {"pool": None, "done": []}
+
+
+def close_pool():
+    pool = POOL["pool"]
+    if pool is not None:
+        pool.close()
+        POOL["done"].append((pool.size, round(pool.start_s, 1), pool.jobs_run))
+        POOL["pool"] = None
+
+
+atexit.register(close_pool)
+
+
+def spawn_ranks(fn, ranks, args=()):
+    """``ranks`` ranks of ``fn`` sharing the card over the host transport,
+    each rank's allocator set to DIST_ALLOC_CONF: their results, in rank
+    order. The ranks are a ``repro_torch.dist.RankPool``'s, kept for the
+    next call of the same count (a call of another count, or the script's
+    exit, stops them): only a pool's first path pays the ranks' start-up.
+    Each path's rank function resets its own launch counts and reads
+    memory against its own start."""
+    from repro_torch.dist import RankPool
+    if POOL["pool"] is not None and (POOL["pool"].size != ranks or POOL["pool"].closed):
+        close_pool()
+    if POOL["pool"] is None:
+        with _alloc_env():
+            POOL["pool"] = RankPool(ranks, "cuda", transport="host")
+    return [r["result"] for r in POOL["pool"].run(fn, args)]
 
 
 def spawn_dist_ranks(layers):
@@ -3396,12 +3477,12 @@ def pod_dist_paths(dev, launches, err, smi):
     one_s = time.perf_counter() - t0
 
     how = f"sharing {torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers"
+    t0 = time.perf_counter()  # the steps' 6 ranks first: the next paths reuse the rounds' 8
+    steps_ = spawn_ranks(_pod_step_rank, POD_P * POD_STEP_N, (POD_LAYERS,))
+    steps_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     rounds = spawn_ranks(_pod_round_rank, POD_P * DIST_N)
     rounds_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    steps_ = spawn_ranks(_pod_step_rank, POD_P * POD_STEP_N, (POD_LAYERS,))
-    steps_s = time.perf_counter() - t0
     paths = {"pod_rounds": [r["round_launches"] for r in rounds],
              "rank_engine": [r["engine_launches"] for r in rounds],
              "pod_steps": [r["launches"] for r in steps_]}
@@ -4809,14 +4890,14 @@ def pod_tp_path(dev, launches, err, smi):
 
 
 def sd_model(dev, part, tp=None):
-    """serve_dist's model of ``part`` ("a": internlm2-1.8b at all its layers,
+    """serve_dist's model of ``part`` ("a": internlm2-1.8b at SERVE_LAYERS,
     "b": gemma3-12b at SD_B_LAYERS) at full width from seed SEED: the
     one-process model, or model rank tp.rank's shards of it."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    cfg = get_config(SERVE_ARCH if part == "a" else SD_B_ARCH)
+    cfg = serve_config() if part == "a" else get_config(SD_B_ARCH)
     if part == "b":
         cfg = dataclasses.replace(cfg, n_layers=SD_B_LAYERS, dtype="float32")
     return Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),
@@ -4871,7 +4952,7 @@ def sd_fill_cache(model, pos, seq_world=None, tp=None):
 
 def _serve_dist_rank(world, tokens_a):
     """One rank of the serve_dist path (spawned), data rank i's model shard
-    j of the SD_DATA x TP_M grid. (a) internlm2-1.8b at all its layers: its
+    j of the SD_DATA x TP_M grid. (a) internlm2-1.8b at SERVE_LAYERS: its
     SD_A_ROWS / SD_DATA rows of traffic B's prompts prefilled alone into
     its cache of SD_A_MAX, then SD_A_STEPS decode steps teacher-forced on
     ``tokens_a`` (the one-process run's greedy tokens) through
@@ -5007,7 +5088,7 @@ def sd_dryrun():
     from repro_torch.launch import dryrun
     grid_kw = dict(learners=SD_DATA, model_shards=TP_M, per_rank=True)
     try:
-        a = dryrun.measure(get_config(SERVE_ARCH), "decode_32k", shape=dict(
+        a = dryrun.measure(serve_config(), "decode_32k", shape=dict(
             seq_len=SD_A_MAX, global_batch=SD_A_ROWS, kind="decode"), **grid_kw)
         b = dryrun.measure(dataclasses.replace(get_config(SD_B_ARCH), n_layers=SD_B_LAYERS,
                                                dtype="float32"), "long_500k", **grid_kw)
@@ -5020,7 +5101,7 @@ def sd_dryrun():
 def serve_dist_path(dev, launches, smi):
     """The serve_dist path: decode and prefill across SD_DATA x TP_M ranks
     sharing the card (``transport="host"``): (a) the decode_32k layout,
-    batch rows over 'data' and heads over 'model', internlm2-1.8b at all 24
+    batch rows over 'data' and heads over 'model', internlm2-1.8b at SERVE_LAYERS
     layers on traffic B's prompts, within SERVE_TOL of the one-process
     decode; (b) long_500k's, gemma3-12b at one unit with its caches split by
     slot over 'data', within SD_B_TOL of one process's dense decode of the
@@ -5040,7 +5121,8 @@ def serve_dist_path(dev, launches, smi):
            f"{torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers")
     counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
     say(f"phase 4 main path serve_dist ({how}; dist.grid: rank 2*i + j): (a) {SERVE_ARCH} at "
-        f"full width and all 24 layers (bf16, seed {SEED}), the decode_32k layout: "
+        f"full width, reduced: n_layers 24 -> {SERVE_LAYERS} (bf16, seed {SEED}), the "
+        f"decode_32k layout: "
         f"{SD_A_ROWS} of traffic B's prompts, {SD_A_ROWS // SD_DATA} a data rank, each "
         f"prefilled alone into its rank's cache of {SD_A_MAX} and its model rank's kv heads, "
         f"then {SD_A_STEPS} decode steps through make_serve_step(model, grid) teacher-forced "
@@ -5105,6 +5187,388 @@ def serve_dist_path(dev, launches, smi):
         f"(rank 0), peak {lead['a_peak'] / 1e9:.3f} GB a rank; (b) decode step "
         + ", ".join(f"pos {pos}: {sorted(round(x, 1) for x in lead[f'b{pos}_ms'])[SD_B_STEPS // 2]}"
                     f" ms median, peak {lead[f'b{pos}_peak'] / 1e9:.3f} GB" for pos in SD_B_POS))
+    if problems:
+        fail(" | ".join(problems))
+
+
+def th_config():
+    """tp_heads' configuration: internvl2-1b at full width, TH_LAYERS layers,
+    text only."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TH_ARCH), n_layers=TH_LAYERS, prefix_embeds=0)
+
+
+def th_model(dev, tp=None):
+    """tp_heads' model from seed SEED (the one-card model, or model rank
+    tp.rank's shards of it), the train steps' tokens [2, n, B, S] and the
+    FedAvg round's [n, k, B, S]."""
+    from repro_torch.data import make_federated_batches
+    from repro_torch.models import Model
+    cfg = th_config()
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),
+                  tp_world=tp)
+    stream = make_federated_batches(cfg, TH_N, TS_B, TS_S, seed=SEED)
+    steps = np.stack([stream.global_batch(i)["tokens"] for i in range(2)])
+    fed = np.stack([np.stack([stream.learner_batch(r, 10 + k)["tokens"] for k in range(DIST_K)])
+                    for r in range(TH_N)])
+    return model, steps, fed
+
+
+def th_serve_tokens(cfg):
+    """tp_heads' decode tokens, [TH_SERVE_STEPS, TH_N]: row l's are data
+    rank l's."""
+    return np.random.RandomState(SEED + 11).randint(0, cfg.vocab, (TH_SERVE_STEPS, TH_N))
+
+
+def th_serve(model, rows, mesh=None):
+    """Traffic B's prompts ``rows`` (indices) each prefilled alone into its
+    row of a cache of SD_A_MAX, then TH_SERVE_STEPS decode steps
+    teacher-forced on their columns of ``th_serve_tokens``. Returns (logits
+    [steps + 1, rows, V] on the host, the decode steps' ms)."""
+    from repro_torch.serve import make_serve_step
+    prompts = [r.prompt for r in serve_requests(model.cfg, "B")]
+    tokens = th_serve_tokens(model.cfg)[:, rows]
+    with torch.inference_mode():
+        logits, cache = sd_prefill(model, [prompts[i] for i in rows])
+        step = make_serve_step(model, mesh)
+        out, ms = [logits.float().cpu()], []
+        for t in range(TH_SERVE_STEPS):
+            tok = torch.from_numpy(tokens[t]).to(logits.device)
+            if mesh is not None:
+                import torch.distributed as dist
+                dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = step(model.tree(), tok, cache)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits.float().cpu())
+        del cache, logits
+    return torch.stack(out), ms
+
+
+def _tp_heads_rank(world):
+    """One rank of the tp_heads path (spawned): learner l's model shard j
+    of the TH_N x TH_M grid. Two train steps (learner DIST_DEAD dead in the
+    second) with their collectives timed, a weighted FedAvg round, then its
+    data rank's prompt prefilled and decoded (``th_serve``); the launch
+    counts read after the train step and the round. Outside the timed
+    parts: the second step's chunks, each ring's rows to its head (learner
+    0), which runs the one-card round on them, compared by digest with
+    every rank's published chunk; each rank's ZeRO-1 part against FlatAdamW
+    of its words of the published chunks; the full leaves on global rank
+    0."""
+    import torch.distributed as dist
+
+    from repro_torch.core import make_aggregator
+    from repro_torch.dist import collectives, grid
+    from repro_torch.kernels import build
+    from repro_torch.optim.adamw import AdamState, FlatAdamW
+    from repro_torch.train import make_federated_round, make_train_step
+    dev = world.device
+    g = grid(world, TH_M)
+    l, j = g.data.rank, g.model.rank
+    out = {"pos": (l, j), "step_ms": [], "step_transport_ms": [], "losses": [], "phase_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part):  # the rank's seconds by part of its work
+        now = time.perf_counter()
+        out["phase_s"][part] = round(now - clock[0], 2)
+        clock[0] = now
+    build.reset_launches()
+    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)  # cuBLAS's workspace
+    sync()
+    base = torch.cuda.memory_allocated(dev)
+    model, steps, fed = th_model(dev, g.model)
+    cfg = model.cfg
+    out["q_heads"] = model.tree()["blocks"][0]["attn"]["wq"].shape[-1] // cfg.resolved_head_dim
+    agg = make_aggregator("safe", TH_N, device=dev)
+    rounds = []
+    aggregate_rank = agg.aggregate_rank
+
+    def record(values, counter_base=0, **kw):
+        """Each step's words of the published chunk this rank's ZeRO-1 part
+        updates (to the host), the second step's input and published chunks."""
+        mean = aggregate_rank(values, counter_base, **kw)
+        second = len(rounds) == 1
+        part = mean.numel() // TH_N
+        rounds.append((values.clone() if second else None, mean.clone() if second else None,
+                       mean[l * part:(l + 1) * part].to("cpu", copy=True),
+                       counter_base, kw["alive"], kw["rotate"]))
+        return mean
+
+    agg.aggregate_rank = record
+    bundle = make_train_step(model, agg, g, lr=TS_LR)
+    state = bundle.init_state_fn(model.tree())
+    master0 = state["master"].to("cpu", copy=True)
+    out["padded_size"] = bundle.padded_size
+    sync()
+    lap("build")
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, alive in enumerate((np.ones(TH_N, np.float32), pod_alive(TH_N))):
+        toks = torch.from_numpy(steps[i][l]).to(dev)
+        counter = agg.reserve_round(bundle.padded_size + 2)
+        dist.barrier()
+        sync()
+        collectives.reset_stats(timed=True)
+        t0 = time.perf_counter()
+        state, m = bundle.step_fn(state, toks, counter=counter, alive=alive)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["step_transport_ms"].append(collectives.stats["seconds"] * 1e3)
+        out["losses"].append(float(m["loss"]))
+        if i == 0:
+            out["step1_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    collectives.reset_stats()
+    out["train_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    launches = dict(build.launches)
+    lap("steps")
+
+    # the second step's chunks against the one-card round of their rows
+    sync()
+    torch.cuda.empty_cache()
+    rows, pub, _, counter, alive, rotate = rounds[1]
+    L = pub.numel()
+    rows = collectives.gather_to_host(rows, 0, g.data)
+    mine = torch.tensor(list(bytes.fromhex(digest(pub))), dtype=torch.uint8, device=dev)
+    pubs = [bytes(d.tolist()).hex() for d in collectives.all_gather(mine, g.data).cpu()]
+    ok = True
+    if l == 0:  # ring j's head: the one-card round of the ring's rows
+        want = make_aggregator("safe", TH_N, device=dev).aggregate(
+            rows.view(TH_N, L).to(dev), counter + j * (L // 2), alive=alive, rotate=rotate)
+        ok = all(d == digest(want) for d in pubs)
+        del want
+    del rows, pub
+    sync()
+    torch.cuda.empty_cache()
+    out["chunks_exact"] = bool(collectives.all_gather(torch.tensor([int(ok)], device=dev),
+                                                      world).all())
+    lap("chunks check")
+    master = master0.to(dev)
+    zero = torch.zeros_like(master)
+    opt, st = FlatAdamW(lr=TS_LR, weight_decay=0.1), AdamState(0, zero, zero.clone())
+    for r in rounds:
+        master, st = opt.update(r[2].to(dev), st, master, inplace=True)
+    ok = digest(master, st.m, st.v) == digest(state["master"], state["fm"], state["fv"])
+    out["zero1"] = bool(collectives.all_gather(torch.tensor([int(ok)], device=dev),
+                                               world).all())
+    out["master_words"] = state["master"].numel()
+    del rounds, master0, master, zero, st
+    lap("ZeRO-1 check")
+    out["train_leaves"] = tp_full_leaves(state["params"], model, g.data, g.model)
+    del state, bundle, agg, model
+    sync()
+    torch.cuda.empty_cache()
+    lap("leaves")
+
+    # the weighted FedAvg round
+    model = th_model(dev, g.model)[0]
+    agg = make_aggregator("safe", TH_N, weighted=True, device=dev)
+    fb = make_federated_round(model, agg, g, local_steps=DIST_K, local_lr=FED_LR,
+                              return_delta=True)
+    counter = agg.reserve_round(fb.padded_size + 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    params, m = fb.round_fn(model.tree(), torch.from_numpy(fed[l]).to(dev),
+                            weights=TH_WEIGHTS, counter=counter, alive=pod_alive(TH_N))
+    sync()
+    out["fedavg_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fedavg_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    out["fed_padded"] = fb.padded_size
+    out["launches"] = {k: launches[k] + build.launches[k] for k in launches}
+    out["fed_loss"] = float(m["local_loss"])
+    out["fed_delta"] = m["avg_delta"].cpu() if world.rank == 0 else None
+    out["fed_leaves"] = tp_full_leaves(params, model, g.data, g.model)
+    del params, m, fb, agg
+    sync()
+    torch.cuda.empty_cache()
+    lap("fedavg")
+
+    # serving: this data rank's prompt over the model group
+    t0 = time.perf_counter()
+    out["serve_logits"], out["serve_ms"] = th_serve(model, [l], g)
+    out["serve_s"] = time.perf_counter() - t0
+    del model
+    lap("serve")
+    dist.barrier()
+    lap("barrier")
+    return out
+
+
+def th_one_card(dev):
+    """tp_heads' work on one card: the initial leaves, two train steps, the
+    weighted FedAvg round, and the TH_N prompts' prefills and decode steps."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.train import make_federated_round, make_train_step
+    from repro_torch.train.flatten import leaves
+    model, steps, fed = th_model(dev)
+    out = {"init": [p.detach().to("cpu", copy=True) for p in leaves(model.tree())],
+           "losses": []}
+    agg = make_aggregator("safe", TH_N, device=dev)
+    bundle = make_train_step(model, agg, lr=TS_LR)
+    state = bundle.init_state_fn(model.tree())
+    del model
+    for i, alive in enumerate((np.ones(TH_N, np.float32), pod_alive(TH_N))):
+        state, m = bundle.step_fn(state, torch.from_numpy(steps[i]).to(dev),
+                                  counter=agg.reserve_round(bundle.padded_size + 2), alive=alive)
+        out["losses"].append(float(m["loss"]))
+    out["train"] = [p.detach().cpu() for p in leaves(state["params"])]
+    del state, bundle
+    torch.cuda.empty_cache()
+    model = th_model(dev)[0]
+    agg = make_aggregator("safe", TH_N, weighted=True, device=dev)
+    fb = make_federated_round(model, agg, local_steps=DIST_K, local_lr=FED_LR,
+                              return_delta=True)
+    params, m = fb.round_fn(model.tree(), torch.from_numpy(fed).to(dev), weights=TH_WEIGHTS,
+                            counter=agg.reserve_round(tree_size_of(model) + 1),
+                            alive=pod_alive(TH_N))
+    out["fed"] = ([p.detach().cpu() for p in leaves(params)], m["avg_delta"].cpu(),
+                  float(m["local_loss"]))
+    del params, m, fb
+    torch.cuda.empty_cache()
+    model = th_model(dev)[0]
+    out["serve_logits"], _ = th_serve(model, list(range(TH_N)))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def th_dryrun():
+    """The dry run's rank 0 of tp_heads' grid (meta tensors): its record."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    try:
+        return dryrun.measure(th_config(), "train_4k", shape=dict(
+            seq_len=TS_S, global_batch=TH_N * TS_B, kind="train"),
+            learners=TH_N, batch=TS_B, per_rank=True, model_shards=TH_M)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_heads_path(dev, launches, err, smi):
+    """The tp_heads path: whole-unit uneven head splits, TH_N learners x
+    TH_M model shards spawned and sharing the card (``transport="host"``),
+    against the same work in this process on the card: the second step's
+    chunks (each the one-card round of its rows) and the ZeRO-1 parts
+    exactly, the float math within tp_dist's bounds, prefill and decode
+    within SERVE_TOL, rank 0's first-step peak against the dry run's; adds
+    the ranks' launches to ``launches`` and the kernels' checks at the
+    path's chunks to ``err``."""
+    t0 = time.perf_counter()
+    pred = th_dryrun()
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = th_one_card(dev)
+    one_s = time.perf_counter() - t0
+    size = TH_N * TH_M
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_tp_heads_rank, size)
+    ranks_s = time.perf_counter() - t0
+    how = (f"{TH_N} learners x {TH_M} model shards = {size} ranks sharing "
+           f"{torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers")
+    cfg = th_config()
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
+    padded, fed_padded = ranks[0]["padded_size"], ranks[0]["fed_padded"]
+    chunks = [(padded // TH_M, j * padded // TH_M) for j in range(TH_M)]
+    chunks += [(fed_padded // TH_M + (j == TH_M - 1), j * fed_padded // TH_M)
+               for j in range(TH_M)]
+    t1 = time.perf_counter()
+    kerr, checks = check_tp_kernels(dev, chunks, err)
+    heads = [r["q_heads"] for r in ranks[:TH_M]]
+    say(f"phase 4 main path tp_heads ({how}; dist.grid: rank l*{TH_M} + j): {TH_ARCH} at full "
+        f"width ({cfg.n_heads} q heads of {cfg.resolved_head_dim}, {cfg.n_kv_heads} kv heads, "
+        f"d_ff {cfg.d_ff}, vocabulary {cfg.vocab} replicated), reduced: n_layers 24 -> "
+        f"{TH_LAYERS}, prefix_embeds 256 -> 0 (text only); whole q heads split unevenly "
+        f"{heads} a model rank, the kv heads on every rank; two train steps (learner "
+        f"{DIST_DEAD} dead in the second), a weighted FedAvg round of {DIST_K} local steps, "
+        f"then {TH_N} of traffic B's prompts (one a data rank) prefilled and {TH_SERVE_STEPS} "
+        f"decode steps through make_serve_step(model, grid), teacher-forced on seeded tokens; "
+        f"padded_size {padded} (chunks of "
+        f"{padded // TH_M}), the FedAvg round's {fed_padded}; {ranks_s:.1f} s spawned, "
+        f"{one_s:.1f} s for the same in one process; launches summed over the ranks {counts}; "
+        f"the kernels at the path's chunks (length, start word) {chunks} == plain: {checks} "
+        f"comparisons in {time.perf_counter() - t1:.1f} s, max |err| {kerr}")
+    missing = sorted(k for k in PATH_KERNELS["tp_heads"] if counts[k] <= 0)
+    if missing:
+        fail(f"path tp_heads never launched {missing} in its ranks: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    lead = ranks[0]
+    problems = []
+    if heads != [4, 4, 3, 3]:
+        problems.append(f"tp_heads: the model ranks hold {heads} q heads, not 4, 4, 3, 3")
+    if not lead["chunks_exact"]:
+        problems.append("tp_heads: a published chunk differs from the one-card round of its "
+                        "rows")
+    if not lead["zero1"]:
+        problems.append("tp_heads: a rank's ZeRO-1 part is not FlatAdamW of its words of the "
+                        "published means")
+    if any(r["losses"] != lead["losses"] for r in ranks):
+        problems.append(f"tp_heads: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lead["losses"], one["losses"]))
+    change = _rel(lead["train_leaves"], one["train"], one["init"], dev)
+    fo = one["fed"]
+    fed_loss_rel = abs(lead["fed_loss"] - fo[2]) / abs(fo[2])
+    delta_rel = _rel([lead["fed_delta"][:fo[1].numel()]], [fo[1]], [torch.zeros_like(fo[1])],
+                     dev)
+    fed_change = _rel(lead["fed_leaves"], fo[0], one["init"], dev)
+    floats = (f"losses {[round(x, 5) for x in lead['losses']]} vs one card's "
+              f"{[round(x, 5) for x in one['losses']]} ({loss_rel:.2e} relative, bound "
+              f"{TP_LOSS_RTOL}); the parameters' change over two steps {change:.3e} relative L2 "
+              f"(bound {TP_CHANGE_REL}); FedAvg: local loss {fed_loss_rel:.2e} relative, the "
+              f"published delta {delta_rel:.3e} and the parameters' change {fed_change:.3e} "
+              f"relative L2 (bound {TP_CHANGE_REL})")
+    if (loss_rel > TP_LOSS_RTOL or change > TP_CHANGE_REL or fed_loss_rel > TP_LOSS_RTOL
+            or max(delta_rel, fed_change) > TP_CHANGE_REL):
+        problems.append(f"tp_heads: the float math left its bounds: {floats}")
+    worst = 0.0
+    for r in ranks:
+        l = r["pos"][0]
+        got, want = r["serve_logits"][:, 0], one["serve_logits"][:, l]
+        if not torch.isfinite(got).all():
+            problems.append(f"tp_heads: rank {r['pos']} has a non-finite logit")
+        for s in range(want.shape[0]):
+            worst = max(worst, float((got[s] - want[s]).abs().max() / want[s].abs().max()))
+        if not torch.equal(r["serve_logits"], ranks[l * TH_M]["serve_logits"]):
+            problems.append(f"tp_heads: rank {r['pos']}'s logits differ from its row's rank 0")
+    serve = (f"prefill and {TH_SERVE_STEPS} decode steps {worst:.2e} of max |logit| from the "
+             f"one-process run's on the same tokens (bound {SERVE_TOL})")
+    if worst > SERVE_TOL:
+        problems.append(f"tp_heads: {serve}")
+    p, r = pred["peak_bytes"], lead["step1_peak"]
+    dry = (f"rank 0's first step: dry run (--per-rank --model-shards {TH_M}) {p / 1e9:.3f} GB "
+           f"against max_memory_allocated {r / 1e9:.3f} GB, off by {abs(p - r) / r:.2%}")
+    if abs(p - r) / r > DRY_TOL:
+        problems.append(f"tp_heads {dry}, over {DRY_TOL:.0%}")
+    say(f"phase 5 tp_heads: every rank's published chunk of the second step torch.equal to the "
+        f"one-card round of its rows (the counter base moved to the chunk's start word): "
+        f"{lead['chunks_exact']}; every rank's ZeRO-1 part ({lead['master_words']} words) after "
+        f"two steps word for word FlatAdamW from its initial part by its words of the published "
+        f"chunks: {lead['zero1']}; against the one-card step on the same weights (bf16): "
+        f"{floats}; {serve}; {dry} (bound {DRY_TOL:.0%}, {dry_s:.1f} s on meta tensors)")
+    for i in range(2):
+        walls = [x["step_ms"][i] for x in ranks]
+        tr = [x["step_transport_ms"][i] for x in ranks]
+        say(f"phase 6 tp_heads train step {i + 1} ({how}): wall {max(walls):.1f} ms; in "
+            f"collectives {[round(t, 1) for t in tr]} ms, transport share "
+            f"{[f'{t / w:.0%}' for t, w in zip(tr, walls)]}")
+    say(f"phase 6 tp_heads ({how}): FedAvg round wall {max(x['fedavg_ms'] for x in ranks):.1f} "
+        f"ms; serving {max(x['serve_s'] for x in ranks):.1f} s a rank, decode step "
+        f"{sorted(round(x, 1) for x in lead['serve_ms'])[TH_SERVE_STEPS // 2]} ms median (rank "
+        f"0); peaks: train steps {[round(x['train_peak'] / 1e9, 2) for x in ranks]} GB a rank "
+        f"(the dry run's rank 0 {p / 1e9:.2f} GB, by category "
+        f"{json.dumps({k: round(v / 1e9, 3) for k, v in pred['peak_by_category'].items()})}), "
+        f"FedAvg {[round(x['fedavg_peak'] / 1e9, 2) for x in ranks]} GB; collective bytes of "
+        f"rank 0's step by op (dry run) {json.dumps(pred['collective_bytes'])}; rank 0's "
+        f"seconds by part {json.dumps(lead['phase_s'])} of {ranks_s:.1f} s spawned")
     if problems:
         fail(" | ".join(problems))
 
@@ -5322,6 +5786,7 @@ def main():
     torch.cuda.empty_cache()
     timed("dry run", dryrun_paths, dev, launches, smi)
     torch.cuda.empty_cache()
+    # the paths across ranks, those of one rank count on one pool of ranks
     timed("dist", dist_paths, dev, launches, err, smi)
     torch.cuda.empty_cache()
     timed("moe dist", ep_dist_path, dev, launches, err, smi)
@@ -5332,9 +5797,14 @@ def main():
     torch.cuda.empty_cache()
     timed("tp zoo", tp_zoo_path, dev, launches, err, smi)
     torch.cuda.empty_cache()
+    timed("serve dist", serve_dist_path, dev, launches, smi)
+    torch.cuda.empty_cache()
     timed("pod tp", pod_tp_path, dev, launches, err, smi)
     torch.cuda.empty_cache()
-    timed("serve dist", serve_dist_path, dev, launches, smi)
+    timed("tp heads", tp_heads_path, dev, launches, err, smi)
+    close_pool()
+    say(f"phase 6 rank pools ({smi}): (ranks, start-up s, paths run) "
+        f"{POOL['done']}: a path after a pool's first takes its ranks started")
     say(f"phase 6 script ({smi}): {time.perf_counter() - t_start:.1f} s from the start of "
         f"main, of a {LIMIT_S} s limit; seconds by path {json.dumps(walls)}")
     say(f"launches {json.dumps(launches)}")

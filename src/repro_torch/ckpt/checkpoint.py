@@ -362,9 +362,10 @@ def gather_full_leaf(x: torch.Tensor, sh, ring, tp, expert: bool = False
     x = x.detach()
     if sh.split is None:
         part = x.cpu() if tp.rank == 0 else None
-    else:
-        part = collectives.gather_to_host(x, 0, tp, axis=sh.dim)
-        part = None if part is None else sh.join(list(part.chunk(tp.size, sh.dim)))
+    else:  # shards padded to rank 0's length (uneven splits), trimmed on join
+        part = collectives.gather_to_host(sh.split.pad(x, tp.size), 0, tp, axis=sh.dim)
+        if part is not None:
+            part = sh.join(sh.split.trim(list(part.chunk(tp.size, sh.dim))))
     if expert and tp.rank == 0:  # the learners' experts, over ring 0
         part = collectives.gather_to_host(part.to(x.device), 0, ring, axis=1)
     return part

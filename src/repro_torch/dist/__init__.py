@@ -13,8 +13,10 @@ gives a rank its pod, ring and model Worlds of the ('pod', 'data',
 Importing this package starts no process group.
 """
 from repro_torch.dist import collectives
-from repro_torch.dist.world import (TRANSPORTS, Grid, World, close_world, grid, grid_worlds,
-                                   init_world, model_world_of, pod_world_of, rank_world, spawn)
+from repro_torch.dist.world import (TRANSPORTS, Grid, RankPool, World, close_world, grid,
+                                   grid_worlds, init_world, model_world_of, pod_world_of,
+                                   rank_world, spawn)
 
 __all__ = ["World", "Grid", "TRANSPORTS", "init_world", "close_world", "rank_world",
-           "model_world_of", "pod_world_of", "grid", "grid_worlds", "spawn", "collectives"]
+           "model_world_of", "pod_world_of", "grid", "grid_worlds", "RankPool", "spawn",
+           "collectives"]

@@ -20,7 +20,8 @@ The transport follows the device, and is never chosen silently:
 ``init_world`` starts this process's group (from explicit rank, world
 size and store, or from the environment ``torch.distributed.run`` sets);
 ``spawn`` starts n ranks of a function on one host and returns what each
-rank returned with its kernel launch counts.
+rank returned with its kernel launch counts; a ``RankPool`` keeps such
+ranks for the next function of the same rank count.
 """
 from __future__ import annotations
 
@@ -292,21 +293,39 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
-def _rank_main(rank: int, fn: Callable, size: int, device: str, transport: Optional[str],
-               args: Sequence, out_dir: str, threads: Optional[int]) -> None:
-    """One spawned rank: start the group, run ``fn(world, *args)``, write
-    its result and its kernel launch counts for the parent."""
+def _rank_loop(rank: int, size: int, device: str, transport: Optional[str],
+               threads: Optional[int], out_dir: str, jobs, done) -> None:
+    """One rank of a ``RankPool``: start the group once, then run each job
+    ``(n, fn, args)`` from ``jobs`` as ``fn(world, *args)``, write its
+    result and this process's kernel launch counts for the parent and
+    report to ``done``, until the job is None. A raise is reported with
+    its traceback and ends the rank."""
+    import gc
+    import traceback
+
     from repro_torch.kernels import build
-    if threads:
-        torch.set_num_threads(threads)
-    store = _file_store(out_dir, size)
-    world = init_world(rank, size, store, device=device, transport=transport)
+    n = "start"
     try:
-        result = fn(world, *args)
-        if world.device.type == "cuda":
-            torch.cuda.synchronize(world.device)
-        torch.save({"result": _to_host(result), "launches": dict(build.launches)},
-                   os.path.join(out_dir, f"rank{rank}.pt"))
+        if threads:
+            torch.set_num_threads(threads)
+        world = init_world(rank, size, _file_store(out_dir, size), device=device,
+                           transport=transport)
+        cuda = world.device.type == "cuda"
+        done.put((n, rank, None))
+        while (job := jobs.get()) is not None:
+            n, fn, args = job
+            result = fn(world, *args)
+            if cuda:
+                torch.cuda.synchronize(world.device)
+            torch.save({"result": _to_host(result), "launches": dict(build.launches)},
+                       os.path.join(out_dir, f"job{n}_rank{rank}.pt"))
+            del result
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            done.put((n, rank, None))
+    except BaseException:
+        done.put((n, rank, traceback.format_exc()))
     finally:
         close_world()
 
@@ -316,28 +335,111 @@ def _file_store(out_dir: str, size: int):
     return dist.FileStore(os.path.join(out_dir, "store"), size)
 
 
+class RankPool:
+    """``world_size`` ranks of this host, each a spawned process that
+    starts its group once (over a ``FileStore`` in a temporary directory)
+    and then runs every job ``run`` gives it, so that consecutive calls of
+    one rank count pay the processes' start-up (``start_s``) once.
+
+    ``run(fn, args)`` runs ``fn(world, *args)`` on every rank and returns
+    one dict a rank, in rank order: ``result`` (what ``fn`` returned, its
+    tensors moved to the CPU) and ``launches`` (that process's
+    ``kernels.build.launches`` so far: the counts are per process, so only
+    the rank can read them). A rank that raises, or dies, fails the call
+    and stops the pool. ``fn`` and ``args`` must pickle (``fn`` a
+    module-level function). A job starts on the process the last one left.
+    ``device``, ``transport`` and ``threads`` (each rank's intra-op
+    threads) as ``spawn``'s. ``close`` (or leaving a ``with`` block) stops
+    the ranks."""
+
+    def __init__(self, world_size: int, device: str = "cuda", *,
+                 transport: Optional[str] = None, threads: Optional[int] = None):
+        import time
+
+        import torch.multiprocessing as mp
+        self.size, self.jobs_run, self.closed = world_size, 0, False
+        self._dir = tempfile.TemporaryDirectory(prefix="repro_torch_world_")
+        ctx = mp.get_context("spawn")
+        self._jobs = [ctx.Queue() for _ in range(world_size)]
+        self._done = ctx.Queue()
+        self._procs = [ctx.Process(target=_rank_loop,
+                                   args=(r, world_size, device, transport, threads,
+                                         self._dir.name, self._jobs[r], self._done))
+                       for r in range(world_size)]
+        t0 = time.perf_counter()
+        for proc in self._procs:
+            proc.start()
+        self._wait("start")
+        self.start_s = time.perf_counter() - t0
+
+    def _wait(self, what: str) -> None:
+        """Until every rank has reported; a rank's raise or death stops
+        the pool and raises."""
+        import queue
+        left = set(range(self.size))
+        while left:
+            try:
+                _, rank, error = self._done.get(timeout=5)
+            except queue.Empty:
+                dead = sorted(r for r in left if not self._procs[r].is_alive())
+                if dead:
+                    self.close(wait_s=0)
+                    raise RuntimeError(f"ranks {dead} of {self.size} died in {what}")
+                continue
+            if error is not None:
+                self.close(wait_s=0)
+                raise RuntimeError(f"rank {rank} of {self.size} raised in {what}:\n{error}")
+            left.discard(rank)
+
+    def run(self, fn: Callable, args: Sequence = ()) -> list:
+        if self.closed:
+            raise RuntimeError("the rank pool is closed")
+        n = self.jobs_run
+        self.jobs_run += 1
+        for q in self._jobs:
+            q.put((n, fn, tuple(args)))
+        self._wait(getattr(fn, "__name__", repr(fn)))
+        out = []
+        for r in range(self.size):
+            path = os.path.join(self._dir.name, f"job{n}_rank{r}.pt")
+            out.append(torch.load(path, weights_only=False))
+            os.remove(path)
+        return out
+
+    def close(self, wait_s: float = 30.0) -> None:
+        """Stop the ranks: each ends its loop, or, ``wait_s`` on (a rank
+        left waiting in a collective by a failed job), is terminated."""
+        import time
+        if self.closed:
+            return
+        self.closed = True
+        for q in self._jobs:
+            q.put(None)
+        deadline = time.perf_counter() + wait_s
+        for proc in self._procs:
+            proc.join(timeout=max(0.0, deadline - time.perf_counter()))
+        for proc in self._procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        self._dir.cleanup()
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def spawn(fn: Callable, world_size: int, device: str = "cuda", *,
           transport: Optional[str] = None, args: Sequence = (),
           threads: Optional[int] = None) -> list:
-    """Run ``fn(world, *args)`` on ``world_size`` ranks of this host, each a
-    spawned process, over a ``FileStore`` in a temporary directory.
-
-    Returns one dict a rank, in rank order: ``result`` (what ``fn``
-    returned, its tensors moved to the CPU) and ``launches`` (that
-    process's ``kernels.build.launches``: the counts are per process, so
-    only the rank can read them). A rank that raises, or exits with
-    another code than 0, fails the call (``torch.multiprocessing``
-    then stops the other ranks). ``fn`` and ``args`` must pickle (``fn``
-    a module-level function); ``threads`` sets each rank's intra-op
-    threads."""
-    import torch.multiprocessing as mp
-    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as out_dir:
-        mp.start_processes(_rank_main, nprocs=world_size, join=True, start_method="spawn",
-                           args=(fn, world_size, device, transport, tuple(args), out_dir,
-                                 threads))
-        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-                for r in range(world_size)]
+    """Run ``fn(world, *args)`` once on ``world_size`` ranks of this host:
+    ``RankPool.run`` on a pool of its own, stopped after. ``threads`` sets
+    each rank's intra-op threads."""
+    with RankPool(world_size, device, transport=transport, threads=threads) as pool:
+        return pool.run(fn, args)
 
 
 __all__ = ["World", "Grid", "TRANSPORTS", "init_world", "close_world", "rank_world",
-           "pod_world_of", "model_world_of", "grid", "grid_worlds", "spawn"]
+           "pod_world_of", "model_world_of", "grid", "grid_worlds", "RankPool", "spawn"]

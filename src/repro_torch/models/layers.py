@@ -26,17 +26,21 @@ blocks in its order.
 Tensor parallelism (``tp``, the model group's ``World``; the reference's
 GSPMD over its 'model' axis, Megatron's layout): each rank holds its
 shards (``models/sharding.py``). Attention takes the replicated input
-through ``copy_to_model``, projects to its whole q heads and the kv heads
-they read (wq/wk/wv column-parallel; fewer kv heads than ranks are
-replicated and each rank takes the one its q heads share), runs qk-norm
-(its scales through ``copy_to_model``, since each rank normalizes only
-its heads), RoPE, the masks, the softcap and flash or dense attention on
-them, and wo row-parallel behind ``reduce_from_model``; the MLP splits ff
-the same way. Norms stay replicated. Serving takes the same split: the
-decode cache holds this rank's kv heads where m divides them; where it
-does not, the reference's ``cache_pspecs`` replicates the kv heads over
-'model', so every rank projects and writes all of them (the copies stay
-equal) and attends with the one its q heads share.
+through ``copy_to_model``, projects to its whole q heads (rank j's
+``unit_share`` of them, [h0, h1), which may be none: it then adds zeros
+through wo and still joins every collective) and the kv heads they read
+(wq/wk/wv column-parallel where m divides the kv heads, whole groups a
+rank; otherwise the kv heads are replicated, each rank projects the ones
+its q heads read, and q head q reads kv head q·nkv/nh through an index,
+one kv head a q head, since a rank's q heads may span two kv heads), runs
+qk-norm (its scales through ``copy_to_model``, since each rank normalizes
+only its heads), RoPE, the masks, the softcap and flash or dense
+attention on them, and wo row-parallel behind ``reduce_from_model``; the
+MLP splits ff the same way. Norms stay replicated. Serving takes the same
+split: the decode cache holds this rank's kv heads where m divides them;
+where it does not, the reference's ``cache_pspecs`` replicates the kv
+heads over 'model', so every rank projects and writes all of them (the
+copies stay equal) and attends with the ones its q heads read.
 
 Sequence-sharded decode (``seq``, the data group's ``World``; the
 reference's long_500k layout, ``decode_spec``'s ``seq_axis``): rank i of
@@ -70,6 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist.collectives import copy_to_model, pmax, psum, reduce_from_model
+from repro_torch.models.sharding import unit_share
 
 FLASH_THRESHOLD = 4096  # dense attention above this many tokens would not fit
 FLASH_QBLOCK = 2048
@@ -294,21 +299,24 @@ def attention_apply(
 
     wk, wv = params["wk"].to(x.dtype), params["wv"].to(x.dtype)
     q_norm, k_norm = params.get("q_norm"), params.get("k_norm")
-    kv_read = None  # with a replicated cache: the kv head this rank's q heads share
+    kv_of_q = None  # replicated kv heads: the one each of this rank's q heads reads
     if tp is not None and tp.size > 1:
         m = tp.size
         x = copy_to_model(x, tp)
-        nh //= m
-        if nkv % m:  # fewer kv heads than ranks: replicated, one used here
-            kv = tp.rank * nkv // m
+        h0, h1 = unit_share(nh, m, tp.rank)
+        if nkv % m == 0:  # kv heads split, and so whole groups of q heads a rank
+            nh, nkv = nh // m, nkv // m
+        else:  # kv heads replicated: q head q reads kv head q·nkv/nh
+            g = nh // nkv
+            lo, hi = (h0 // g, -(-h1 // g)) if h1 > h0 else (0, 0)
             wk, wv = copy_to_model(wk, tp), copy_to_model(wv, tp)
-            if cache is None:
-                wk, wv = wk[:, kv * hd:(kv + 1) * hd], wv[:, kv * hd:(kv + 1) * hd]
-                nkv = 1
+            if cache is None:  # only the kv heads this rank's q heads read
+                wk, wv = wk[:, lo * hd:hi * hd], wv[:, lo * hd:hi * hd]
+                nkv = hi - lo
             else:  # the cache holds every kv head on every rank: all are written
-                kv_read = kv
-        else:
-            nkv //= m
+                lo = 0
+            kv_of_q = torch.arange(h0, h1, device=x.device) // g - lo
+            nh = h1 - h0
         if cfg.qk_norm:
             q_norm, k_norm = copy_to_model(q_norm, tp), copy_to_model(k_norm, tp)
 
@@ -365,10 +373,11 @@ def attention_apply(
         # written carry negative absolute positions)
         valid = (abs_pos <= pos[:, None]) & (abs_pos >= 0)
 
-    if kv_read is not None:
-        k_all, v_all = k_all[:, :, kv_read:kv_read + 1], v_all[:, :, kv_read:kv_read + 1]
-        nkv = 1
-    qg = q.reshape(B, S, nkv, nh // nkv, hd)
+    if kv_of_q is not None:  # a kv head a q head (a rank's q heads may read two)
+        k_all, v_all = k_all.index_select(2, kv_of_q), v_all.index_select(2, kv_of_q)
+        qg = q.reshape(B, S, nh, 1, hd)
+    else:
+        qg = q.reshape(B, S, nkv, nh // nkv, hd)
     if cache is None and S > FLASH_THRESHOLD:
         out = _flash_attention(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind)
     elif seq is not None and S == 1:
@@ -384,10 +393,10 @@ def attention_init_cache(cfg, kind: str, batch: int, seq_len: int,
                          device="cuda", model_shards: int = 1, seq_shards: int = 1) -> dict:
     """Decode cache of one attention layer: bf16 k and v by default, as the
     reference's; windowed and chunked layers keep only ``window`` or
-    ``chunk`` slots (a ring buffer). ``model_shards`` m: this rank's
-    nkv/m kv heads where m divides them (all of them, replicated, where it
-    does not); ``seq_shards`` n: this rank's S_c/n slots (n must divide
-    S_c)."""
+    ``chunk`` slots (a ring buffer). ``model_shards`` m: a rank's nkv/m
+    kv heads where m divides them (all of them, replicated, where it does
+    not: the same on every rank); ``seq_shards`` n: this rank's S_c/n
+    slots (n must divide S_c)."""
     base_kind = _base_kind(kind)
     S_c = seq_len
     if base_kind == "local":

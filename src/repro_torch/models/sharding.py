@@ -25,33 +25,35 @@ the pod meshes.
 
 Tensor parallelism across ranks (``Model(cfg, tp_world=...)``): model rank
 j of m holds ``shard_leaf`` of each leaf, cut by the ``Split`` that
-``tp_dim`` gives: slice j of m along the dim where ``_spec_for`` puts
-'model' after ``sanitize_spec`` (a dim that m does not divide stays
-replicated, as the reference's: internvl2's vocabulary of 151,655 at
-m = 2), or, for Mamba2's packed ``in_proj`` [z | x | B | C | dt], a
-segmented split: z, x and dt cut by head, B and C replicated. The
-reference's GSPMD cuts that leaf's columns evenly across the segment
-boundaries and reshards around the cut; the flat vector's words are the
-one-card order either way. Attention is split on whole heads only. The
-q heads and wo split when m divides them. The kv heads split when m divides them, and stay replicated when
-they divide m (fewer kv heads than ranks: each rank's q heads then share
-one kv head, ``j·n_kv/m``). Any other split would cut a head in two and
-raises ``ValueError``. The reference's ``sanitize_spec`` looks only at the
-column count there, so GSPMD cuts a head (14 q heads of 64 at m = 4:
-896 columns divide by 4) and reshards around it
-(``tests/test_torch_dist_tp.py``). Every block kind splits: Mamba2 and
-RWKV6 by head, the MoE's expert-ff and shared experts by column (the
-router replicated), zamba2's shared block as the dense ones; ``check_tp``
-raises where a split would cut a head or an ff column.
+``tp_dim`` gives, along the dim where ``_spec_for`` puts 'model'. The
+vocabulary (embed, lm_head) splits where m divides it and stays
+replicated where it does not, as ``sanitize_spec`` has it (internvl2's
+151,655 at m = 2). Every other split is by whole units, unevenly where m
+does not divide them (``unit_share``: the first u mod m
+ranks hold ⌈u/m⌉ units, the rest ⌊u/m⌋, which may be none): q heads (wq's
+columns, wo's rows, ``head_dim`` words a unit); the kv heads where m
+divides them (then the q heads split evenly too, whole groups a rank), and
+otherwise replicated on every rank, each q head q reading kv head
+q·n_kv/n_heads; the MLP's, an expert's and the shared experts' ff columns;
+Mamba2 and RWKV6 heads (Mamba2's packed ``in_proj`` [z | x | B | C | dt]
+a segmented split: z, x and dt by head, B and C replicated). The
+reference's ``sanitize_spec`` looks only at the column count, so where
+the columns divide and the heads do not (14 q heads of 64 at m = 4: 896
+columns) its GSPMD cuts a head and reshards around the cut, and where the
+columns do not divide (an ff of 767 at m = 2) it replicates the leaf; the
+port's whole-unit split computes the same function in both cases, and the
+flat vector's words are the one-card order either way. ``check_tp``
+therefore refuses no layout the reference runs.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import dataclasses
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.train.flatten import Split, leaves_with_paths, tree_map_with_path
+from repro_torch.train.flatten import leaves_with_paths, tree_map_with_path
 
 _COL = {"wq", "wk", "wv", "wi", "wg", "w_proj", "in_proj",
         "wr", "shared_wi", "shared_wg"}
@@ -128,36 +130,109 @@ def placements(spec: tuple, mesh) -> tuple:
                  for a in mesh.mesh_dim_names)
 
 
+def unit_share(units: int, m: int, rank: int) -> Tuple[int, int]:
+    """[lo, hi): the whole units (heads, ff columns) that model rank
+    ``rank`` of ``m`` holds of ``units``: the first ``units mod m`` ranks
+    hold ⌈units/m⌉, the rest ⌊units/m⌋, which may be none."""
+    q, r = divmod(int(units), int(m))
+    lo = rank * q + min(rank, r)
+    return lo, lo + q + (1 if rank < r else 0)
 
-_ATTN = {"wq", "wk", "wv", "wo"}
-_RECURRENT = ("mamba2", "rwkv6")
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How one leaf is cut over m model ranks: along ``dim``, consecutive
+    segments of the full leaf, each ``(length, cut)``: a cut segment gives
+    each rank its share of whole units (``unit_share``: a unit is
+    ``widths[i]`` words along ``dim``, a head's ``head_dim`` columns or one
+    ff column; every cut segment of a leaf has the same unit count), a
+    replicated one (``cut`` False) is whole on every rank. A plain split
+    is one cut segment; Mamba2's packed ``in_proj`` is [z | x | B | C |
+    dt], z and x by heads of 64 columns, dt by head, B and C replicated.
+    Where m does not divide the units the shards differ in length, rank 0's
+    the longest."""
+
+    dim: int
+    segments: tuple
+    widths: tuple
+
+    @classmethod
+    def whole(cls, dim: int, length: int, width: int = 1) -> "Split":
+        """One cut segment of units ``width`` words long along ``dim``."""
+        return cls(dim, ((length, True),), (width,))
+
+    def spans(self, m: int, rank: int) -> tuple:
+        """Each segment's (start, length) on ``rank``, within the segment."""
+        out = []
+        for i, (n, c) in enumerate(self.segments):
+            if not c:
+                out.append((0, n))
+                continue
+            w = self.widths[i]
+            lo, hi = unit_share(n // w, m, rank)
+            out.append((lo * w, (hi - lo) * w))
+        return tuple(out)
+
+    def local(self, m: int, rank: int) -> tuple:
+        """Each segment's length on ``rank``."""
+        return tuple(k for _, k in self.spans(m, rank))
+
+    def size(self, m: int, rank: int) -> int:
+        """The length of ``rank``'s shard along ``dim``."""
+        return sum(self.local(m, rank))
+
+    def cut(self, full: torch.Tensor, rank: int, m: int) -> torch.Tensor:
+        """Rank ``rank``'s shard of the full leaf (a view for one segment)."""
+        pieces, off = [], 0
+        for (n, _), (start, k) in zip(self.segments, self.spans(m, rank)):
+            pieces.append(full.narrow(self.dim, off + start, k))
+            off += n
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=self.dim)
+
+    def join(self, shards: list, rank: int = 0) -> torch.Tensor:
+        """The full leaf from the m ranks' shards (rank order): a cut
+        segment the shards' pieces joined, a replicated one ``rank``'s."""
+        m = len(shards)
+        locs = [self.local(m, r) for r in range(m)]
+        offs = [0] * m
+        parts = []
+        for i, (_, c) in enumerate(self.segments):
+            for r in (range(m) if c else (rank,)):
+                parts.append(shards[r].narrow(self.dim, offs[r], locs[r][i]))
+            offs = [o + loc[i] for o, loc in zip(offs, locs)]
+        return torch.cat(parts, dim=self.dim)
+
+    def pieces(self, shard: torch.Tensor, rank: int, m: int) -> tuple:
+        """(the cut segments' pieces, the replicated segments') of rank
+        ``rank``'s shard."""
+        cut, rep, off = [], [], 0
+        for (_, c), n in zip(self.segments, self.local(m, rank)):
+            (cut if c else rep).append(shard.narrow(self.dim, off, n))
+            off += n
+        return cut, rep
+
+    def pad(self, shard: torch.Tensor, m: int) -> torch.Tensor:
+        """``shard`` zero-padded along ``dim`` to rank 0's length, so the
+        group's shards gather as one shape (gloo and NCCL need one)."""
+        k = self.size(m, 0) - shard.shape[self.dim]
+        if not k:
+            return shard
+        shape = list(shard.shape)
+        shape[self.dim] = k
+        return torch.cat([shard, shard.new_zeros(shape)], dim=self.dim)
+
+    def trim(self, padded: list) -> list:
+        """The m ranks' shards from their ``pad``ded copies."""
+        m = len(padded)
+        return [s.narrow(self.dim, 0, self.size(m, r)) for r, s in enumerate(padded)]
 
 
 def check_tp(cfg: ModelConfig, m: int) -> None:
-    """Raise unless ``cfg`` splits over ``m`` model ranks without cutting a
-    unit that must stay whole: a q or kv head, a Mamba2 or RWKV6 head, or
-    an MLP's or an expert's ff column (the message names the count; the
-    shared experts' s·ff columns split wherever an expert's f does)."""
-    if m == 1:
-        return
-    kinds = set(cfg.pattern)
-
-    def whole(count: int, what: str) -> None:
-        if count % m:
-            raise ValueError(f"{cfg.arch_id}: {count} {what} over {m} model shards would cut "
-                             f"one in two; pick m dividing {count}")
-    if kinds - set(_RECURRENT):  # attention: the head rules
-        _heads(cfg, "wq", m)
-        _heads(cfg, "wk", m)
-    if "mamba2" in kinds:
-        whole(mamba2_dims(cfg)[2], "Mamba2 heads (ssm_heads)")
-    if "rwkv6" in kinds:
-        whole(cfg.d_model // cfg.rwkv_head_size, "RWKV6 heads (d_model / rwkv_head_size)")
-    if any(not ("moe" in k and cfg.moe is not None)
-           and (k not in _RECURRENT or cfg.recurrent_mlp) for k in kinds):  # block_init's MLP
-        whole(cfg.d_ff, "MLP columns (d_ff)")
-    if cfg.moe is not None and any("moe" in k for k in kinds):  # and so the shared s·ff
-        whole(cfg.moe.expert_d_ff, "expert columns (expert_d_ff)")
+    """Raise unless ``cfg`` splits over ``m`` model ranks: any m ≥ 1 does,
+    every unit whole (a rank may hold none of a kind); the reference's
+    mesh refuses no model axis of at least one device either."""
+    if int(m) < 1:
+        raise ValueError(f"{cfg.arch_id}: {m} model shards; a model axis holds at least one")
 
 
 def mamba2_dims(cfg: ModelConfig) -> tuple:
@@ -167,43 +242,48 @@ def mamba2_dims(cfg: ModelConfig) -> tuple:
     return H * 64, cfg.ssm_state, H
 
 
-def _heads(cfg: ModelConfig, name: str, m: int) -> bool:
-    """Whether attention leaf ``name`` splits over ``m`` ranks (False: kv
-    replicated), or ``ValueError`` where a split would cut a head."""
-    nh, nkv = cfg.n_heads, cfg.n_kv_heads
-    if name in ("wq", "wo"):
-        if nh % m:
-            raise ValueError(f"{cfg.arch_id}: {nh} q heads over {m} model shards would cut a "
-                             f"head in two (the reference's GSPMD splits the {nh}·"
-                             f"{cfg.resolved_head_dim} columns and reshards); pick m dividing "
-                             f"{nh}")
-        return True
-    if nkv % m == 0:
-        return True
-    if m % nkv == 0:
-        return False  # fewer kv heads than ranks: replicated, each rank uses one
-    raise ValueError(f"{cfg.arch_id}: {nkv} kv heads over {m} model shards would cut a head "
-                     "in two; pick m dividing them or divisible by them")
+def _in(path: str, part: str) -> bool:
+    """Whether ``path`` passes through a node named ``part`` (zamba2's
+    ``shared_attn/mlp/wi`` is an MLP leaf, not an attention one)."""
+    return f"/{part}/" in f"/{path}"
+
+
+def _unit(path: str, cfg: ModelConfig) -> int:
+    """The words along the split dim of one whole unit of a leaf's block:
+    an attention head, an RWKV6 head, a Mamba2 head's 64 channels, or one
+    ff column."""
+    if _in(path, "attn"):
+        return cfg.resolved_head_dim
+    if _in(path, "rwkv"):
+        return cfg.rwkv_head_size
+    if _in(path, "mamba"):
+        return 64
+    return 1
 
 
 def tp_dim(path: str, leaf, cfg: ModelConfig, m: int) -> Optional[Split]:
     """How ``leaf`` (a leaf of the full tree, stacked or one unit's) is split
-    over ``m`` model ranks (``train/flatten.py::Split``), or None for a
-    replicated leaf. Mamba2's ``in_proj`` is cut by head: z, x and dt by
-    rank, B and C replicated; every other split is one segment."""
+    over ``m`` model ranks (a ``Split``), or None for a
+    replicated leaf: the vocabulary where m divides it, kv heads where m
+    divides them, every other 'model' dim by whole units (see the module
+    docstring). Mamba2's ``in_proj`` is cut by head: z, x and dt by rank,
+    B and C replicated; every other split is one segment."""
     if m == 1:
         return None
     name = path.rsplit("/", 1)[-1]
-    if "attn/" in path and name in _ATTN and not _heads(cfg, name, m):
-        return None
-    if "mamba/" in path and name == "in_proj":
+    if _in(path, "attn") and name in ("wk", "wv") and cfg.n_kv_heads % m:
+        return None  # replicated: each rank's q heads read the kv heads they need
+    if _in(path, "mamba") and name == "in_proj":
         inner, N, H = mamba2_dims(cfg)
         return Split(len(leaf.shape) - 1,
-                     ((inner, True), (inner, True), (N, False), (N, False), (H, True)))
-    spec = sanitize_spec(_spec_for(path, leaf, cfg), tuple(leaf.shape), {"model": m})
+                     ((inner, True), (inner, True), (N, False), (N, False), (H, True)),
+                     (64, 64, 1, 1, 1))
+    spec = _spec_for(path, leaf, cfg)
+    if name in ("embed", "lm_head"):
+        spec = sanitize_spec(spec, tuple(leaf.shape), {"model": m})
     dims = [d for d, part in enumerate(spec)
             if part is not None and "model" in _names(part)]
-    return Split.whole(dims[0], leaf.shape[dims[0]]) if dims else None
+    return Split.whole(dims[0], leaf.shape[dims[0]], _unit(path, cfg)) if dims else None
 
 
 def shard_leaf(path: str, leaf, cfg: ModelConfig, j: int, m: int):

@@ -28,8 +28,9 @@ same words, and its gradient is the reference's wherever that is finite
 
 Tensor parallelism (``tp``, the model group's ``World``; the reference's
 'model' axis, Megatron's layout by head): both mixers take the replicated
-input through ``copy_to_model`` and run the chunk scan on this rank's H/m
-heads only. Mamba2's packed ``in_proj`` is cut by head (z, x and dt
+input through ``copy_to_model`` and run the chunk scan on this rank's
+heads only (its ``unit_share`` of the H heads: ⌈H/m⌉ or ⌊H/m⌋, which may
+be none). Mamba2's packed ``in_proj`` is cut by head (z, x and dt
 column-parallel; B and C replicated, through ``copy_to_model`` since each
 rank reads them for its heads alone); its gated norm takes the sum of
 squares over every rank's channels through ``all_reduce_model`` (each
@@ -41,7 +42,7 @@ vectors (A_log, D, dt_bias, norm_scale; w0, u, ln_scale, and RWKV6's
 lerp coefficients ``mu``) go through ``copy_to_model`` and are then
 sliced to the rank's heads, so each one's gradient is the same on every
 rank of the group. Serving splits the same way: a rank's decode cache
-holds the states of its H/m heads (the reference's ``cache_pspecs``),
+holds the states of its heads (the reference's ``cache_pspecs``),
 and RWKV6's ``prev`` (the replicated input's last token) and ``pos`` are
 replicated over the group.
 
@@ -59,6 +60,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist.collectives import all_reduce_model, copy_to_model, reduce_from_model
 from repro_torch.models.layers import _dense_init
+from repro_torch.models.sharding import unit_share
 
 CHUNK = 64  # the scan's chunk length (bounds the [L, L, H, hd] decay tensors)
 
@@ -115,10 +117,11 @@ def _mamba2_split(params: dict, x: torch.Tensor, cfg, tp=None):
         # z, x and dt are this rank's heads; B and C are replicated and used
         # for these heads only, so their columns' gradient is summed over
         # the group, as are the per-head vectors' (sliced after the copy)
-        H //= tp.size
+        h0, h1 = unit_share(H, tp.size, tp.rank)
+        H = h1 - h0
         zx, bc, dt_w = torch.split(w, [2 * H * hd, 2 * N, H], dim=-1)
         w = torch.cat([zx, copy_to_model(bc, tp), dt_w], dim=-1)
-        heads = slice(tp.rank * H, (tp.rank + 1) * H)
+        heads = slice(h0, h1)
         A_log, dt_bias = copy_to_model(A_log, tp)[heads], copy_to_model(dt_bias, tp)[heads]
     inner = H * hd
     proj = x @ w
@@ -139,14 +142,15 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = Non
     B_, S_, d = x.shape
     H = cfg.ssm_heads or (d // 64)
     hd, N = 64, cfg.ssm_state
-    inner = H * hd
+    inner = H * hd  # every rank's channels: the gated norm's divisor
     D, norm_scale = params["D"], params["norm_scale"]
     split = tp is not None and tp.size > 1
     if split:
         x = copy_to_model(x, tp)
-        H //= tp.size
-        D = copy_to_model(D, tp)[tp.rank * H:(tp.rank + 1) * H]
-        norm_scale = copy_to_model(norm_scale, tp)[tp.rank * H * hd:(tp.rank + 1) * H * hd]
+        h0, h1 = unit_share(H, tp.size, tp.rank)
+        H = h1 - h0
+        D = copy_to_model(D, tp)[h0:h1]
+        norm_scale = copy_to_model(norm_scale, tp)[h0 * hd:h1 * hd]
     z, xi, Bm, Cm, dt, a = _mamba2_split(params, x, cfg, tp)
     xif = xi.float()
     if cache is not None and S_ == 1:  # single-step decode
@@ -193,9 +197,12 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = Non
     return reduce_from_model(out, tp), new_cache
 
 
-def mamba2_init_cache(cfg, batch: int, device="cuda", model_shards: int = 1) -> dict:
-    """Mamba2's decode cache (this rank's H/m heads with ``model_shards``)."""
-    H = (cfg.ssm_heads or (cfg.d_model // 64)) // model_shards
+def mamba2_init_cache(cfg, batch: int, device="cuda", model_shards: int = 1,
+                      model_rank: int = 0) -> dict:
+    """Mamba2's decode cache (model rank ``model_rank``'s share of the heads
+    with ``model_shards``)."""
+    h0, h1 = unit_share(cfg.ssm_heads or (cfg.d_model // 64), model_shards, model_rank)
+    H = h1 - h0
     return {"state": torch.zeros((batch, H, 64, cfg.ssm_state), dtype=torch.float32,
                                  device=device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -247,10 +254,11 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None
         # x's and mu's gradients are summed over the group; the per-head
         # and per-channel vectors are sliced after the copy
         x, mu = copy_to_model(x, tp), copy_to_model(mu, tp)
-        H //= tp.size
-        ch = slice(tp.rank * H * hd, (tp.rank + 1) * H * hd)
+        h0, h1 = unit_share(H, tp.size, tp.rank)
+        H = h1 - h0
+        ch = slice(h0 * hd, h1 * hd)
         w0, ln_scale = copy_to_model(w0, tp)[ch], copy_to_model(ln_scale, tp)[ch]
-        u = copy_to_model(u, tp)[tp.rank * H:(tp.rank + 1) * H]
+        u = copy_to_model(u, tp)[h0:h1]
     dl = H * hd  # this rank's channels
     prev = cache["prev"].to(x.dtype) if cache is not None else x.new_zeros((B_, d))
     xs = _rwkv_shift(x, prev)
@@ -311,12 +319,14 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, cache: Optional[dict] = None
     return reduce_from_model(y @ params["wo"].to(x.dtype), tp), new_cache
 
 
-def rwkv6_init_cache(cfg, batch: int, d: int, device="cuda", model_shards: int = 1) -> dict:
+def rwkv6_init_cache(cfg, batch: int, d: int, device="cuda", model_shards: int = 1,
+                     model_rank: int = 0) -> dict:
     """RWKV6's decode cache; ``prev`` is bf16 whatever the model's dtype,
-    as the reference's (this rank's H/m heads' states with
-    ``model_shards``; ``prev`` whole)."""
+    as the reference's (model rank ``model_rank``'s share of the heads'
+    states with ``model_shards``; ``prev`` whole)."""
     hd = cfg.rwkv_head_size
-    H = d // hd // model_shards
+    h0, h1 = unit_share(d // hd, model_shards, model_rank)
+    H = h1 - h0
     return {"state": torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),
             "prev": torch.zeros((batch, d), dtype=torch.bfloat16, device=device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

@@ -102,14 +102,18 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      prefilled: bool = True, device="cuda", model_shards: int = 1,
-                     seq_shards: int = 1) -> dict:
+                     seq_shards: int = 1, model_rank: int = 0) -> dict:
     """One block's decode cache; a recurrent block's ``pos`` is ``seq_len``
-    when ``prefilled``, as an attention block's. ``model_shards`` and
-    ``seq_shards``: one rank's part (``attention_init_cache``)."""
+    when ``prefilled``, as an attention block's. ``model_shards``,
+    ``model_rank`` and ``seq_shards``: one rank's part
+    (``attention_init_cache``; a recurrent block's heads are the rank's
+    ``unit_share``)."""
     if kind in ("mamba2", "rwkv6"):
-        c = (mamba2_init_cache(cfg, batch, device=device, model_shards=model_shards)
+        c = (mamba2_init_cache(cfg, batch, device=device, model_shards=model_shards,
+                               model_rank=model_rank)
              if kind == "mamba2" else
-             rwkv6_init_cache(cfg, batch, cfg.d_model, device=device, model_shards=model_shards))
+             rwkv6_init_cache(cfg, batch, cfg.d_model, device=device, model_shards=model_shards,
+                              model_rank=model_rank))
         if prefilled:
             c["pos"].fill_(seq_len)
         return c
@@ -161,10 +165,11 @@ class Model(nn.Module):
     is vocab-parallel (ids outside the shard read zeros, then
     ``reduce_from_model``: one non-zero among zeros, so the embeddings are
     the one-card ones word for word) and the logits column-parallel over
-    the vocabulary, gathered before the loss. Every block kind splits
-    (``sharding.check_tp`` raises where a split would cut a head or a
-    column); zamba2's shared block is cut as the dense blocks are and its
-    ``_shared`` placeholder stays replicated. With both ``ep_world`` (the
+    the vocabulary, gathered before the loss. Every block kind splits by
+    whole units, unevenly where m does not divide them (the first ranks
+    hold one head or column more; a rank may hold none); zamba2's shared
+    block is cut as the dense blocks are and its ``_shared`` placeholder
+    stays replicated. With both ``ep_world`` (the
     learners' ring of the grid) and ``tp_world`` a rank holds [E/n, d,
     f/m] of each expert matrix.
 
@@ -310,10 +315,11 @@ class Model(nn.Module):
         slots of every attention cache."""
         cfg = self.cfg
         device = self.embed.device if device is None else device
-        m = 1 if self.tp_world is None else self.tp_world.size
+        m, j = (1, 0) if self.tp_world is None else (self.tp_world.size, self.tp_world.rank)
         n = 1 if seq_world is None else seq_world.size
         return [{k: v[None].repeat((cfg.n_units,) + (1,) * v.dim()) for k, v in
-                 block_init_cache(cfg, kind, batch, seq_len, prefilled, device, m, n).items()}
+                 block_init_cache(cfg, kind, batch, seq_len, prefilled, device, m, n,
+                                  j).items()}
                 for kind in cfg.pattern]
 
     def prefill(self, params: dict, tokens: torch.Tensor,

@@ -15,9 +15,9 @@ row-major. For the dense decoder that order is::
 gives another order; ``leaf_paths`` gives this one.
 
 A model split over m model ranks (tensor parallelism, ``Model(cfg,
-tp_world=...)``) holds shards of the leaves; a ``Split`` says how a leaf
-is cut (along one dim, segments each cut by rank or replicated),
-``shard_layout`` which words of the full tree's flat vector each shard
+tp_world=...)``) holds shards of the leaves, each cut by the
+``models/sharding.py::Split`` its leaf has; ``shard_layout`` says which
+words of the full tree's flat vector each shard
 occupies, ``write_chunk`` assembles words [start, start + len) of the
 full tree's flat vector from the model group's shards, and
 ``LeafShard.of`` cuts a shard out of a full flat vector.
@@ -32,9 +32,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, List, Optional, Tuple
 
 import torch
+
+if TYPE_CHECKING:
+    from repro_torch.models.sharding import Split
 
 
 def _walk(tree: Any, prefix: str, out: List[Tuple[str, torch.Tensor]]) -> None:
@@ -162,60 +165,11 @@ def _rebuild(tree: Any, take) -> Any:
 
 
 @dataclasses.dataclass(frozen=True)
-class Split:
-    """How one leaf is cut over m model ranks: along ``dim``, consecutive
-    segments of the full leaf, each ``(length, cut)``: a cut segment gives
-    rank j its slice j of m, a replicated one (``cut`` False) is whole on
-    every rank. A plain split is one cut segment; Mamba2's packed
-    ``in_proj`` is [z | x | B | C | dt] with B and C replicated."""
-
-    dim: int
-    segments: tuple
-
-    @classmethod
-    def whole(cls, dim: int, length: int) -> "Split":
-        """One cut segment: slice j of m along ``dim``."""
-        return cls(dim, ((length, True),))
-
-    def local(self, m: int) -> tuple:
-        """Each segment's length on a rank."""
-        return tuple(n // m if c else n for n, c in self.segments)
-
-    def cut(self, full: torch.Tensor, rank: int, m: int) -> torch.Tensor:
-        """Rank ``rank``'s shard of the full leaf (a view for one segment)."""
-        pieces, off = [], 0
-        for (n, c), k in zip(self.segments, self.local(m)):
-            pieces.append(full.narrow(self.dim, off + (rank * k if c else 0), k))
-            off += n
-        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=self.dim)
-
-    def join(self, shards: list, rank: int = 0) -> torch.Tensor:
-        """The full leaf from the m ranks' shards (rank order): a cut
-        segment the shards' slices joined, a replicated one ``rank``'s."""
-        parts, off = [], 0
-        for (_, c), k in zip(self.segments, self.local(len(shards))):
-            if c:
-                parts += [s.narrow(self.dim, off, k) for s in shards]
-            else:
-                parts.append(shards[rank].narrow(self.dim, off, k))
-            off += k
-        return torch.cat(parts, dim=self.dim)
-
-    def pieces(self, shard: torch.Tensor, m: int) -> tuple:
-        """(the cut segments' pieces, the replicated segments') of a shard."""
-        cut, rep, off = [], [], 0
-        for (_, c), k in zip(self.segments, self.local(m)):
-            (cut if c else rep).append(shard.narrow(self.dim, off, k))
-            off += k
-        return cut, rep
-
-
-@dataclasses.dataclass(frozen=True)
 class LeafShard:
     """Where model rank ``rank`` of ``ranks``'s shard of one leaf sits in the
     full tree's flat vector: the full leaf has ``shape`` and starts at word
-    ``offset``; the shard is ``split``'s cut of it (None: the whole leaf,
-    replicated)."""
+    ``offset``; the shard is ``split``'s cut of it (a
+    ``models/sharding.py::Split``; None: the whole leaf, replicated)."""
 
     offset: int
     shape: tuple
@@ -232,6 +186,13 @@ class LeafShard:
     def numel(self) -> int:
         """Words of the full leaf."""
         return math.prod(self.shape)
+
+    def shard_numel(self, rank: Optional[int] = None) -> int:
+        """Words of model rank ``rank``'s shard (this one's by default)."""
+        if self.split is None:
+            return self.numel
+        rank = self.rank if rank is None else rank
+        return self.numel // self.shape[self.split.dim] * self.split.size(self.ranks, rank)
 
     def of(self, flat: torch.Tensor) -> torch.Tensor:
         """The shard's words of the full flat vector ``flat``, shaped as the
@@ -277,16 +238,18 @@ def write_chunk(layout: List[LeafShard], shard_leaves: list, model_world, out: t
     ``out`` (f32), assembled from the shards ``shard_leaves`` of every rank
     of ``model_world`` (the model group, which must all call it with their
     own shards): a split leaf is all-gathered over the group, one leaf at a
-    time, and joined, its replicated segments (and a replicated leaf) this
-    rank's, whose gradient is the whole one. Words past the tree are left
-    as they are."""
+    time (each shard padded to rank 0's length and trimmed after), and
+    joined, its replicated segments (and a replicated leaf) this rank's,
+    whose gradient is the whole one. Words past the tree are left as they
+    are."""
     from repro_torch.dist import collectives
     end = start + out.numel()
     for sh, x in zip(layout, shard_leaves):
         lo, hi = max(start, sh.offset), min(end, sh.offset + sh.numel)
         if sh.split is not None:  # every rank gathers, whether or not it keeps a word
-            x = sh.join(list(collectives.all_gather(x.detach().contiguous(), model_world)
-                             .unbind(0)))
+            sp = sh.split
+            x = sp.pad(x.detach(), sh.ranks).contiguous()
+            x = sh.join(sp.trim(list(collectives.all_gather(x, model_world).unbind(0))))
         if lo < hi:
             out[lo - start:hi - start].copy_(x.detach().reshape(-1)[lo - sh.offset:
                                                                     hi - sh.offset])

@@ -564,7 +564,7 @@ def tp_norm(tensors: list, splits: list, tp) -> torch.Tensor:
         if sp is None:
             rep.append(t)
         else:
-            c, r = sp.pieces(t, tp.size)
+            c, r = sp.pieces(t, tp.rank, tp.size)
             cut += c
             rep += r
 
@@ -588,8 +588,9 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, pod_world,
 
     Leafwise, each leaf is its own round (key domain leaf index + 1) on
     the shards' words: a split leaf's round runs over the concatenation of
-    its m shards (shard j's words, padded to an even count, on ring j, so
-    no all-gather; a segmented leaf's replicated segments ride in every
+    its m shards (shard j's words, padded to rank 0's count made even, on
+    ring j, so no all-gather and, with uneven shards, no two rings on one
+    counter; a segmented leaf's replicated segments ride in every
     shard and each ring publishes the same mean of them), a replicated
     leaf's over its own m chunks, gathered afterwards; the tree ``AdamW``
     clips by the norm over every rank's shards (``tp_norm``) and updates
@@ -653,8 +654,9 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, pod_world,
             if sh.split is None:  # a replicated leaf: its m chunks, one a ring
                 k = -(-v.numel() // (2 * m)) * 2
                 v = torch.nn.functional.pad(v, (0, k * m - v.numel()))[j * k:(j + 1) * k]
-            else:  # the shard's own words, padded to an even count
-                k = v.numel() + (v.numel() & 1)
+            else:  # the shard's own words, padded to rank 0's (the most), made even,
+                k = sh.shard_numel(0)  # so the rings' counter ranges never overlap
+                k += k & 1
                 v = torch.nn.functional.pad(v, (0, k - v.numel()))
             a = aggregator.aggregate_rank(v.contiguous(), counter, domain=idx + 1, **agg)
             if sh.split is None:

@@ -23,7 +23,7 @@ import torch
 
 from helpers import REPO, run_multidevice
 from repro_torch.core import make_aggregator
-from repro_torch.dist import World, collectives, init_world, spawn
+from repro_torch.dist import RankPool, World, collectives, init_world, spawn
 
 V, V_ODD = 37, 35          # V_ODD over 4 segments: seg = 9, so pads start at odd words
 DEAD = [1, 0, 1, 1]
@@ -306,6 +306,30 @@ def _raises_on_rank_one(world):
 def test_spawn_fails_when_a_rank_raises():
     with pytest.raises(Exception, match="rank one fails"):
         spawn(_raises_on_rank_one, 2, "cpu", threads=1)
+
+
+def _pid_and_sum(world, x):
+    return os.getpid(), world.rank, float(collectives.psum(torch.tensor(world.rank + x,
+                                                                       dtype=torch.float32),
+                                                           world))
+
+
+def test_rank_pool_keeps_its_ranks_across_calls():
+    """Two calls on one ``RankPool`` run on the same started processes, in
+    rank order; a rank's raise fails the call with its message and closes
+    the pool, which then refuses another call."""
+    with RankPool(2, "cpu", threads=1) as pool:
+        first = [r["result"] for r in pool.run(_pid_and_sum, (1,))]
+        second = [r["result"] for r in pool.run(_pid_and_sum, (2,))]
+        assert [r[1:] for r in first] == [(0, 3.0), (1, 3.0)]  # (0 + 1) + (1 + 1)
+        assert [r[1:] for r in second] == [(0, 5.0), (1, 5.0)]
+        assert [r[0] for r in first] == [r[0] for r in second]
+        assert len({r[0] for r in first}) == 2 and os.getpid() not in {r[0] for r in first}
+        with pytest.raises(RuntimeError, match="rank one fails"):
+            pool.run(_raises_on_rank_one)
+        assert pool.closed
+        with pytest.raises(RuntimeError, match="closed"):
+            pool.run(_pid_and_sum, (3,))
 
 
 def _wrong_size(world):

@@ -3,8 +3,8 @@ chains sharded over the model ranks, on the reference's ('data', 'model')
 grid (rank l·m + j is learner l's model shard j).
 
 In process: each rank's shards and the flat layout against the full tree's
-``tree_to_flat`` for every dense smoke configuration (m = 2, and m = 4
-where the heads allow), the refusals, and what the reference's
+``tree_to_flat`` for every dense smoke configuration (m = 2 and m = 4,
+whose 6 q heads split 2, 2, 1, 1), the refusals, and what the reference's
 ``sanitize_spec`` does with a split that cuts a head.
 
 One ``spawn`` of 8 gloo ranks (4 learners x 2 model shards, two intra-op
@@ -65,8 +65,9 @@ CELLS = {
 SLICED_MESSAGES = ("safe", "safe-weighted-dead", "saf-dead-initiator", "bon-dead")
 DENSE = ("internlm2-1.8b", "qwen3-14b", "gemma2-27b", "gemma3-12b", "internvl2-1b",
          "musicgen-large")
-# smoke configurations whose q heads m = 2 would cut (5 and 7) run with the
-# head ratio of their full configuration's kind: one kv head, an even count
+# smoke configurations whose q heads m = 2 splits unevenly (5 and 7) run with
+# the head ratio of their full configuration's kind: one kv head, an even
+# count (the uneven splits: tests/test_torch_dist_heads.py)
 HEADS = {"qwen3-14b": dict(n_heads=4), "internvl2-1b": dict(n_heads=6)}
 
 REF_CODE = """
@@ -424,11 +425,7 @@ def test_shards_and_layout_match_tree_to_flat(arch, m):
     values; the shards cover every word once (a replicated leaf on every
     rank); ``convert.shard_model`` cuts the same shards from a state."""
     cfg = _dense_cfg(arch, vocab=511) if arch == "internvl2-1b" else _dense_cfg(arch)
-    try:
-        check_tp(cfg, m)
-    except ValueError as e:
-        assert m == 4 and "cut a head" in str(e)  # 6 q heads over 4 shards
-        return
+    check_tp(cfg, m)  # 6 q heads over 4 shards: 2, 2, 1 and 1
     full = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     flat = tree_to_flat(full.tree())
     dims = tree_dims(full.tree(), cfg, m)
@@ -465,7 +462,9 @@ def _as_tree(tree):
 def test_a_split_that_cuts_a_head_raises_where_the_reference_cuts():
     """14 q heads of 64 at m = 4 (internvl2-1b): the columns (896) divide,
     the heads do not. The reference's ``sanitize_spec`` keeps 'model' on
-    wq, so GSPMD cuts heads and reshards; the port raises."""
+    wq, so GSPMD cuts heads and reshards; the port no longer raises: it
+    splits whole heads unevenly, 4, 4, 3 and 3, wo's rows with them, and
+    keeps the 2 kv heads on every rank (m does not divide them)."""
     import repro  # noqa: F401 - the package's jax shims first
     import jax
     from repro.configs import get_config as ref_config
@@ -478,14 +477,21 @@ def test_a_split_that_cuts_a_head_raises_where_the_reference_cuts():
     abstract = jax.eval_shape(RefModel(ref_cfg).init, jax.random.key(0))
     specs = param_pspecs(ref_cfg, abstract, {"model": 4, "data": 1})
     assert tuple(specs["blocks"][0]["attn"]["wq"]) == (None, None, "model")
-    with pytest.raises(ValueError, match="14 q heads over 4 model shards would cut a head"):
-        check_tp(cfg, 4)
+    check_tp(cfg, 4)
+    meta = Model(cfg, device="meta")
+    dims = dict(zip([p for p, _ in leaves_with_paths(meta.tree())],
+                    tree_dims(meta.tree(), cfg, 4)))
+    wq, wo = dims["blocks/0/attn/wq"], dims["blocks/0/attn/wo"]
+    assert [wq.size(4, j) for j in range(4)] == [256, 256, 192, 192]
+    assert [wo.size(4, j) for j in range(4)] == [256, 256, 192, 192]
+    assert dims["blocks/0/attn/wk"] is None and dims["blocks/0/attn/wv"] is None
     check_tp(cfg, 2)  # 14 q heads and 2 kv heads split at m = 2
 
 
 def test_refusals():
-    """A split that cuts a head (the MoE, Mamba2, RWKV6 and zamba2 now
-    split: tests/test_torch_dist_tp_zoo.py), expert parallelism with pods
+    """No split is refused (a head m does not divide splits whole, unevenly;
+    the MoE, Mamba2, RWKV6 and zamba2 split: tests/test_torch_dist_tp_zoo.py),
+    only a model axis of no rank; expert parallelism with pods
     on a model split over model ranks (pods with model shards now run:
     tests/test_torch_dist_pod_tp.py), and a WORLD_SIZE that is not
     learners x model shards."""
@@ -494,8 +500,11 @@ def test_refusals():
     two = World(rank=0, size=2, device=torch.device("cpu"), transport="gloo")
     for arch in ("qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-2.7b"):
         Model(get_smoke_config(arch), device="meta", tp_world=two)
-    with pytest.raises(ValueError, match="5 q heads over 2 model shards would cut a head"):
-        Model(get_smoke_config("llama4-maverick"), device="cpu", tp_world=two)
+    # 5 q heads over 2 model shards: 3 and 2 (once refused as a cut head)
+    odd = Model(get_smoke_config("llama4-maverick"), device="cpu", tp_world=two)
+    assert odd.tree()["blocks"][0]["attn"]["wq"].shape[-1] == 3 * 64
+    with pytest.raises(ValueError, match="a model axis holds at least one"):
+        check_tp(_cfg(), 0)
     data = World(rank=0, size=N, device=torch.device("cpu"), transport="gloo")
     pod = World(rank=0, size=2, device=torch.device("cpu"), transport="gloo")
     agg = make_aggregator("safe", N, pod_axis="pod", device="cpu")

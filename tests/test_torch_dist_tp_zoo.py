@@ -6,7 +6,7 @@ shared experts, and zamba2's shared block, on the reference's ('data',
 In process: each rank's shards and the (segmented) flat layout against the
 full tree's ``tree_to_flat`` for the smoke zamba2, rwkv6, qwen3-moe and
 llama4 (m = 2 and m = 4), the full configurations built at m = 2 on meta
-tensors, and the refusals that remain.
+tensors, and the splits once refused, which now split by whole units.
 
 One ``spawn`` of 8 gloo ranks (4 learners x 2 model shards, one intra-op
 thread each) runs the both-ways all-reduce against autograd of one
@@ -79,8 +79,9 @@ SCALE_RTOL_OF = {"rwkv6-1.6b": 2.5e-4}
 # a replicated leaf's gradient against one process's (both f32, the
 # row-parallel sums added in another order): relative L2
 GRAD_REL = 1e-4
-# smoke llama4 has 5 q heads: m = 2 would cut one (the test of the shards
-# gives it 4, its full configuration's even head count)
+# smoke llama4 has 5 q heads, which m = 2 splits unevenly (3 and 2); the
+# ranks here give it 4, its full configuration's even head count, and the
+# uneven head splits run in tests/test_torch_dist_heads.py
 LLAMA4_HEADS = 4
 
 REF_CODE = """
@@ -508,34 +509,61 @@ def test_full_configuration_splits_at_two(arch):
             assert x.shape == y.shape
         else:
             want = list(x.shape)
-            want[sp.dim] = sum(sp.local(2))
+            want[sp.dim] = sp.size(2, 1)
             assert list(y.shape) == want
 
 
 REFUSALS = {
-    "llama4-smoke 5 q heads": ("llama4-maverick", {}, "5 q heads over 2"),
-    "zamba2 shared block 3 q heads": ("zamba2-2.7b", dict(n_heads=3, n_kv_heads=3),
-                                      "3 q heads over 2"),
-    "mamba2 heads": ("zamba2-2.7b", dict(ssm_heads=3), "3 Mamba2 heads"),
-    "rwkv6 heads": ("rwkv6-1.6b", dict(rwkv_head_size=256), "1 RWKV6 heads"),
-    "mlp d_ff": ("rwkv6-1.6b", dict(d_ff=767), "767 MLP columns"),
-    "expert_d_ff": ("llama4-maverick", dict(n_heads=LLAMA4_HEADS), "511 expert columns"),
+    "llama4-smoke 5 q heads": ("llama4-maverick", {}),
+    "zamba2 shared block 3 q heads": ("zamba2-2.7b", dict(n_heads=3, n_kv_heads=3)),
+    "mamba2 heads": ("zamba2-2.7b", dict(ssm_heads=3)),
+    "rwkv6 heads": ("rwkv6-1.6b", dict(rwkv_head_size=256)),
+    "mlp d_ff": ("rwkv6-1.6b", dict(d_ff=767)),
+    "expert_d_ff": ("llama4-maverick", dict(n_heads=LLAMA4_HEADS)),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_refusals_that_remain(case):
-    """A split that would cut a unit that must stay whole raises, the
-    message naming the count."""
-    arch, kw, match = REFUSALS[case]
-    cfg = dataclasses.replace(get_smoke_config(arch), **kw)
+    """The splits ``check_tp`` refused until whole units split unevenly (a
+    q head, a Mamba2 or RWKV6 head, an MLP's or an expert's ff column that
+    m does not divide; the reference's GSPMD cuts or replicates them): none
+    remains. Each builds at m = 2, the first rank holding the extra unit,
+    and its shards cover every word of the one-card tree once (a
+    replicated word on every rank)."""
+    arch, kw = REFUSALS[case]
+    m = 2
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
     if case == "expert_d_ff":  # the shared expert's s·ff = 511 too
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, expert_d_ff=511))
-    with pytest.raises(ValueError, match=match):
-        check_tp(cfg, 2)
-    with pytest.raises(ValueError, match=match):
-        Model(cfg, device="meta", tp_world=World(rank=0, size=2, device=torch.device("cpu"),
-                                                 transport="gloo"))
+    check_tp(cfg, m)
+    full = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    flat = tree_to_flat(full.tree())
+    dims = tree_dims(full.tree(), cfg, m)
+    seen = torch.zeros(flat.numel(), dtype=torch.int64)
+    uneven = 0
+    for j in range(m):
+        rank = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1),
+                     tp_world=World(rank=j, size=m, device=torch.device("cpu"),
+                                    transport="gloo"))
+        for sh, x in zip(shard_layout(rank.tree(), dims, j, m), leaves(rank.tree())):
+            w = sh.words()
+            assert torch.equal(flat[w], x.detach().reshape(-1).float())
+            seen[w] += 1 if sh.split is not None else int(j == 0)
+            if sh.split is not None and j == 0:
+                uneven += sh.split.size(m, 0) != sh.split.size(m, m - 1)
+    cut = torch.zeros(flat.numel(), dtype=torch.bool)  # Mamba2's B, C columns: every rank
+    for sh in shard_layout(full.tree(), dims, 0, m):
+        if sh.split is not None and len(sh.split.segments) > 1:
+            kept = torch.ones(sh.shape, dtype=torch.bool)
+            off = 0
+            for n, c in sh.split.segments:
+                if not c:
+                    kept.narrow(sh.split.dim, off, n).fill_(False)
+                off += n
+            cut[sh.offset:sh.offset + sh.numel] = ~kept.reshape(-1)
+    assert bool((seen[~cut] == 1).all()) and bool((seen[cut] == m).all())
+    assert uneven > 0
 
 
 def test_dry_run_sizes_rank_zero_of_the_grid():
@@ -601,9 +629,9 @@ def test_replicated_gradients_equal_across_the_group(runs, arch):
                 assert torch.equal(g, other), (path, r)
                 assert _grad_close(g, want[i]), (path, r)
                 continue
-            cut, rep = sh.split.pieces(g, M)
-            other_rep = sh.split.pieces(other, M)[1]
-            _, want_rep = sh.split.pieces(sh.cut(want[i]), M)
+            cut, rep = sh.split.pieces(g, j, M)
+            other_rep = sh.split.pieces(other, 1 - j, M)[1]
+            _, want_rep = sh.split.pieces(sh.cut(want[i]), j, M)
             for x, y, z in zip(rep, other_rep, want_rep):
                 assert torch.equal(x, y), (path, r)
                 assert _grad_close(x, z), (path, r)

@@ -321,13 +321,21 @@ def test_production_mesh_record_is_rank_zeros_program(shape, mesh, _fake_group_a
 
 @pytest.mark.parametrize("mesh", ["pod256", "pod512"])
 def test_production_mesh_records_refuse_what_the_port_refuses(mesh, _fake_group_after):
-    """The smoke qwen3-14b's 5 q heads cut over 16 model ranks, as the full
-    configuration's 40 do: ``refused`` with the port's message, as the
-    record of a layout the reference's GSPMD runs and the port does not."""
+    """The smoke qwen3-14b's 5 q heads over 16 model ranks, as the full
+    configuration's 40 are, once refused: now ``ok``, from rank 0's program,
+    which holds one q head (ranks 5-15 hold none) and the kv head every rank
+    keeps. Expert parallelism with pods stays refused, with its message."""
     rec = dryrun.run_one("qwen3-14b", "decode_32k", mesh, smoke=True)
-    assert rec["status"] == "refused" and "would cut a head" in rec["reason"]
+    assert rec["status"] == "ok", rec.get("reason")
+    assert "rank 0 of n=16 m=16" in rec["description"]
+    assert rec["collectives"]["by_op"]["psum"] > 0
     rec = dryrun.run_one("internlm2-1.8b", "long_500k", mesh, smoke=True)
     assert rec["status"] == "skipped"
+    if mesh == "pod512":
+        # the full configuration (the smoke one's 4 experts do not shard over 16)
+        rec = dryrun.run_one("qwen3-moe-235b-a22b", "train_4k", mesh)
+        assert rec["status"] == "refused"
+        assert "expert parallelism with a pod axis" in rec["reason"]
 
 
 # last: the sweep runs in its subprocess while the tests above run
