@@ -48,6 +48,9 @@ no CPU fallback):
    card (two uninterrupted runs, one resumed from its checkpoint,
    ``--federated``); then ``net.run_engine_load`` against the port's broker
    in front of an engine on the card (n = 36, V = 2^20, 4 tenants); then
+   the port's five examples (``repro_torch.examples``), each ``main`` in
+   this process on the card at the SAFE_SMOKE size, the failover and
+   kernel demos again on the CPU, line for line the card's; then
    serving: internlm2-1.8b at full width and 12 of its 24 layers (bf16, random
    weights from seed 0) through ``ServeEngine``, traffic A (the reference
    launcher's defaults: 8 requests of 4-31 tokens, 4 slots of 256, 32 new
@@ -81,7 +84,11 @@ no CPU fallback):
    4 learners = 8 ranks on a ('pod', 'data') mesh, the rounds above at
    2^24 words a rank with the pod mean across ranks; ``rank_engine``, the
    multi-session engine one learner a rank on each pod's four ranks (ten
-   sessions through 8 slots of 2^20 words a rank); ``pod_steps``, 2 pods x
+   sessions through 8 slots of 2^20 words a rank); ``rank_broker``, pod
+   0's four ranks serving the same ten sessions over the wire: rank 0's
+   ``SafeBroker`` in front of an ``EngineLead``, one ``WireClient`` a
+   tenant on 127.0.0.1 (session 0 over the chunk plane), ranks 1-3 running
+   ``follow``; ``pod_steps``, 2 pods x
    3 learners = 6 ranks (SAFE's rings need three), two pod train steps and
    a weighted FedAvg round of internlm2-1.8b at full width and 1 layer;
    ``tp_dist``, the 'model' axis across ranks in the reference launcher's
@@ -175,7 +182,11 @@ no CPU fallback):
    step's gradient rows of the four ranks, aggregated on one card, giving
    every rank's published mean word for word; pod_rounds, rank_engine and
    pod_steps: every rank's means, sessions, parameters and published delta
-   equal to the same work in this process on the card (sha256); the
+   equal to the same work in this process on the card (sha256);
+   rank_broker: every tenant's ``wait_session`` results and every
+   follower's sessions equal to the one-card engine's (sha256), no engine
+   step failed, and mask_add and chain_combine_batched launched on each of
+   its ranks; the
    kernels at those paths' shapes (their padded_size and P + 1,
    chain_combine_batched on [8, 2^20] with per-row keys and bases);
    tp_dist: every ring's chunk equal to its words of the one-card mean
@@ -254,8 +265,9 @@ last is ``{"ok": true, "device": {...}}``.
 on a host with four cards instead runs the dist rounds over NCCL, a card a
 rank, each against one process's on the rank's card; the pod rounds that
 two learners a pod allow (BON, INSEC) at 2 pods x 2 learners, the per-rank
-engine and two BON pod train steps of internlm2-1.8b at 4 layers, each
-against one process's; qwen3-moe with its full vocabulary through the
+engine, the same sessions served over the wire by rank 0's broker in front
+of an ``EngineLead`` (the rows scattered over NCCL) and two BON pod train
+steps of internlm2-1.8b at 4 layers, each against one process's; qwen3-moe with its full vocabulary through the
 launcher at the most layers the dry run's per-rank step says fit a card,
 and the smoke MoE resumed from a full-E checkpoint; then the training
 launcher under ``torch.distributed.run`` with internlm2-1.8b at all 24
@@ -342,6 +354,8 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "moe_dist": {"mask_add", "chain_combine"},
                 "pod_rounds": {"mask_add", "chain_combine", "chain_combine_batched", "bon_mask"},
                 "rank_engine": {"mask_add", "chain_combine_batched"},
+                "rank_broker": {"mask_add", "chain_combine_batched"},
+                "examples": {"mask_add", "chain_combine"},
                 "pod_steps": {"mask_add", "chain_combine"},
                 "tp_zoo": {"mask_add", "chain_combine", "chain_combine_batched"},
                 "pod_tp": {"mask_add", "chain_combine"},
@@ -390,6 +404,10 @@ WIRE_FED_ARCH, WIRE_FED_K = "internlm2-1.8b", 2
 # The launcher at the smoke size (subprocesses), and run_engine_load.
 LAUNCH_STEPS, LAUNCH_TIMEOUT_S = 4, 300
 LOAD_TENANTS, LOAD_ROUNDS = 4, 2
+# The port's examples, each through its main() on the card at the SAFE_SMOKE size;
+# the deterministic two again on the CPU (their plain kernels), line for line.
+EXAMPLES = ("quickstart", "failover_demo", "federated_training", "serving", "kernels_demo")
+EXAMPLES_ON_CPU = ("failover_demo", "kernels_demo")
 
 # The serving path: internlm2-1.8b at its published widths and SERVE_LAYERS of
 # its 24 layers (all 24 until the script's time limit needed the room for
@@ -474,6 +492,11 @@ EP_LOSS_RTOL, EP_MASTER_REL, EP_EXPERT_REL = 1e-3, 0.25, 0.2
 # layer, 10.72 at 2, before FedAvg's local copy and six CUDA contexts).
 POD_P, POD_STEP_N, POD_LAYERS = 2, 3, 1
 ENGINE_RANK_ROUNDS = 2
+# The broker in front of the per-rank engine (rank_broker): pod 0's DIST_N ranks
+# serve the rank engine's sessions over 127.0.0.1, session BROKER_CHUNKED (two
+# rounds) uploaded over the chunk plane in WIRE_CHUNK words, the others in one
+# frame each.
+BROKER_CHUNKED = 0
 # The 'model' axis across ranks (tp_dist): the reference launcher's default
 # layout, TP_N learners x TP_M model shards = 8 ranks sharing the card (rank
 # l·m + j is learner l's model shard j): the dist rounds at V_MAIN words a
@@ -1776,6 +1799,81 @@ def launcher_paths(smi):
         f"(of {final['a']['master'].numel()})")
 
 
+def run_example(name, device):
+    """``repro_torch.examples.<name>.main`` at the SAFE_SMOKE size on
+    ``device``: (its output lines, seconds to a synchronise)."""
+    import importlib
+    import io
+    main = importlib.import_module(f"repro_torch.examples.{name}").main
+    before = os.environ.get("SAFE_SMOKE")
+    os.environ["SAFE_SMOKE"] = "1"
+    buf = io.StringIO()
+    try:
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(["--device", device])
+        sync()
+        secs = time.perf_counter() - t0
+    finally:
+        if before is None:
+            del os.environ["SAFE_SMOKE"]
+        else:
+            os.environ["SAFE_SMOKE"] = before
+    return buf.getvalue().splitlines(), secs
+
+
+def examples_path(dev, launches, smi):
+    """The port's five examples, each through its ``main`` in this process on
+    the card at the SAFE_SMOKE size, their output checked: the quickstart's
+    loss falls, the failover demo's device rounds equal its simulation's,
+    every wire FedAvg round publishes, the requests are served, and the
+    kernel demo's chain is within the fixed-point resolution; the failover
+    and kernel demos print the same lines with ``--device cpu`` (their
+    plain kernels). Adds the examples' launches to ``launches``."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    out, secs = {}, {}
+    for name in EXAMPLES:
+        out[name], secs[name] = run_example(name, "cuda")
+    counts = dict(build.launches)
+    for name in EXAMPLES:
+        for line in out[name]:
+            say(f"  example {name}: {line}")
+    say(f"phase 4 main path examples (python -m repro_torch.examples.<name>, SAFE_SMOKE=1, "
+        f"main() in this process on the card): launches {counts}")
+    missing = sorted(k for k in PATH_KERNELS["examples"] if counts[k] <= 0)
+    if missing:
+        fail(f"path examples never launched {missing}: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    first = float(out["quickstart"][0].split("loss=")[1].split()[0])
+    final = float(out["quickstart"][-1].split("final loss:")[1])
+    if not (math.isfinite(final) and final < first):
+        fail(f"example quickstart: the loss went from {first} to {final}")
+    plane = out["failover_demo"][out["failover_demo"].index(
+        "=== the same rounds on the device data plane (cuda) ==="):]
+    if len(plane) != 5 or not all(line.endswith(": True") for line in plane[1:]):
+        fail(f"example failover_demo: the device rounds differ from the simulation: {plane}")
+    rounds = [line for line in out["federated_training"] if line.startswith("round")]
+    if len(rounds) != 3 or "org 3 DOWN" not in rounds[-1]:
+        fail(f"example federated_training: {rounds}")
+    if not out["serving"] or not out["serving"][-1].startswith("served 3 requests"):
+        fail(f"example serving: {out['serving']}")
+    for name in EXAMPLES_ON_CPU:
+        lines = run_example(name, "cpu")[0]
+        card = [line.replace("(cuda)", "(cpu)") for line in out[name]]
+        if lines != card:
+            fail(f"example {name}: the card's lines differ from the CPU's:\n{card}\n{lines}")
+    say(f"phase 5 examples: the quickstart's loss {first:.4f} -> {final:.4f}; the failover "
+        f"demo's four device rounds bit for bit its simulation's; 3 wire FedAvg rounds, the "
+        f"last with org 3 down; {out['kernels_demo'][-1]}; {list(EXAMPLES_ON_CPU)} print the "
+        f"same lines on the CPU")
+    say(f"phase 6 examples ({smi}): seconds by example on the card "
+        f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+
+
 def engine_load_path(dev, launches, smi):
     """``net.run_engine_load`` against the port's broker in front of an
     ``AggregationEngine`` on the card, at the engine path's shape (n = 36,
@@ -2361,11 +2459,13 @@ def dryrun_paths(dev, launches, smi):
 
 # ---- the wire paths: phases 4, 5 and 6 ---------------------------------------------
 
-async def serve_engine_tenants(engine, specs):
+async def serve_engine_tenants(engine, specs, chunked=None):
     """One broker in this event loop in front of ``engine``; one client per
-    spec uploads it chunked (all at once), then all wait for their results.
-    Returns the responses, the clock at start, at the last upload's ack and
-    at the last result, the bytes the clients sent, and the broker."""
+    spec submits it (all at once): over the chunk plane in WIRE_CHUNK words
+    those whose index is in ``chunked`` (all by default), the others in one
+    frame; then all wait for their results. Returns the acks, the
+    responses, the clock at start, at the last submission's ack and at the
+    last result, the bytes the clients sent, and the broker."""
     from repro_torch.net import SafeBroker, WireClient
 
     broker = SafeBroker(engine=engine)
@@ -2375,7 +2475,8 @@ async def serve_engine_tenants(engine, specs):
         t0 = time.perf_counter()
         subs = await asyncio.gather(*(
             c.submit_session_chunked(spec, chunk_words=WIRE_CHUNK)
-            for c, spec in zip(clients, specs)))
+            if chunked is None or t in chunked else c.request("submit_session", spec)
+            for t, (c, spec) in enumerate(zip(clients, specs))))
         t_up = time.perf_counter()
         sent = sum(c.bytes_sent for c in clients)
         res = await asyncio.gather(*(
@@ -2384,7 +2485,7 @@ async def serve_engine_tenants(engine, specs):
         t_end = time.perf_counter()
         for c in clients:
             await c.close()
-        return res, (t0, t_up, t_end), sent, broker
+        return subs, res, (t0, t_up, t_end), sent, broker
     finally:
         await broker.stop()
 
@@ -2444,7 +2545,7 @@ def wire_paths(dev, launches, published, smi):
     sync()
     build.reset_launches()
     engine = TimedEngine(cfg, slots=S_ENGINE, payload_words=V_ENGINE)
-    res, (t0, t_up, t_end), sent, broker = asyncio.run(serve_engine_tenants(engine, specs))
+    _, res, (t0, t_up, t_end), sent, broker = asyncio.run(serve_engine_tenants(engine, specs))
     counts = dict(build.launches)
     say(f"phase 4 main path wire engine: {t_end - t0:.2f} s; launches {counts}")
     missing = sorted(k for k in PATH_KERNELS["wire_engine"] if counts[k] <= 0)
@@ -3292,6 +3393,53 @@ def run_engine(dev, world=None):
     return [digest(*s.results) for s in sess], eng.steps, ms
 
 
+def serve_rank_engine(dev, world):
+    """The rank engine's sessions over the wire, one learner a rank of
+    ``world``: rank 0 serves them through an ``EngineLead`` (each step
+    timed to a synchronise), the others ``follow``. Returns, on rank 0, each
+    tenant's digest of its results, its session id and the phase's clocks;
+    on the others, the digest of each session they finished, by id."""
+    from repro_torch.core.types import ChainConfig
+    from repro_torch.serve import AggregationEngine, EngineLead, follow
+
+    class TimedLead(EngineLead):
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.spans = []
+
+        def step(self):
+            t0 = time.perf_counter()
+            done = super().step()
+            sync()
+            self.spans.append((t0, time.perf_counter()))
+            return done
+
+    eng = AggregationEngine(ChainConfig(num_learners=DIST_N, mode="safe"), S_ENGINE, V_ENGINE,
+                            device=dev, world=world)
+    if world.rank:
+        done = {}
+        eng.on_complete = lambda sess: done.setdefault(sess.sid, digest(*sess.results))
+        follow(eng)
+        return {"digests": done, "steps": eng.steps}
+    specs = []
+    for spec in rank_engine_sessions():
+        spec = dict(spec, values=session_values(dev, spec).cpu().numpy())
+        del spec["seed"]
+        specs.append(spec)
+    lead = TimedLead(eng)
+    subs, res, clocks, sent, broker = asyncio.run(serve_engine_tenants(
+        lead, specs, chunked={BROKER_CHUNKED}))
+    digests = []
+    for t, (spec, r) in enumerate(zip(specs, res)):
+        if r.get("status") != "done" or r["rounds"] != spec["rounds"]:
+            fail(f"rank broker tenant {t}: {r.get('status')} after {r.get('rounds')} of "
+                 f"{spec['rounds']} rounds")
+        digests.append(digest(*(torch.from_numpy(np.array(x, np.float32)) for x in r["results"])))
+    return {"digests": digests, "sids": [r["sid"] for r in subs], "steps": eng.steps,
+            "clocks": clocks, "sent": sent, "errors": broker.engine_errors,
+            "spans": lead.spans}
+
+
 def _pod_round_rank(world):
     """One of POD_P x DIST_N ranks: the pod rounds of DIST_ROUNDS at V_MAIN
     words a rank (its row that of global rank p·n + l), then the per-rank
@@ -3333,6 +3481,14 @@ def _pod_round_rank(world):
     out["engine"], out["engine_steps"], out["engine_ms"] = run_engine(dev, data)
     out["engine_launches"] = dict(build.launches)
     out["peak"] = torch.cuda.max_memory_allocated(dev)
+    if pod.rank == 0:  # pod 0's ranks serve the same sessions over the wire
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        build.reset_launches()
+        out["broker"] = serve_rank_engine(dev, data)
+        out["broker_launches"] = dict(build.launches)
+        out["broker_peak"] = torch.cuda.max_memory_allocated(dev)
     return out
 
 
@@ -3483,8 +3639,13 @@ def pod_dist_paths(dev, launches, err, smi):
     t0 = time.perf_counter()
     rounds = spawn_ranks(_pod_round_rank, POD_P * DIST_N)
     rounds_s = time.perf_counter() - t0
+    served = [r for r in rounds if "broker" in r]     # pod 0's ranks, in rank order
+    if len(served) != DIST_N:
+        fail(f"rank broker: {len(served)} ranks served the sessions, not pod 0's {DIST_N}")
+    lead = served[0]["broker"]
     paths = {"pod_rounds": [r["round_launches"] for r in rounds],
              "rank_engine": [r["engine_launches"] for r in rounds],
+             "rank_broker": [r["broker_launches"] for r in served],
              "pod_steps": [r["launches"] for r in steps_]}
     counts = {p: {k: sum(c[k] for c in cs) for k in DIST_KERNELS} for p, cs in paths.items()}
     padded = steps_[0]["padded_size"]
@@ -3500,6 +3661,14 @@ def pod_dist_paths(dev, launches, err, smi):
         f"{rounds[0]['engine_steps']} steps ({one_steps} on one card); launches summed over "
         f"the {POD_P * DIST_N} ranks {counts['rank_engine']}; {rounds_s:.1f} s spawned with "
         f"the pod rounds")
+    t0_, t_up, t_end = lead["clocks"]
+    say(f"phase 4 main path rank_broker (pod 0's {DIST_N} ranks {how}): rank 0's SafeBroker "
+        f"in front of an EngineLead, {len(want_engine)} WireClient tenants on 127.0.0.1 "
+        f"(session {BROKER_CHUNKED} over the chunk plane in {WIRE_CHUNK}-word chunks), ranks "
+        f"1-{DIST_N - 1} following; {lead['steps']} steps on every rank "
+        f"({[r['broker']['steps'] for r in served]}); launches by rank "
+        f"{[{k: c[k] for k in PATH_KERNELS['rank_broker']} for c in paths['rank_broker']]}, "
+        f"summed {counts['rank_broker']}")
     say(f"phase 4 main path pod_steps ({POD_P} pods x {POD_STEP_N} learners = "
         f"{POD_P * POD_STEP_N} ranks {how}; three a pod: SAFE's rings need three members): "
         f"{TS_ARCH} at full width, reduced: n_layers 24 -> {POD_LAYERS}; 2 train steps and a "
@@ -3523,6 +3692,19 @@ def pod_dist_paths(dev, launches, err, smi):
     for r, res in enumerate(rounds):
         if res["engine"] != want_engine:
             fail(f"rank engine: rank {r}'s sessions differ from the one-card engine's")
+    if lead["errors"]:
+        fail(f"rank broker: {lead['errors']} engine steps raised")
+    for r, res in enumerate(served):
+        got = res["broker"]["digests"]
+        if r:  # a follower's sessions by id, in the tenants' order
+            got = [got.get(sid) for sid in lead["sids"]]
+        if got != want_engine:
+            fail(f"rank broker: rank {r}'s {'tenant results' if r == 0 else 'sessions'} "
+                 f"differ from the one-card engine's")
+        missing = sorted(k for k in PATH_KERNELS["rank_broker"]
+                         if res["broker_launches"][k] <= 0)
+        if missing:
+            fail(f"rank broker: rank {r} never launched {missing}: {res['broker_launches']}")
     for key in ("train", "fedavg"):
         got = [r[key] for r in steps_]
         if any(g != want[key] for g in got):
@@ -3534,6 +3716,9 @@ def pod_dist_paths(dev, launches, err, smi):
     say(f"phase 5 rank_engine: every session's published means on each of the "
         f"{POD_P * DIST_N} ranks torch.equal to the one-card engine's "
         f"({len(want_engine)} sessions)")
+    say(f"phase 5 rank_broker: every tenant's wait_session results on rank 0 and every "
+        f"follower's sessions torch.equal (sha256) to the one-card engine's "
+        f"({len(want_engine)} sessions); engine_errors 0")
     say(f"phase 5 pod_steps: every rank's parameters after 2 pod steps (learner {DIST_DEAD} "
         f"dead in the second) word for word the one-process pod step's (sha256 "
         f"{want['train'][0][:12]}; losses {[round(x, 4) for x in want['train'][1]]}); the "
@@ -3550,6 +3735,15 @@ def pod_dist_paths(dev, launches, err, smi):
         f"({max(r['engine_ms'] for r in rounds) / rounds[0]['engine_steps']:.2f} ms a step); "
         f"the one-card engine {one_engine_ms:.1f} ms for {one_steps}; peaks "
         f"{[round(r['peak'] / 1e9, 2) for r in rounds]} GB a rank")
+    spans = lead["spans"]
+    step_s = sum(b - a for a, b in spans)
+    say(f"phase 6 rank_broker ({DIST_N} ranks {how}): wall {t_end - t0_:.3f} s = upload "
+        f"{(t_up - t0_) - overlap(spans, t0_, t_up):.3f} s of {lead['sent'] / 1e9:.3f} GB "
+        f"sent + {len(spans)} lead steps {step_s:.3f} s ({step_s / len(spans) * 1e3:.1f} ms a "
+        f"step: metadata broadcast, rows scattered, engine step, each to a synchronise) + "
+        f"the rest {(t_end - t0_) - (t_up - t0_) - overlap(spans, t_up, t_end):.3f} s "
+        f"(download and waits); peaks {[round(r['broker_peak'] / 1e9, 3) for r in served]} GB "
+        f"a rank (rank 0 first)")
     for i in range(2):
         walls = [r["step_ms"][i] for r in steps_]
         tr = [r["step_transport_ms"][i] for r in steps_]
@@ -3603,7 +3797,9 @@ def nccl_pod_rank():
     ``torch.distributed.run``, a card each over NCCL, each against one
     process's on this rank's card: the pod rounds of the modes whose rings
     take two learners (BON, INSEC) at 2 pods x 2 learners and V_MAIN words
-    a rank; the per-rank engine over the four ranks; and two BON pod train
+    a rank; the per-rank engine over the four ranks, then its sessions over
+    the wire (``serve_rank_engine``: rank 0's broker in front of an
+    ``EngineLead``, the rows scattered over NCCL); and two BON pod train
     steps of internlm2-1.8b at DIST_LAYERS layers."""
     import torch.distributed as dist
 
@@ -3638,6 +3834,18 @@ def nccl_pod_rank():
         fail(f"rank {r}: the nccl per-rank engine differs from one process's")
     say(f"nccl rank {r} engine: {len(got)} sessions torch.equal to the one-card engine's; "
         f"{ms:.1f} ms for {steps_} steps")
+    res = serve_rank_engine(dev, world)
+    box = [res.get("sids")]
+    dist.broadcast_object_list(box, src=0)   # rank 0's session id of each tenant
+    if r == 0 and (res["errors"] or res["digests"] != want):
+        fail(f"rank 0: the nccl broker's tenants differ from the one-card engine's, or a step "
+             f"raised ({res['errors']})")
+    if r and [res["digests"].get(sid) for sid in box[0]] != want:
+        fail(f"rank {r}: the sessions it followed, by rank 0's session ids, differ from the "
+             f"one-card engine's")
+    say(f"nccl rank {r} broker: {len(want)} sessions served over the wire through the "
+        f"EngineLead, {'the tenants' if r == 0 else 'the sessions followed, by id,'} "
+        f"torch.equal to the one-card engine's; {res['steps']} steps")
     model, steps, _ = pod_model(dev, DIST_LAYERS, n)
     t0 = time.perf_counter()
     got = pod_train(model, steps, mesh, r, n=n, mode="bon")
@@ -3688,8 +3896,8 @@ def nccl_setup():
 
 def nccl_paths():
     """``python3 chip_smoke.py --nccl4``, on a host with four cards: the
-    dist rounds over NCCL, a card a rank, the pod rounds, engine and pod
-    step, then the training launcher under ``torch.distributed.run`` at
+    dist rounds over NCCL, a card a rank, the pod rounds, engine, the engine
+    behind the broker and pod step, then the training launcher under ``torch.distributed.run`` at
     internlm2-1.8b's full 24 layers (a card a rank, NCCL_STEPS steps) and
     the MoE (``nccl_moe``); each rank's peak memory and the steps' walls."""
     import tempfile
@@ -5781,6 +5989,8 @@ def main():
     timed("wire fedavg", wire_fedavg_path, dev, smi)
     timed("launcher", launcher_paths, smi)
     timed("engine load", engine_load_path, dev, launches, smi)
+    torch.cuda.empty_cache()
+    timed("examples", examples_path, dev, launches, smi)
     torch.cuda.empty_cache()
     timed("serve", serve_paths, dev, launches, smi)
     torch.cuda.empty_cache()

@@ -22,6 +22,9 @@ over the learner axis:
   (the log-sum-exp merge of a sequence-sharded KV cache,
   ``models/layers.py``);
 - ``broadcast(x, src)`` — ``src``'s tensor on every rank;
+- ``scatter(x, shape, dtype, src)`` — row i of ``src``'s [n, ...] tensor
+  on rank i (the rows of a session the broker's rank received over the
+  wire, ``serve/rank_engine.py``);
 - ``all_to_all(x, split_axis, concat_axis, tiled)`` — chunk j of ``x``
   along ``split_axis`` to rank j, the chunks received concatenated along
   ``concat_axis`` in rank order (untiled: the split axis, of size n,
@@ -68,7 +71,8 @@ records): ``psum`` (and ``pmean``), ``pmax`` and ``all_gather`` the
 (n − 1) copies of its tensor a direct exchange sends, ``all_to_all`` the
 (n − 1)/n of its buffer bound for other ranks, ``ppermute`` and ``send``
 one tensor a destination, ``broadcast`` (n − 1) copies from the source
-and nothing from the others. ``reset_stats`` zeroes them.
+and nothing from the others, ``scatter`` the (n − 1) rows the source
+sends. ``reset_stats`` zeroes them.
 """
 from __future__ import annotations
 
@@ -275,6 +279,28 @@ def broadcast(x: torch.Tensor, src: int, world) -> torch.Tensor:
     return out
 
 
+def scatter(x: Optional[torch.Tensor], shape, dtype: torch.dtype, src: int,
+            world) -> torch.Tensor:
+    """Row i of rank ``src``'s ``x`` on rank i, on its device. On ``src``,
+    ``x`` is [n, *shape] of ``dtype`` on the host or the device; the other
+    ranks pass None."""
+    shape = tuple(shape)
+    buf = _buffer(shape, dtype, world)
+    parts = None
+    if world.rank == src:
+        if tuple(x.shape) != (world.size,) + shape or x.dtype != dtype:
+            raise ValueError(f"scatter: {tuple(x.shape)} {x.dtype} is not one {shape} "
+                             f"{dtype} row for each of {world.size} ranks")
+        if world.transport == "nccl":
+            x = x.to(world.device)
+        _count("scatter", x[0], world.size - 1)
+        parts = [_wire(row, world) for row in x.unbind(0)]
+    with _Timed(world):
+        _dist().scatter(buf, parts, src=world.global_rank(src), group=world.group)
+        out = _back(buf, dtype, world)
+    return out
+
+
 def _exchange(x: torch.Tensor, world, split_axis: int, concat_axis: int,
               tiled: bool) -> torch.Tensor:
     """The all-to-all's message: one ``all_to_all_single`` over the
@@ -406,5 +432,5 @@ def gather_from_model(x: torch.Tensor, world, dim: int = -1) -> torch.Tensor:
 
 
 __all__ = ["axis_index", "ppermute", "send", "recv", "all_gather", "gather_to_host", "psum",
-           "pmean", "pmax", "broadcast", "all_to_all", "copy_to_model", "reduce_from_model",
-           "all_reduce_model", "gather_from_model", "stats", "reset_stats"]
+           "pmean", "pmax", "broadcast", "scatter", "all_to_all", "copy_to_model",
+           "reduce_from_model", "all_reduce_model", "gather_from_model", "stats", "reset_stats"]

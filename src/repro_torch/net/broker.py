@@ -38,12 +38,13 @@ semantics. The one change: the engine plane copies a finished session's
 results off the engine's device once (``_engine_results``), since
 the port's engine keeps them as torch tensors on the card.
 
-The broker stays on one card: its engine plane drives the learner-major
-``AggregationEngine`` of one process. An engine with a ``world`` (one
-learner a rank, ``serve/agg_engine.py``) needs every rank to submit its
-own row of each session in the same order, which one broker process
-cannot do for them; serving the per-rank engine over the wire is not
-ported.
+The engine plane drives either the learner-major ``AggregationEngine``
+of one process, or the engine one learner a rank through rank 0's
+``serve.rank_engine.EngineLead``: the broker runs on rank 0, takes every
+learner's rows of a session as the reference's broker does, and each step
+sends the new sessions' rows to their ranks (``follow`` runs on the
+others); ``stop`` closes the lead, ending the followers' loops. The wire
+contract is the same either way.
 """
 from __future__ import annotations
 
@@ -293,10 +294,12 @@ class SafeBroker:
         sessions that don't specify their own.
       progress_timeout: §5.3 stuck-posting threshold (wall seconds).
       monitor_interval: progress-monitor tick period.
-      engine: optional ``AggregationEngine``; enables ``submit_session``
-        / ``wait_session``. The engine is stepped on the event loop (its
-        ``step()`` is one batched round of kernel launches), with completion
-        signalled through the engine's ``on_complete`` hook.
+      engine: optional ``AggregationEngine``, or the ``EngineLead`` of
+        one across ranks; enables ``submit_session`` / ``wait_session``.
+        The engine is stepped on the event loop (its ``step()`` is one
+        batched round of kernel launches, and for a lead the scatter of
+        the new sessions' rows before them), with completion signalled
+        through the engine's ``on_complete`` hook.
     """
 
     def __init__(self, aggregation_timeout: float = 30.0,
@@ -469,6 +472,11 @@ class SafeBroker:
                 except (asyncio.CancelledError, Exception):
                     pass
         self._tasks.clear()
+        # an engine whose steps span ranks (serve.rank_engine.EngineLead)
+        # ends its followers' loops
+        close = getattr(self.engine, "close", None)
+        if close is not None:
+            close()
         if self._server is not None:
             await self._server.wait_closed()
             self._server = None
@@ -1744,8 +1752,10 @@ class SafeBroker:
 
     async def _engine_loop(self) -> None:
         """Step the engine while work is queued. ``step()`` runs on the
-        loop thread — one batched round of kernel launches per step — with a
-        ``sleep(0)`` between steps so submissions/waiters interleave."""
+        loop thread — one batched round of kernel launches per step, for an
+        ``EngineLead`` after the new sessions' metadata broadcast and rows
+        scattered to their ranks — with a ``sleep(0)`` between steps so
+        submissions/waiters interleave."""
         engine = self.engine
         while True:
             await self._engine_wake.wait()

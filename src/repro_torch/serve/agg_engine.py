@@ -21,7 +21,8 @@ on every rank, and ``chain_rank_batched`` runs each step. The host
 scheduling — admission, eviction, rotation and counters — is the same
 code on the same calls on every rank, so the ranks step the same sessions
 in the same slots; each published mean is every rank's, bit for bit the
-one-card engine's.
+one-card engine's. Behind one broker, rank 0's ``serve.rank_engine.
+EngineLead`` sends every rank its rows of each session before each step.
 """
 from __future__ import annotations
 
