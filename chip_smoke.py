@@ -573,8 +573,9 @@ SD_B_POS = (327_680, 524_288)
 SD_B_TOL = SERVE_CARD_TOL
 # Whole-unit uneven splits over the 'model' axis (tp_heads): internvl2-1b at its
 # published widths (d_model 896, 14 q heads of 64, 2 kv heads, d_ff 4864; its
-# vocabulary of 151,655, which 4 does not divide, replicated as the
-# reference's sanitize_spec keeps it), text only, TH_N learners x TH_M model
+# vocabulary of 151,655, which 4 does not divide, split 37,914, 37,914,
+# 37,914 and 37,913 words, where the reference's sanitize_spec replicates
+# it), text only, TH_N learners x TH_M model
 # shards = 12 ranks sharing the card (dist.grid: rank l·4 + j). m = 4 is the
 # smallest model axis at which the reference's GSPMD cuts one of its heads (896
 # columns divide by 4, 14 heads do not); the port's ranks hold 4, 4, 3 and 3
@@ -590,6 +591,28 @@ SD_B_TOL = SERVE_CARD_TOL
 # text positions.
 TH_ARCH, TH_N, TH_M, TH_LAYERS, TH_SERVE_STEPS = "internvl2-1b", 3, 4, 1, 8
 TH_WEIGHTS = DIST_WEIGHTS[:TH_N]
+# Rank 0's peak in the dry run of the same layouts before the loss became
+# vocabulary-parallel (every rank gathered the whole vocabulary's f32 logits
+# and took the loss over them; tp_heads' vocabulary replicated): the bytes the
+# dry run's tp_dryrun, tpz_dryrun, pt_dryrun and th_dryrun gave on meta
+# tensors at that commit. The TP paths print them beside the regenerated
+# dry run's prediction and the card's reading.
+GATHERED_HEAD_PEAK = {"tp_dist": 4165452800, "tp_zoo zamba2": 6760297472,
+                      "tp_zoo rwkv6": 5571486720, "tp_zoo moe": 7376900096,
+                      "pod_tp": 4291678208, "tp_heads": 1674726912}
+# serve_dist (c): MoE serving across ranks routed over the global batch, as the
+# reference's GSPMD routes decode. qwen3-moe-235b-a22b at full width (128
+# experts, top 8, capacity factor 1.25), one unit, in f32 (so that the router's
+# top 8 of 128 are the one-process run's: a bf16 word that the ranks' split
+# products round the other way would move a near tie), SD_DATA data x TP_M
+# model ranks: SD_C_ROWS rows (SD_C_ROWS / SD_DATA a data rank), a cache of
+# SD_C_MAX slots of seeded random k and v at pos SD_C_POS, SD_C_STEPS decode
+# steps of seeded tokens through make_serve_step(model, grid). The global
+# capacity is max(8, ceil(64 * 8 / 128 * 1.25)) = 8 a step, so experts drop
+# tokens; the ranks' logits within SERVE_TOL of one process's decode of the
+# whole batch, and each expert's kept tokens, summed over the data ranks,
+# equal to one process's (``models/moe.py::route_stats``).
+SD_C_ROWS, SD_C_MAX, SD_C_POS, SD_C_STEPS = 64, 4096, 3000, 4
 
 
 def say(*parts):
@@ -4086,8 +4109,8 @@ def _tp_rank(world, layers):
     torch.cuda.empty_cache()
 
     # the train steps; the memory above what the rank held before the model,
-    # cuBLAS's workspace already allocated (the dry run does not count it)
-    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)
+    # cuBLAS's workspaces already allocated (the dry run does not count them)
+    warm_cublas(dev)
     sync()
     base = torch.cuda.memory_allocated(dev)
     model, steps, fed = tp_model(dev, layers, tp)
@@ -4173,6 +4196,21 @@ def _tp_rank(world, layers):
     out["fed_leaves"] = tp_full_leaves(params, model, ring, tp)
     dist.barrier()
     return out
+
+
+def warm_cublas(dev):
+    """Allocate cuBLAS's workspaces before a peak is read: this thread's
+    handle's, and that of the autograd engine's device thread, which runs a
+    backward's products (the dry run counts neither: 32 MiB each on the H100)."""
+    a = torch.ones(8, 8, device=dev, requires_grad=True)
+    (a @ a).sum().backward()
+
+
+def gathered_head(name):
+    """The dry run's figure for layout ``name`` before the vocabulary-parallel
+    loss, as a phrase."""
+    return (f"the dry run with the gathered head (before the vocabulary-parallel loss) "
+            f"{GATHERED_HEAD_PEAK[name] / 1e9:.3f} GB")
 
 
 def tp_dryrun(layers, n, m, mode, arch=TS_ARCH):
@@ -4381,7 +4419,8 @@ def tp_dist_path(dev, launches, err, smi):
            f"against max_memory_allocated {r / 1e9:.3f} GB, off by {abs(p - r) / r:.2%}")
     if abs(p - r) / r > DRY_TOL:
         fail(f"tp_dist {dry}, over {DRY_TOL:.0%}")
-    say(f"phase 5 tp_dist dry run {dry} (<= {DRY_TOL:.0%}; {dry_s:.1f} s on meta tensors)")
+    say(f"phase 5 tp_dist dry run {dry} (<= {DRY_TOL:.0%}; {dry_s:.1f} s on meta tensors); "
+        f"{gathered_head('tp_dist')}")
 
     # phase 6: walls, the transport's share, peaks
     for name in DIST_ROUNDS:
@@ -4476,7 +4515,7 @@ def _tp_zoo_rank(world):
     out = {}
     build.reset_launches()
     launches = {k: 0 for k in DIST_KERNELS}
-    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)  # cuBLAS's workspace
+    warm_cublas(dev)  # cuBLAS's workspaces
     for name in TP_ZOO:
         res = out[name] = {"step_ms": [], "step_transport_ms": [], "losses": [], "phase_s": {}}
         clock = [time.perf_counter()]
@@ -4764,6 +4803,7 @@ def tp_zoo_path(dev, launches, err, smi):
                f"GB against max_memory_allocated {r / 1e9:.3f} GB, off by {abs(p - r) / r:.2%}")
         if abs(p - r) / r > DRY_TOL:
             problems.append(f"tp_zoo {arch} {dry}, over {DRY_TOL:.0%}")
+        dry += f"; {gathered_head('tp_zoo ' + name)}"
         say(f"phase 5 tp_zoo {arch} ({cfg_dtype(name)}): each ring's published chunk of the "
             f"second step torch.equal to the one-card round of the ring's own gradient rows, "
             f"the counter base moved to the chunk's start word (which tp_dist shows gives the "
@@ -4840,7 +4880,7 @@ def _pod_tp_rank(world):
     row = p * POD_STEP_N + l
     out = {"step_ms": [], "step_transport_ms": [], "losses": []}
     build.reset_launches()
-    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)  # cuBLAS's workspace
+    warm_cublas(dev)  # cuBLAS's workspaces
     sync()
     base = torch.cuda.memory_allocated(dev)
     model, steps, fed = pt_model(dev, g.model)
@@ -5075,6 +5115,7 @@ def pod_tp_path(dev, launches, err, smi):
            f"{abs(p - r) / r:.2%}")
     if abs(p - r) / r > DRY_TOL:
         problems.append(f"pod_tp {dry}, over {DRY_TOL:.0%}")
+    dry += f"; {gathered_head('pod_tp')}"
     say(f"phase 5 pod_tp: every rank's published chunk of the second step torch.equal to the "
         f"one-card pod_rounds of its rows (each pod's ring round on its head, the counter base "
         f"moved to the chunk's start word, then pod_mean of the pods' results): "
@@ -5158,6 +5199,66 @@ def sd_fill_cache(model, pos, seq_world=None, tp=None):
     return cache
 
 
+def sd_c_model(dev, g=None):
+    """serve_dist (c)'s model: qwen3-moe-235b-a22b at full width, one unit, f32,
+    from seed SEED: the one-process model (every expert, one-process
+    routing), or grid rank ``g``'s (its experts over the data ranks, its
+    shards over the model group)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(EP_ARCH), n_layers=1, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if g is None:
+        return Model(cfg, device=dev, generator=gen)
+    cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=g.data.size)
+    return Model(cfg, device=dev, generator=gen, tp_world=g.model, ep_world=g.data)
+
+
+def sd_c_cache(model, first, rows, tp=None):
+    """serve_dist (c)'s cache of rows [first, first + rows) of the batch:
+    seeded random k and v (a generator a row, the full heads drawn, this
+    model rank's kept), SD_C_POS tokens in it."""
+    cfg = model.cfg
+    dev = model.embed.device
+    cache = model.init_cache(rows, SD_C_MAX, prefilled=False)
+    for c in cache:
+        for k in ("k", "v"):
+            leaf = c[k]  # [1, rows, S_c, nkv_loc, hd]
+            h = leaf.shape[3]
+            j = 0 if tp is None or h == cfg.n_kv_heads else tp.rank
+            for r in range(rows):
+                gen = torch.Generator(device=dev).manual_seed(
+                    SEED + 10 * (first + r) + (k == "v"))
+                full = torch.randn((SD_C_MAX, cfg.n_kv_heads, cfg.resolved_head_dim),
+                                   generator=gen, device=dev)
+                leaf[0, r] = full[:, j * h:(j + 1) * h].to(leaf.dtype)
+        c["pos"].fill_(SD_C_POS)
+    return cache
+
+
+def sd_c_tokens(cfg):
+    """serve_dist (c)'s decode tokens [SD_C_STEPS, SD_C_ROWS]."""
+    return np.random.RandomState(SEED + 11).randint(
+        0, cfg.vocab, (SD_C_STEPS, SD_C_ROWS)).astype(np.int64)
+
+
+def sd_c_decode(model, step, cache, toks):
+    """SD_C_STEPS decode steps of ``toks`` [steps, rows]: (the logits
+    [steps, rows, V] on the host, each MoE call's kept tokens by expert)."""
+    from repro_torch.models import moe
+    moe.route_stats["kept"] = []
+    try:
+        out = []
+        for t in range(SD_C_STEPS):
+            logits, cache = step(model.tree(), toks[t], cache)
+            out.append(logits.float().cpu())
+        return torch.stack(out), moe.route_stats["kept"]
+    finally:
+        moe.route_stats["kept"] = None
+
+
 def _serve_dist_rank(world, tokens_a):
     """One rank of the serve_dist path (spawned), data rank i's model shard
     j of the SD_DATA x TP_M grid. (a) internlm2-1.8b at SERVE_LAYERS: its
@@ -5168,7 +5269,10 @@ def _serve_dist_rank(world, tokens_a):
     (b) gemma3-12b at one unit with long_500k's cache split over the data
     ranks by slot: for each of SD_B_POS, the cache filled with seeded random
     k and v, SD_B_STEPS decode steps through ``make_serve_step(model, grid,
-    seq_axis="data")``; rank 0's peak over one step."""
+    seq_axis="data")``; rank 0's peak over one step. (c) qwen3-moe at one
+    unit: its SD_C_ROWS / SD_DATA rows of seeded caches, SD_C_STEPS decode
+    steps routed over the global batch; the logits and each MoE call's kept
+    tokens by expert."""
     import torch.distributed as dist
 
     from repro_torch.dist import grid
@@ -5180,7 +5284,7 @@ def _serve_dist_rank(world, tokens_a):
     out = {"pos": (i, g.model.rank)}
     build.reset_launches()
     rows = SD_A_ROWS // SD_DATA
-    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)  # cuBLAS's workspace
+    warm_cublas(dev)  # cuBLAS's workspaces
     with torch.inference_mode():
         sync()
         base = torch.cuda.memory_allocated(dev)
@@ -5238,6 +5342,20 @@ def _serve_dist_rank(world, tokens_a):
             del cache
             sync()
             torch.cuda.empty_cache()
+        del model, step, toks
+
+        model = sd_c_model(dev, g)
+        rows = SD_C_ROWS // SD_DATA
+        cache = sd_c_cache(model, i * rows, rows, g.model)
+        toks = torch.from_numpy(sd_c_tokens(model.cfg)[:, i * rows:(i + 1) * rows]).to(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out["c_logits"], out["c_kept"] = sd_c_decode(model, make_serve_step(model, g), cache,
+                                                     toks)
+        out["c_ms"] = (time.perf_counter() - t0) * 1e3
+        del model, cache
+        sync()
+        torch.cuda.empty_cache()
     out["launches"] = dict(build.launches)
     dist.barrier()
     return out
@@ -5252,7 +5370,8 @@ def sd_b_tokens(cfg):
 def sd_one_process(dev):
     """serve_dist's work in this process on the card, unsplit: (a) the
     prefills and SD_A_STEPS greedy decode steps (their tokens feed the
-    ranks), (b) the dense decode of each whole cache."""
+    ranks), (b) the dense decode of each whole cache, (c) the MoE's decode
+    of the whole batch with one process's routing."""
     from repro_torch.serve import make_serve_step
     out = {}
     with torch.inference_mode():
@@ -5281,6 +5400,13 @@ def sd_one_process(dev):
             out[f"b{pos}_logits"] = torch.stack(steps)
             del cache, logits
             torch.cuda.empty_cache()
+        del model
+        model = sd_c_model(dev)
+        cache = sd_c_cache(model, 0, SD_C_ROWS)
+        toks = torch.from_numpy(sd_c_tokens(model.cfg)).to(dev)
+        out["c_logits"], out["c_kept"] = sd_c_decode(model, make_serve_step(model), cache, toks)
+        del model, cache
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5313,8 +5439,11 @@ def serve_dist_path(dev, launches, smi):
     layers on traffic B's prompts, within SERVE_TOL of the one-process
     decode; (b) long_500k's, gemma3-12b at one unit with its caches split by
     slot over 'data', within SD_B_TOL of one process's dense decode of the
-    whole cache; rank 0's peaks against the dry run's. No SAFE kernel runs
-    on these paths: their launch line says so."""
+    whole cache; (c) the decode_32k layout of qwen3-moe at one unit, its MoE
+    routed over the global batch, within SERVE_TOL of one process's decode
+    of the whole batch and keeping as many tokens an expert; rank 0's peaks
+    against the dry run's. No SAFE kernel runs on these paths: their launch
+    line says so."""
     t0 = time.perf_counter()
     pred_a, pred_b = sd_dryrun()
     dry_s = time.perf_counter() - t0
@@ -5338,8 +5467,11 @@ def serve_dist_path(dev, launches, smi):
         f"n_layers 48 -> {SD_B_LAYERS} (one unit: 5 local, 1 global), long_500k's layout: "
         f"batch 1, every attention cache's {SD_B_SEQ} slots (the local rings' 1024) split "
         f"over the data ranks, seeded random k and v, pos {list(SD_B_POS)}, {SD_B_STEPS} "
-        f"decode steps through make_serve_step(model, grid, seq_axis='data'); "
-        f"{ranks_s:.1f} s spawned, {one_s:.1f} s for the same in one process; SAFE kernel "
+        f"decode steps through make_serve_step(model, grid, seq_axis='data'); (c) {EP_ARCH} "
+        f"at full width in f32, reduced: n_layers 94 -> 1, the decode_32k layout: "
+        f"{SD_C_ROWS} rows, {SD_C_ROWS // SD_DATA} a data rank, seeded caches of {SD_C_MAX} "
+        f"at pos {SD_C_POS}, {SD_C_STEPS} decode steps of seeded tokens, the MoE routed over "
+        f"the global batch; {ranks_s:.1f} s spawned, {one_s:.1f} s for the same in one process; SAFE kernel "
         f"launches (none on these paths) {counts}")
     if any(counts.values()):
         fail(f"serve_dist launched a SAFE kernel: {counts}")
@@ -5350,9 +5482,9 @@ def serve_dist_path(dev, launches, smi):
         worst = 0.0
         for r in ranks:
             got = r[key]
-            if key == "a_logits":
+            if key[0] in "ac":
                 i = r["pos"][0]
-                rows = SD_A_ROWS // SD_DATA
+                rows = (SD_A_ROWS if key[0] == "a" else SD_C_ROWS) // SD_DATA
                 want_r = want[:, i * rows:(i + 1) * rows]
             else:
                 want_r = want
@@ -5368,9 +5500,26 @@ def serve_dist_path(dev, launches, smi):
     gate("(a) prefill and decode", "a_logits", SERVE_TOL)
     for pos in SD_B_POS:
         gate(f"(b) pos {pos}", f"b{pos}_logits", SD_B_TOL)
-    for key in ["a_logits"] + [f"b{pos}_logits" for pos in SD_B_POS]:
+    gate("(c) MoE decode", "c_logits", SERVE_TOL)
+    firsts = [r for r in ranks if r["pos"][1] == 0]   # model rank 0 of each data rank
+    kept = [sum(k) for k in zip(*[r["c_kept"] for r in firsts])]
+    want_kept = one["c_kept"]
+    if len(kept) != len(want_kept) or any(not torch.equal(a, b)
+                                          for a, b in zip(kept, want_kept)):
+        problems.append(f"serve_dist (c): tokens kept by expert differ from one process's: "
+                        f"{[int(k.sum()) for k in kept]} against "
+                        f"{[int(k.sum()) for k in want_kept]} kept a step")
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _capacity
+    mc = get_config(EP_ARCH).moe
+    sent = SD_C_ROWS * mc.top_k
+    cap = _capacity(SD_C_ROWS, mc.top_k, mc.num_experts, mc.capacity_factor, floor=8)
+    gates.append(f"(c) tokens kept by expert equal to one process's in all {len(want_kept)} "
+                 f"MoE calls ({[sent - int(k.sum()) for k in want_kept]} of {sent} "
+                 f"assignments dropped a step at capacity {cap})")
+    for key in ["a_logits", "c_logits"] + [f"b{pos}_logits" for pos in SD_B_POS]:
         for r in ranks:  # the data ranks of (b) and the model ranks of a row agree bit for bit
-            twin = ranks[r["pos"][1]] if key != "a_logits" else ranks[2 * r["pos"][0]]
+            twin = ranks[r["pos"][1]] if key[0] == "b" else ranks[2 * r["pos"][0]]
             if not torch.equal(r[key], twin[key]):
                 problems.append(f"serve_dist {key}: rank {r['pos']} differs from rank "
                                 f"{twin['pos']}")
@@ -5394,7 +5543,8 @@ def serve_dist_path(dev, launches, smi):
         f"{sorted(round(x, 1) for x in lead['a_ms'])[len(lead['a_ms']) // 2]} ms median "
         f"(rank 0), peak {lead['a_peak'] / 1e9:.3f} GB a rank; (b) decode step "
         + ", ".join(f"pos {pos}: {sorted(round(x, 1) for x in lead[f'b{pos}_ms'])[SD_B_STEPS // 2]}"
-                    f" ms median, peak {lead[f'b{pos}_peak'] / 1e9:.3f} GB" for pos in SD_B_POS))
+                    f" ms median, peak {lead[f'b{pos}_peak'] / 1e9:.3f} GB" for pos in SD_B_POS)
+        + f"; (c) {SD_C_STEPS} MoE decode steps {max(r['c_ms'] for r in ranks):.1f} ms")
     if problems:
         fail(" | ".join(problems))
 
@@ -5486,7 +5636,7 @@ def _tp_heads_rank(world):
         out["phase_s"][part] = round(now - clock[0], 2)
         clock[0] = now
     build.reset_launches()
-    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)  # cuBLAS's workspace
+    warm_cublas(dev)  # cuBLAS's workspaces
     sync()
     base = torch.cuda.memory_allocated(dev)
     model, steps, fed = th_model(dev, g.model)
@@ -5756,6 +5906,7 @@ def tp_heads_path(dev, launches, err, smi):
            f"against max_memory_allocated {r / 1e9:.3f} GB, off by {abs(p - r) / r:.2%}")
     if abs(p - r) / r > DRY_TOL:
         problems.append(f"tp_heads {dry}, over {DRY_TOL:.0%}")
+    dry += f"; {gathered_head('tp_heads')}"
     say(f"phase 5 tp_heads: every rank's published chunk of the second step torch.equal to the "
         f"one-card round of its rows (the counter base moved to the chunk's start word): "
         f"{lead['chunks_exact']}; every rank's ZeRO-1 part ({lead['master_words']} words) after "

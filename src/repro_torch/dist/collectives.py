@@ -42,8 +42,14 @@ Megatron's three operators over the model group (tensor parallelism,
   row-parallel product's partial outputs summed. Its f32 psum is the
   all-gather and ``sum(dim=0)`` in rank order below, so the result does
   not depend on the transport; a bf16 psum sums the m bf16 partials the
-  same way, which accumulates in f32 and rounds once to bf16;
-- ``all_reduce_model`` — ``psum`` forward and backward: a sum that every
+  same way, which accumulates in f32 and rounds once to bf16. A tensor of
+  more than ``MODEL_SLICE`` elements is summed a slice of its flat order
+  at a time, so the gathered stack holds m slices, not m copies of the
+  whole tensor (the MoE's [E/n, n·C, d] expert outputs at m = 16 would
+  otherwise gather 16 copies); each element is the same m words added in
+  rank order;
+- ``all_reduce_model`` — ``psum`` forward and backward (both the three
+  operators' psums a slice at a time): a sum that every
   rank then uses for different channels (Mamba2's gated norm over all its
   heads' channels), so each rank's cotangent of it is partial;
 - ``gather_from_model`` — tiled all-gather along a dim forward, this
@@ -363,6 +369,22 @@ def all_to_all(x: torch.Tensor, world, split_axis: int = 0, concat_axis: int = 0
     return _exchange(x, world, split_axis, concat_axis, tiled)
 
 
+#: the most elements one all-gather of the model group's psum carries
+MODEL_SLICE = 1 << 24
+
+
+def _psum_sliced(x: torch.Tensor, world) -> torch.Tensor:
+    """``psum`` of ``x`` over the model group, ``MODEL_SLICE`` elements of
+    its flat order at a time."""
+    if x.numel() <= MODEL_SLICE:
+        return psum(x, world)
+    flat = x.contiguous().view(-1)
+    out = torch.empty_like(flat)
+    for lo in range(0, flat.numel(), MODEL_SLICE):
+        out[lo:lo + MODEL_SLICE] = psum(flat[lo:lo + MODEL_SLICE], world)
+    return out.view(x.shape)
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, world):
@@ -371,13 +393,13 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return psum(g.contiguous(), ctx.world), None
+        return _psum_sliced(g, ctx.world), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, world):
-        return psum(x, world)
+        return _psum_sliced(x, world)
 
     @staticmethod
     def backward(ctx, g):
@@ -410,7 +432,7 @@ def reduce_from_model(x: torch.Tensor, world) -> torch.Tensor:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
         return _ReduceFromModel.apply(x, world)
-    return psum(x, world)
+    return _psum_sliced(x, world)
 
 
 def all_reduce_model(x: torch.Tensor, world) -> torch.Tensor:

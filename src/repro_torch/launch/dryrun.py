@@ -16,7 +16,8 @@ memory and cost analyses. Here, per combination and mesh:
      kernels, custom ops, pass through their shape functions, which count
      calls and the bytes each kernel would move (``kernels/ops.py``);
   3. records the peak bytes by category (``total_per_device_bytes`` is the
-     peak), ``matmul_flops`` (the matrix products only: not XLA's full
+     peak) and the temporaries alive at the peak by the op that made them
+     (``temporaries_by_op``), ``matmul_flops`` (the matrix products only: not XLA's full
      cost), the kernels' calls and bytes, and whether the peak fits the
      card: ``H100_USABLE_BYTES``, what a process on the H100 80GB can
      allocate (see ``capacity``). A shape that does not fit at its
@@ -112,18 +113,21 @@ class LiveBytes(TorchDispatchMode):
     ``add(tensor, category)`` registers an argument's storage; every
     storage an op makes during the run is a temporary. A storage counts
     once (views share it), rounded up to a multiple of ``block``, and stops
-    counting when it is freed. ``peak`` is the most bytes alive at once and
-    ``at_peak`` their split by category."""
+    counting when it is freed. ``peak`` is the most bytes alive at once,
+    ``at_peak`` their split by category and ``ops_at_peak`` the
+    temporaries' split by the op that made them (``aten`` op names)."""
 
     def __init__(self, block: int = CUDA_BLOCK):
         super().__init__()
         self.block = block
         self._seen = WeakIdKeyDictionary()
         self.now = collections.Counter()
+        self.ops = collections.Counter()
         self.total = self.peak = 0
         self.at_peak: dict = {}
+        self.ops_at_peak: dict = {}
 
-    def add(self, t, category: str) -> None:
+    def add(self, t, category: str, op: str = "") -> None:
         if not isinstance(t, torch.Tensor) or t.device.type != "meta":
             return
         st = t.untyped_storage()
@@ -131,20 +135,33 @@ class LiveBytes(TorchDispatchMode):
             return
         nbytes = -(-st.nbytes() // self.block) * self.block
         self._seen[st] = category
-        weakref.finalize(st, self._free, nbytes, category)
+        weakref.finalize(st, self._free, nbytes, category, op)
         self.now[category] += nbytes
+        self.ops[op] += nbytes
         self.total += nbytes
         if self.total > self.peak:
             self.peak, self.at_peak = self.total, dict(self.now)
+            self.ops_at_peak = dict(self.ops)
 
-    def _free(self, nbytes: int, category: str) -> None:
+    def _free(self, nbytes: int, category: str, op: str) -> None:
         self.now[category] -= nbytes
+        self.ops[op] -= nbytes
         self.total -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         for t in tree_leaves(out):
-            self.add(t, "temporaries")
+            self.add(t, "temporaries", func.overloadpacket.__name__)
+        return out
+
+    def temporaries_by_op(self, top: int = 12) -> dict:
+        """The temporaries alive at the peak by the op that made them: the
+        ``top`` largest, the rest summed as ``other``."""
+        ops = sorted(((k, v) for k, v in self.ops_at_peak.items() if k and v),
+                     key=lambda kv: -kv[1])
+        out = dict(ops[:top])
+        if ops[top:]:
+            out["other"] = sum(v for _, v in ops[top:])
         return out
 
 
@@ -183,6 +200,7 @@ def measure(cfg, shape_name: str, *, shape=None, block: int = CUDA_BLOCK,
         spec.fn(*spec.args, **spec.kwargs)
     return {"description": spec.description, "argument_bytes": arguments,
             "peak_bytes": mem.peak, "peak_by_category": dict(sorted(mem.at_peak.items())),
+            "temporaries_by_op": mem.temporaries_by_op(),
             "matmul_flops": int(flops.get_total_flops()),
             "kernels": {k: dict(v) for k, v in ops.fake_calls.items() if v["calls"]},
             "collective_bytes": dict(sorted(collectives.stats["bytes"].items())),
@@ -292,6 +310,7 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
         "device": {"tensors": "meta", "capacity_bytes": cap, "capacity_from": cap_from},
         "memory": {"argument_bytes": m["argument_bytes"],
                    "peak_by_category": m["peak_by_category"],
+                   "temporaries_by_op": m["temporaries_by_op"],
                    "total_per_device_bytes": m["peak_bytes"]},
         "matmul_flops": m["matmul_flops"],
         "kernels": m["kernels"],

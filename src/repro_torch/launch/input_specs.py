@@ -144,11 +144,13 @@ def _rank_grid(n: int, m: int, pods: int, device):
 
 def _serving_model(arch_cfg: ModelConfig, g) -> Model:
     """Rank ``g``'s model on the meta device: its shards over the model
-    group and, for a MoE, its experts over the data ranks."""
+    group and, for a MoE, its experts over the data ranks (routing the
+    global batch over the data ranks and the pods where the reference
+    does)."""
     cfg = arch_cfg
     if cfg.uses_moe and cfg.moe is not None and g.data.size > 1:
         cfg = dataclasses.replace(cfg, ep_axis="data", ep_ranks=g.data.size)
-    return Model(cfg, device="meta", tp_world=g.model, ep_world=g.data)
+    return Model(cfg, device="meta", tp_world=g.model, ep_world=g.data, pod_world=g.pod)
 
 
 def _rank_rows(shape: dict, n: int, pods: int, batch: Optional[int]) -> int:

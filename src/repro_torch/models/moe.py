@@ -20,6 +20,21 @@ The two routing paths floor the capacity differently, as the reference's
 do: ``moe_apply`` at 8 slots, ``_dispatch_indices`` (the expert-parallel
 path) at 4.
 
+Serving across ranks (``route``: the Worlds whose ranks hold the rows of
+the global batch, the data ranks and, with pods, the pod ranks) routes as
+the reference's GSPMD routes the global batch wherever its serving does
+not take expert parallelism (decode, and the prefill of a MoE of fewer
+than ``EP_PREFILL_EXPERTS`` experts, ``launch/input_specs.py``): the
+capacity C from the global T (every rank's rows; floor 8), and an
+assignment's place in its expert from the global order — the rows lie in
+rank order, so it is this rank's stable position plus the assignments of
+that expert on the ranks before it (one ``all_gather`` of an int[E] a
+rank, and one more over the pods). A rank keeps exactly the assignments
+the reference keeps (global place < C) and sends them in slots
+[0, min(C, T)) of its [E, ·, d] buffer (its own place: a rank holds at
+most T of an expert's assignments); the expert products are row by row,
+so a kept token's output does not depend on its slot.
+
 Expert parallelism (``ep_axis``) in the reference shards the experts over
 the learners and exchanges the dispatch buffers with two all-to-alls.
 With one learner a rank (a ``repro_torch.dist.World`` of n ranks, the
@@ -56,6 +71,20 @@ import torch.nn.functional as F
 from repro_torch.dist import collectives
 from repro_torch.dist.collectives import copy_to_model, reduce_from_model
 from repro_torch.models.layers import _dense_init
+
+
+#: the reference's serving routes a MoE of at least this many experts
+#: rank by rank in prefill (``launch/input_specs.py::use_expert_parallel``)
+EP_PREFILL_EXPERTS = 64
+#: ``kept`` a list: each routing of ``moe_apply`` / ``_moe_apply_ep``
+#: appends the assignments each expert kept on this rank (int64[E])
+route_stats = {"kept": None}
+
+
+def _record_kept(slot: torch.Tensor, sorted_e: torch.Tensor, E: int, C: int) -> None:
+    if route_stats["kept"] is not None:
+        kept = torch.zeros(E, dtype=torch.int64, device=slot.device)
+        route_stats["kept"].append(kept.index_add_(0, sorted_e, (slot < E * C).long()).cpu())
 
 
 def expert_init(generator: torch.Generator, shape, device, rows: range) -> torch.Tensor:
@@ -117,22 +146,50 @@ def _aux(probs: torch.Tensor, frac: torch.Tensor, moe_cfg) -> torch.Tensor:
     return moe_cfg.num_experts * torch.sum(frac * probs.mean(0)) * moe_cfg.aux_loss_weight
 
 
-def _slots(assign: torch.Tensor, E: int, C: int, T: int):
+def _slots(assign: torch.Tensor, E: int, C: int, T: int, route=None, cap: int = 0):
     """Capacity-capped dispatch of [T, k] assignments: (dispatch_tok
     int64[E·C] — the token in each slot, T for an empty one —, order, the
-    slot of each sorted assignment with E·C for a dropped one)."""
+    slot of each sorted assignment with E·C for a dropped one). ``route``
+    (serving across ranks, see the module docstring): an assignment is
+    kept where its place in the global order is below ``cap``, the global
+    capacity, and C is this rank's slots an expert."""
     k = assign.shape[1]
     dev = assign.device
     flat_assign = assign.reshape(-1)
     order = torch.argsort(flat_assign, stable=True)
     sorted_e = flat_assign[order]
-    seg_start = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
+    experts = torch.arange(E, device=dev)
+    seg_start = torch.searchsorted(sorted_e, experts)
     pos_in_e = torch.arange(T * k, device=dev) - seg_start[sorted_e]
-    slot = torch.where(pos_in_e < C, sorted_e * C + pos_in_e, E * C)
+    keep = pos_in_e < C
+    if route is not None:  # each expert's count: its segment of the sorted assignments
+        counts = torch.searchsorted(sorted_e, experts, right=True) - seg_start
+        keep = _ranks_before(counts, route)[sorted_e] + pos_in_e < cap
+    slot = torch.where(keep, sorted_e * C + pos_in_e, E * C)
+    _record_kept(slot, sorted_e, E, C)
     token_of = torch.div(order, k, rounding_mode="floor")
     dispatch_tok = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
     dispatch_tok = dispatch_tok.scatter(0, slot, token_of)[:E * C]
     return dispatch_tok, order, slot
+
+
+def _ranks_before(counts: torch.Tensor, route) -> torch.Tensor:
+    """Each expert's assignments on the ranks before this one in the
+    global batch's row order (int64[E]): ``route`` is (the data ranks'
+    World, the pods' World or None), the rows pod-major."""
+    data, pods = route
+    seen = collectives.all_gather(counts, data)                      # [n, E]
+    before = seen[:data.rank].sum(0)
+    if pods is not None:
+        earlier = collectives.all_gather(seen.sum(0), pods)[:pods.rank]  # [p, E]
+        before = before + earlier.sum(0)
+    return before
+
+
+def _rows_of(route) -> int:
+    """The ranks whose rows make the global batch."""
+    data, pods = route
+    return data.size * (1 if pods is None else pods.size)
 
 
 def _capacity(T: int, k: int, E: int, capacity_factor: float, floor: int) -> int:
@@ -186,14 +243,14 @@ def _shared(params: dict, xt: torch.Tensor, moe_cfg, y: torch.Tensor, tp=None) -
 
 
 def moe_apply(params: dict, x: torch.Tensor, moe_cfg, ep_axis=None,
-              ep_ranks: int = 1, ep_world=None, tp=None) -> tuple:
+              ep_ranks: int = 1, ep_world=None, tp=None, route=None) -> tuple:
     """x: [B, S, d] -> (y, aux_loss). With ``ep_axis`` set, the
     expert-parallel routing of ``_moe_apply_ep`` (across the ranks of
-    ``ep_world`` when given). ``tp``: the model group's World (expert-ff
-    and the shared experts over the model ranks; see the module
-    docstring)."""
+    ``ep_world`` when given; ``route``: serving's routing of the global
+    batch). ``tp``: the model group's World (expert-ff and the shared
+    experts over the model ranks; see the module docstring)."""
     if ep_axis is not None:
-        return _moe_apply_ep(params, x, moe_cfg, ep_ranks, ep_world, tp)
+        return _moe_apply_ep(params, x, moe_cfg, ep_ranks, ep_world, tp, route)
     B, S, d = x.shape
     E, k = moe_cfg.num_experts, moe_cfg.top_k
     T = B * S
@@ -210,22 +267,28 @@ def moe_apply(params: dict, x: torch.Tensor, moe_cfg, ep_axis=None,
 
 
 def _dispatch_indices(probs: torch.Tensor, k: int, E: int, T: int,
-                      capacity_factor: float):
+                      capacity_factor: float, route=None):
     """The expert-parallel path's routing: (dispatch_tok[E·C], gate_of_slot
-    f32[E·C], C, frac), its capacity floored at 4."""
+    f32[E·C], C, frac), its capacity floored at 4; with ``route``, the
+    global batch's (capacity floored at 8, from every rank's T; C is this
+    rank's slots an expert, see the module docstring)."""
     gate_vals, assign, frac = _top_k(probs, k)
-    C = _capacity(T, k, E, capacity_factor, floor=4)
-    dispatch_tok, order, slot = _slots(assign, E, C, T)
+    if route is None:
+        C = cap = _capacity(T, k, E, capacity_factor, floor=4)
+    else:
+        cap = _capacity(T * _rows_of(route), k, E, capacity_factor, floor=8)
+        C = min(cap, T)
+    dispatch_tok, order, slot = _slots(assign, E, C, T, route, cap)
     gates_sorted = gate_vals.reshape(-1)[order]
     gate_of_slot = probs.new_zeros((E * C + 1,)).scatter(0, slot, gates_sorted)[:E * C]
     return dispatch_tok, gate_of_slot, C, frac
 
 
 def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int,
-                  world=None, tp=None) -> tuple:
+                  world=None, tp=None, route=None) -> tuple:
     """One learner's expert-parallel MoE: its tokens dispatched with
-    ``_dispatch_indices``'s capacity C (floor 4, from this rank's T) to the
-    E experts. ``n_ranks`` must divide E, as the reference's exchange needs.
+    ``_dispatch_indices``'s capacity C (floor 4, from this rank's T; with
+    ``route``, serving's routing of the global batch) to the E experts. ``n_ranks`` must divide E, as the reference's exchange needs.
     Without ``world`` (or on a World of one rank) every expert is local
     (one card, see the module docstring). With ``world`` the rank holds
     experts [r·E/n, (r+1)·E/n) and the reference's two tiled all-to-alls
@@ -241,8 +304,10 @@ def _moe_apply_ep(params: dict, x: torch.Tensor, moe_cfg, n_ranks: int,
     T = B * S
     xt = x.reshape(T, d)
     probs = _probs(params, xt)
+    if route is not None and (world is None or world.size == 1):
+        route = None  # one process: its rows are the global batch
     dispatch_tok, gate_of_slot, C, frac = _dispatch_indices(
-        probs, k, E, T, moe_cfg.capacity_factor)
+        probs, k, E, T, moe_cfg.capacity_factor, route)
     aux = _aux(probs, frac, moe_cfg)
     gate = gate_of_slot.to(x.dtype)
     if world is None or world.size == 1:

@@ -25,12 +25,13 @@ the pod meshes.
 
 Tensor parallelism across ranks (``Model(cfg, tp_world=...)``): model rank
 j of m holds ``shard_leaf`` of each leaf, cut by the ``Split`` that
-``tp_dim`` gives, along the dim where ``_spec_for`` puts 'model'. The
-vocabulary (embed, lm_head) splits where m divides it and stays
-replicated where it does not, as ``sanitize_spec`` has it (internvl2's
-151,655 at m = 2). Every other split is by whole units, unevenly where m
-does not divide them (``unit_share``: the first u mod m
-ranks hold ⌈u/m⌉ units, the rest ⌊u/m⌋, which may be none): q heads (wq's
+``tp_dim`` gives, along the dim where ``_spec_for`` puts 'model'. Every
+split is by whole units, unevenly where m does not divide them
+(``unit_share``: the first u mod m ranks hold ⌈u/m⌉ units, the rest
+⌊u/m⌋, which may be none): the vocabulary (embed, lm_head) by word, so
+internvl2's 151,655 words split 9,479 and 9,478 at m = 16 where the
+reference's ``sanitize_spec`` replicates them, and each rank's logits and
+loss stay on its words (``Model.loss``); q heads (wq's
 columns, wo's rows, ``head_dim`` words a unit); the kv heads where m
 divides them (then the q heads split evenly too, whole groups a rank), and
 otherwise replicated on every rank, each q head q reading kv head
@@ -264,8 +265,8 @@ def _unit(path: str, cfg: ModelConfig) -> int:
 def tp_dim(path: str, leaf, cfg: ModelConfig, m: int) -> Optional[Split]:
     """How ``leaf`` (a leaf of the full tree, stacked or one unit's) is split
     over ``m`` model ranks (a ``Split``), or None for a
-    replicated leaf: the vocabulary where m divides it, kv heads where m
-    divides them, every other 'model' dim by whole units (see the module
+    replicated leaf: kv heads where m divides them, every other 'model'
+    dim (the vocabulary's included) by whole units (see the module
     docstring). Mamba2's ``in_proj`` is cut by head: z, x and dt by rank,
     B and C replicated; every other split is one segment."""
     if m == 1:
@@ -279,8 +280,6 @@ def tp_dim(path: str, leaf, cfg: ModelConfig, m: int) -> Optional[Split]:
                      ((inner, True), (inner, True), (N, False), (N, False), (H, True)),
                      (64, 64, 1, 1, 1))
     spec = _spec_for(path, leaf, cfg)
-    if name in ("embed", "lm_head"):
-        spec = sanitize_spec(spec, tuple(leaf.shape), {"model": m})
     dims = [d for d, part in enumerate(spec)
             if part is not None and "model" in _names(part)]
     return Split.whole(dims[0], leaf.shape[dims[0]], _unit(path, cfg)) if dims else None

@@ -45,12 +45,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_apply, attention_init,
                                        attention_init_cache, mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import EP_PREFILL_EXPERTS, moe_apply, moe_init
 from repro_torch.models.ssm import (mamba2_apply, mamba2_init, mamba2_init_cache, rwkv6_apply,
                                     rwkv6_init, rwkv6_init_cache)
 from repro_torch.dist.collectives import copy_to_model, gather_from_model, reduce_from_model
 from repro_torch.train.flatten import (leaves_with_paths, shard_layout, tree_map,
                                        tree_map_with_path)
+from repro_torch.train.loss import next_token_loss, vocab_parallel_loss
 
 
 def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device,
@@ -72,14 +73,15 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str, device,
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, cache: Optional[dict] = None,
-                ep_world=None, tp_world=None, seq_world=None) -> tuple:
+                ep_world=None, tp_world=None, seq_world=None, route=None) -> tuple:
     """Pre-norm residual block. Returns (x, new_cache, aux loss): new_cache
     None without a cache, aux None for a block without MoE (the reference
     adds a zero). ``ep_world``: the learners' World of expert parallelism
     across ranks (``models/moe.py``); ``tp_world``: the model group's
     World of tensor parallelism (``models/layers.py``, ``models/ssm.py``,
     ``models/moe.py``); ``seq_world``: the group over whose ranks the
-    attention caches' slots lie (``models/layers.py``)."""
+    attention caches' slots lie (``models/layers.py``); ``route``: the
+    Worlds over whose rows the MoE routes the global batch (serving)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba2":
         mix, new_cache = mamba2_apply(params["mamba"], h, cfg, cache, tp=tp_world)
@@ -92,7 +94,8 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if "moe" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
         ff, aux = moe_apply(params["moe"], h, cfg.moe, ep_axis=cfg.ep_axis,
-                            ep_ranks=cfg.ep_ranks, ep_world=ep_world, tp=tp_world)
+                            ep_ranks=cfg.ep_ranks, ep_world=ep_world, tp=tp_world,
+                            route=route)
         return x + ff, new_cache, aux
     if "mlp" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -165,7 +168,11 @@ class Model(nn.Module):
     is vocab-parallel (ids outside the shard read zeros, then
     ``reduce_from_model``: one non-zero among zeros, so the embeddings are
     the one-card ones word for word) and the logits column-parallel over
-    the vocabulary, gathered before the loss. Every block kind splits by
+    the vocabulary (words ``vocab_span``, whole words a rank,
+    ``models/sharding.py::unit_share``): ``loss`` takes the
+    vocabulary-parallel loss on this rank's shard of them, as the
+    reference's GSPMD keeps 1/m of the logits a device, and ``apply``,
+    ``prefill`` and ``decode_step`` gather them. Every block kind splits by
     whole units, unevenly where m does not divide them (the first ranks
     hold one head or column more; a rank may hold none); zamba2's shared
     block is cut as the dense blocks are and its ``_shared`` placeholder
@@ -179,22 +186,30 @@ class Model(nn.Module):
     caller gives it (the reference's ('pod', 'data') rows), this rank's
     kv heads and recurrent heads over the model group, and with
     ``seq_world`` (long_500k's layout) this rank's slots of every
-    attention cache (``models/layers.py``). A MoE serves by expert
-    parallelism over ``ep_world`` as it trains.
+    attention cache (``models/layers.py``). A MoE's experts lie over
+    ``ep_world`` as in training. Each rank routes its own rows where the
+    reference's serving takes expert parallelism (the prefill of a MoE of
+    ``moe.EP_PREFILL_EXPERTS`` experts or more); elsewhere (decode, and
+    the other MoEs' prefill) the routing is the reference's over the global
+    batch, the rows of every rank of ``ep_world`` (and, with ``pod_world``,
+    of every pod) in rank order (``models/moe.py``).
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 generator: Optional[torch.Generator] = None, ep_world=None, tp_world=None):
+                 generator: Optional[torch.Generator] = None, ep_world=None, tp_world=None,
+                 pod_world=None):
         super().__init__()
         self.cfg = cfg
         self.tp_world = tp_world if tp_world is not None and tp_world.size > 1 else None
         self.tp_dims = None
+        self.vocab_span = (0, cfg.vocab)
         shard = (lambda path, t: t)  # noqa: E731
         if self.tp_world is not None:
-            from repro_torch.models.sharding import check_tp, shard_leaf, tree_dims
+            from repro_torch.models.sharding import check_tp, shard_leaf, tree_dims, unit_share
             m, j = self.tp_world.size, self.tp_world.rank
             check_tp(cfg, m)
             self.tp_dims = tree_dims(Model(cfg, device="meta").tree(), cfg, m)
+            self.vocab_span = unit_share(cfg.vocab, m, j)
 
             def shard(path, t):
                 return shard_leaf(path, t, cfg, j, m)
@@ -207,6 +222,8 @@ class Model(nn.Module):
                                  f"has {ep_world.size} ranks")
             rows = cfg.expert_rows(ep_world.rank, ep_world.size)
         self.ep_world = ep_world if rows is not None else None
+        self.pod_world = (pod_world if self.ep_world is not None and pod_world is not None
+                          and pod_world.size > 1 else None)
         device = torch.device(device)
         if generator is None and device.type != "meta":  # meta: shapes only
             generator = torch.Generator(device=device).manual_seed(0)
@@ -279,6 +296,25 @@ class Model(nn.Module):
         """tokens: int[B, S] (or [B, S, nc] multi-codebook); prefix_embeds:
         optional f32[B, P, d]. Returns (logits f32, aux), aux the f32 sum of
         the MoE blocks' aux losses (0 without MoE)."""
+        x, aux = self._hidden(params, tokens, prefix_embeds)
+        return self._logits(params, x), aux
+
+    def loss(self, params: dict, tokens: torch.Tensor,
+             prefix_embeds: Optional[torch.Tensor] = None):
+        """(the mean next-token loss, aux) of ``apply``'s forward pass: with
+        ``tp_world``, ``train/loss.py::vocab_parallel_loss`` of this rank's
+        f32 vocabulary shard of the logits, which no rank gathers; without
+        it, ``next_token_loss`` of the logits."""
+        x, aux = self._hidden(params, tokens, prefix_embeds)
+        if self.tp_world is None:
+            return next_token_loss(self._logits(params, x), tokens, self.cfg.prefix_embeds), aux
+        return vocab_parallel_loss(self._logits(params, x, shard=True), tokens,
+                                   self.vocab_span[0], self.tp_world,
+                                   self.cfg.prefix_embeds), aux
+
+    def _hidden(self, params: dict, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None):
+        """The forward pass up to the head: (the final norm's output, aux)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         if prefix_embeds is not None:
@@ -301,9 +337,7 @@ class Model(nn.Module):
                                           tp_world=self.tp_world)
                 if a is not None:
                     aux = aux + a
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = self._logits(params, x)
-        return logits, aux
+        return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, prefilled: bool = True,
@@ -337,7 +371,10 @@ class Model(nn.Module):
         if cache is None:
             cache = self.init_cache(B, S, prefilled=False, device=x.device, seq_world=seq_world)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
-        return self._run_with_cache(params, x, cache, positions, seq_world)
+        rank_local = (self.cfg.moe is not None
+                      and self.cfg.moe.num_experts >= EP_PREFILL_EXPERTS)
+        return self._run_with_cache(params, x, cache, positions, seq_world,
+                                    None if rank_local else self._route())
 
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: list,
                     seq_world=None) -> tuple:
@@ -353,15 +390,22 @@ class Model(nn.Module):
         tok = tokens[:, None] if tokens.dim() == 1 else tokens[:, None, :]
         x = self._embed(params, _clamp_vocab(tok, self.cfg))  # [B, 1, d]
         positions = cache[0]["pos"][0][:, None].to(torch.int32)  # unit 0's; all agree
-        return self._run_with_cache(params, x, cache, positions, seq_world)
+        return self._run_with_cache(params, x, cache, positions, seq_world, self._route())
+
+    def _route(self) -> Optional[tuple]:
+        """The Worlds over whose rows serving's MoE routes the global
+        batch (``models/moe.py``): (``ep_world``, ``pod_world``), or None
+        on one process."""
+        return None if self.ep_world is None else (self.ep_world, self.pod_world)
 
     def _run_with_cache(self, params: dict, x: torch.Tensor, cache: list,
-                        positions: torch.Tensor, seq_world=None) -> tuple:
+                        positions: torch.Tensor, seq_world=None, route=None) -> tuple:
         """The units in turn, each on its slice of every stacked cache leaf;
         a leaf written in place comes back as the same stacked tensor, any
         other is restacked. ``cache`` is donated (see ``decode_step``): a
-        leaf written in place is the caller's tensor, changed. Returns
-        (last position's logits, new cache)."""
+        leaf written in place is the caller's tensor, changed. ``route``:
+        the MoE routes the global batch over these Worlds' rows (None: each
+        rank its own). Returns (last position's logits, new cache)."""
         cfg = self.cfg
         if seq_world is not None and seq_world.size == 1:
             seq_world = None
@@ -375,7 +419,8 @@ class Model(nn.Module):
                 bp = params["shared_attn"] if kind == "shared_attn" else units[pos][u]
                 bc = {k: v[u] for k, v in slices[pos].items()}
                 x, nc, _ = block_apply(bp, x, cfg, kind, positions, bc, ep_world=self.ep_world,
-                                       tp_world=self.tp_world, seq_world=seq_world)
+                                       tp_world=self.tp_world, seq_world=seq_world,
+                                       route=route)
                 for k, v in nc.items():
                     new[pos][k].append(v)
         new_cache = [{k: (cache[pos][k] if all(a is b for a, b in zip(vs, slices[pos][k]))
@@ -389,7 +434,7 @@ class Model(nn.Module):
         emb = params["embed"].to(torch.bfloat16 if cfg.dtype == "bfloat16"
                                  else torch.float32)
         tokens = tokens.long()
-        if self.tp_world is not None and emb.shape[-2] != cfg.vocab:  # vocab-parallel
+        if self.tp_world is not None:  # vocab-parallel
             x = reduce_from_model(self._embed_shard(emb, tokens), self.tp_world)
             if cfg.num_codebooks > 1:  # the codebooks summed in the one-card order
                 parts, x = x, torch.zeros_like(x[0])
@@ -414,7 +459,7 @@ class Model(nn.Module):
         codebook each): a token outside the rank's vocabulary shard reads
         zeros."""
         V = emb.shape[-2]
-        local = tokens - self.tp_world.rank * V
+        local = tokens - self.vocab_span[0]
         inside = ((local >= 0) & (local < V))[..., None]
         local = local.clamp(0, V - 1)
         if self.cfg.num_codebooks == 1:
@@ -424,23 +469,36 @@ class Model(nn.Module):
                                         emb[c][local[..., min(c, last)]], 0)
                             for c in range(self.cfg.num_codebooks)])
 
-    def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, params: dict, x: torch.Tensor, shard: bool = False) -> torch.Tensor:
+        """f32 logits after the softcap: with ``tp_world`` column-parallel
+        over the vocabulary, this rank's words ``vocab_span`` (``shard``)
+        or every rank's gathered."""
         cfg = self.cfg
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         head = head.to(x.dtype)
-        split = self.tp_world is not None and head.shape[-2] != cfg.vocab
-        if split:  # column-parallel over the vocabulary, gathered for the loss
+        if self.tp_world is not None:
             x = copy_to_model(x, self.tp_world)
         if cfg.num_codebooks > 1:
             logits = torch.einsum("bsd,cvd->bscv", x, head)
         else:
             logits = torch.einsum("bsd,vd->bsv", x, head)
-        if split:
-            logits = gather_from_model(logits, self.tp_world, dim=-1)
+        if self.tp_world is not None and not shard:
+            logits = self._gather_vocab(logits)
         logits = logits.float()
         if cfg.logit_softcap is not None:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits
+
+    def _gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """The model group's vocabulary shards of ``logits`` joined along
+        the last dim; unequal shards cross padded to rank 0's length."""
+        m = self.tp_world.size
+        if self.cfg.vocab % m == 0:
+            return gather_from_model(logits, self.tp_world, dim=-1)
+        from repro_torch.models.sharding import Split
+        sp = Split.whole(logits.dim() - 1, self.cfg.vocab)
+        full = gather_from_model(sp.pad(logits, m), self.tp_world, dim=-1)
+        return torch.cat(sp.trim(list(full.split(sp.size(m, 0), dim=-1))), dim=-1)
 
 
 def _unbind(tree, n: int) -> list:

@@ -37,11 +37,20 @@ The rows cross on the world's own transport: gloo on the CPU, ``host``
 for ranks sharing a card, ``nccl`` for a card a rank.
 
 A submission is checked on rank 0 before anything is sent, so a bad one
-is refused there and no follower sees it. A step that raises on any rank
-tears down that rank's groups, so that the others' collectives fail
-instead of waiting for it (at once over gloo; NCCL ranks wait out the
-world's ``dist.world.TIMEOUT_S``), and raises there: the error reaches
-every rank. The lead then refuses every later step.
+is refused there and no follower sees it. A raise from the engine's
+``on_complete`` hook comes after the step's last collective: it is held
+until the step has recorded every session and counted itself, so every
+rank stays in step, and then the lead re-raises it to the broker, which
+counts it in ``engine_errors`` and steps on, as the reference's broker
+does; a follower counts it (``follow`` returns the count) and goes on.
+Any other raise in a step (the rows' scatter, a collective of the
+rounds) may leave the ranks at different points of the step's
+collectives, and a failed NCCL collective cannot be resumed without
+forming the world again. So it tears down that rank's groups, so that
+the others' collectives fail instead of waiting for it (at once over
+gloo; NCCL ranks wait out the world's ``dist.world.TIMEOUT_S``), and
+raises there: the error reaches every rank. The lead then refuses every
+later step.
 """
 from __future__ import annotations
 
@@ -82,6 +91,27 @@ def _command_world(world: World) -> World:
                                      device=torch.device("cpu"), transport="gloo",
                                      group=group)
     return _COMMAND_WORLDS[key]
+
+
+def _step_holding(engine: AggregationEngine) -> tuple:
+    """``engine.step()`` with its ``on_complete`` hook's raises held: the
+    hook runs for every finished session and the step ends. Returns (the
+    step's result, the hook's raises); the hook is restored after it."""
+    hook, held = engine.on_complete, []
+    if hook is None:
+        return engine.step(), held
+
+    def holding(sess):
+        try:
+            hook(sess)
+        except Exception as e:  # noqa: BLE001 — raised again once the step is whole
+            held.append(e)
+
+    engine.on_complete = holding
+    try:
+        return engine.step(), held
+    finally:
+        engine.on_complete = hook
 
 
 def _tear_down(world: World, cmd: World) -> None:
@@ -176,16 +206,21 @@ class EngineLead:
     def step(self) -> int:
         """Send the sessions submitted since the last step to their ranks,
         then step every rank's engine once (``AggregationEngine.step``).
-        A raise tears the world down (module docstring)."""
+        A raise of the ``on_complete`` hook
+        comes back once the step is whole, the world up; any other tears
+        the world down (module docstring)."""
         self._check_open()
         pending, self._pending = self._pending, []
         try:
             self._send(STEP, pending)
-            return self.engine.step()
+            done, held = _step_holding(self.engine)
         except BaseException:
             self._state = "failed"
             _tear_down(self.engine.world, self._cmd)
             raise
+        if held:
+            raise held[0]
+        return done
 
     def run_until_done(self, max_steps: int = 10_000) -> None:
         while (self.queue or self.active) and self.steps < max_steps:
@@ -206,22 +241,24 @@ class EngineLead:
             raise
 
 
-def follow(engine: AggregationEngine) -> None:
+def follow(engine: AggregationEngine) -> int:
     """Rank r > 0's loop around its per-rank engine while rank 0's
     ``EngineLead`` leads: at each step command, submit the sessions the
     lead sent, this rank's row of each, then step once (each finished
     session goes to ``engine.on_complete``, as on rank 0); return at the
-    stop command. A raise tears the world down (module docstring)."""
+    stop command the number of raises of the hook, which it counted and
+    went on. Any other raise tears the world down (module docstring)."""
     world = engine.world
     if world is None or world.rank == 0:
         raise ValueError("follow runs on ranks 1.. of an AggregationEngine(..., world=); "
                          "rank 0 holds the EngineLead")
     cmd = _command_world(world)
+    hook_errors = 0
     try:
         while True:
             op, k = collectives.broadcast(torch.empty(2, dtype=torch.int64), 0, cmd).tolist()
             if op == STOP:
-                return
+                return hook_errors
             if k:
                 metas = collectives.broadcast(torch.empty((k, 4 + 2 * engine.n),
                                                           dtype=torch.int64), 0, cmd)
@@ -232,7 +269,7 @@ def follow(engine: AggregationEngine) -> None:
                     engine.submit(row, rounds=rounds, provisioning_seed=pseed,
                                   learner_master=master, alive=alive, weights=weights,
                                   rotate0=rotate0)
-            engine.step()
+            hook_errors += len(_step_holding(engine)[1])
     except BaseException:
         _tear_down(world, cmd)
         raise

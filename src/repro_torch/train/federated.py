@@ -25,8 +25,9 @@ Two runtimes consume the same local update (``make_local_update``):
   delta back as f32[P] numpy, so ``repro_torch.net`` stays numpy-only.
 
 With model shards (a model built with ``tp_world``, the model group of a
-('data', 'model') grid) the local steps run tensor-parallel, their clip
-reading the norm over every rank's shards, and the delta's chunk goes
+('data', 'model') grid) the local steps run tensor-parallel, their loss
+on each rank's vocabulary shard of the logits (``Model.loss``) and their
+clip reading the norm over every rank's shards, and the delta's chunk goes
 through the sharded round (``_tp_round``), with pods (``dist.grid``)
 each pod's chunk meeting the other pods' over the pod group.
 
@@ -47,7 +48,7 @@ from repro_torch.dist import collectives
 from repro_torch.dist.world import pod_world_of, rank_world
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.flatten import leaves, tree_map, tree_size, tree_unflatten, write_chunk
-from repro_torch.train.loss import next_token_loss, param_grads
+from repro_torch.train.loss import param_grads
 from repro_torch.train.train_step import tp_norm, tp_padded_size
 
 if TYPE_CHECKING:  # the model package imports this package's flatten
@@ -83,7 +84,6 @@ def make_local_update(
     ``delta`` is f32[P] in the flat layout, written into ``out`` when given.
     ``params`` is not modified.
     """
-    cfg = model.cfg
     local_opt = AdamW(lr=local_lr, weight_decay=0.0, grad_clip=1.0)
     tp = model.tp_world
 
@@ -96,11 +96,10 @@ def make_local_update(
         losses = []
         for i in range(local_steps):
             batch = tokens[i]
-            with torch.enable_grad():
-                logits, aux = model.apply(p, batch)
-                loss = next_token_loss(logits, batch, cfg.prefix_embeds) + aux
+            with torch.enable_grad():  # with tp, the loss on this rank's vocabulary shard
+                loss, aux = model.loss(p, batch)
+                loss = loss + aux
                 grads = param_grads(loss, leaves(p))
-            del logits
             gnorm = None if tp is None else tp_norm(grads, model.tp_dims, tp)
             p, state = local_opt.update(tree_unflatten(p, grads), state, p, gnorm)
             del grads

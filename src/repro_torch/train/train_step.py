@@ -63,10 +63,12 @@ tp_world=model)``, the model group of a ('data', 'model') grid from
 ``dist.grid_worlds`` or a mesh's ``model_world_of``) with ``mesh`` the
 learners' ring of the same grid runs the reference's step on ('data',
 'model') (``_tp_step``): rank l·m + j is learner l's model shard j. The
-forward and backward are tensor-parallel over the model group; the
-gradient's chunk j — words [j·L, (j + 1)·L) of the flat vector padded to
-a multiple of 2·n·m, L = padded_size / m — is assembled from the group's
-shards; ring j runs SAFE on it (``aggregate_rank(..., model_world=)``,
+forward and backward are tensor-parallel over the model group, the loss
+vocabulary-parallel on each rank's shard of the logits (``Model.loss``:
+no rank gathers them, as the reference's GSPMD keeps 1/m of the
+vocabulary's logits a device); the gradient's chunk j — words [j·L,
+(j + 1)·L) of the flat vector padded to a multiple of 2·n·m, L =
+padded_size / m — is assembled from the group's shards; ring j runs SAFE on it (``aggregate_rank(..., model_world=)``,
 the reference's ``chain_model_sharded``: one chain per model shard, and
 the published words those of one chain over the whole vector); ZeRO-1
 runs over all n·m ranks, rank (l, j) updating the l-th of the n parts of
@@ -614,7 +616,6 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, pod_world,
     ``step_fn(state, tokens, prefix=None, weights=None, counter=0,
     alive=None, mark=None)`` as ``_rank_step``'s: ``tokens`` this learner's
     int[B, S], the same on every rank of its model group."""
-    cfg = model.cfg
     n, l = world.size, world.rank
     m, j = tp.size, tp.rank
     L = padded_size // m
@@ -685,11 +686,11 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, pod_world,
 
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         is_ep = [is_expert_path(path) for path in leaf_paths(p)]
-        with torch.enable_grad():
-            logits, aux = model.apply(p, tokens, prefix)
-            loss = next_token_loss(logits, tokens, cfg.prefix_embeds) + aux
+        with torch.enable_grad():  # the loss on this rank's vocabulary shard
+            loss, aux = model.loss(p, tokens, prefix)
+            loss = loss + aux
             grads = param_grads(loss, leaves(p))
-        del logits, p
+        del p
         sec_g = [g for g, e in zip(grads, is_ep) if not e]
         ep_g = [g for g, e in zip(grads, is_ep) if e]
         del grads

@@ -19,7 +19,10 @@ word (``assert_array_equal``):
 
 and every follower's sessions hold the same results. A submission with a
 wrong-shaped ``alive`` is refused on rank 0 while the followers keep
-serving, and a step that raises on one rank raises on every rank instead
+serving; a completion hook that raises once on rank 0 and once on a
+follower leaves the world up (the broker counts one engine error, the
+follower one hook error, and the sessions of the next wave are published
+bit for bit); and a step that raises on one rank raises on every rank instead
 of leaving the others waiting. A lead closed with a session not yet
 sent ends every follower's loop. Each spawned rank has a time limit
 (``faulthandler`` ends a rank stuck past it, and the pool then fails).
@@ -124,6 +127,60 @@ def _serve_rank(world):
             eng.on_complete = done.append
             follow(eng)
             out[name] = ([torch.stack(s.results) for s in done], [s.sid for s in done])
+    faulthandler.cancel_dump_traceback_later()
+    return out
+
+
+HOOK_RANK = 2                # the follower whose completion hook raises once too
+
+
+def _raising_once(hook, raised):
+    """``hook``, then a raise at its first call."""
+    def call(sess):
+        hook(sess)
+        if not raised:
+            raised.append(sess.sid)
+            raise RuntimeError("injected completion-hook failure")
+    return call
+
+
+async def _serve_waves(lead):
+    """Tenants 0 and 1, then 2 and 3 once those are done, through a broker
+    in front of ``lead`` whose completion hook raises at its first call.
+    Returns (each tenant's results, the broker's engine_errors)."""
+    broker = net.SafeBroker(engine=lead)
+    lead.on_complete = _raising_once(lead.on_complete, [])
+    addr = await broker.start()
+    try:
+        clients = [await net.WireClient(*addr, node=t).connect() for t in range(S)]
+        specs, out = _tenants(), []
+        for wave in (range(0, 2), range(2, S)):
+            sids = [(await clients[t].request("submit_session", specs[t]))["sid"] for t in wave]
+            for t, sid in zip(wave, sids):
+                res = await clients[t].request("wait_session", {"sid": sid, "timeout": WAIT_S})
+                assert res["status"] == "done" and res["rounds"] == ROUNDS, res
+                out.append(np.stack(res["results"]))
+        for c in clients:
+            await c.close()
+        return out, broker.engine_errors
+    finally:
+        await broker.stop()
+
+
+def _hook_rank(world):
+    """One rank of a served engine whose completion hook raises once on
+    rank 0 and on ``HOOK_RANK``: rank 0 returns (results, engine_errors),
+    the others ({sid: results}, the hook errors ``follow`` counted)."""
+    faulthandler.dump_traceback_later(RANK_DEADLINE_S, exit=True)
+    eng = AggregationEngine(_cfg("plain"), SLOTS, V, device="cpu", world=world)
+    if world.rank == 0:
+        out = asyncio.run(_serve_waves(EngineLead(eng)))
+    else:
+        done = []
+        eng.on_complete = (_raising_once(done.append, []) if world.rank == HOOK_RANK
+                           else done.append)
+        errors = follow(eng)
+        out = ({s.sid: torch.stack(s.results) for s in done}, errors)
     faulthandler.cancel_dump_traceback_later()
     return out
 
@@ -263,6 +320,7 @@ def runs(tmp_path_factory):
         with RankPool(N, "cpu", threads=1) as pool:
             served = [r["result"] for r in pool.run(_serve_rank)]
             closing = [r["result"] for r in pool.run(_closing_rank)]
+            hooked = [r["result"] for r in pool.run(_hook_rank)]
             failing = [r["result"] for r in pool.run(_failing_rank, (2,))]
         reference = {}
         for name, (proc, out) in procs.items():
@@ -272,7 +330,7 @@ def runs(tmp_path_factory):
     finally:
         for proc, _ in procs.values():
             proc.kill()
-    return served, failing, reference, closing
+    return served, failing, reference, closing, hooked
 
 
 def _one_process(name):
@@ -301,7 +359,7 @@ def _standalone(name, spec):
 
 @pytest.mark.parametrize("name", list(ENGINES))
 def test_wire_tenants_equal_reference_one_process_and_standalone(runs, name):
-    served, _, reference, _ = runs
+    served, _, reference, _, _ = runs
     results, _, errors = served[0][name]
     assert errors == 0
     one = _one_process(name)
@@ -316,7 +374,7 @@ def test_wire_tenants_equal_reference_one_process_and_standalone(runs, name):
 def test_followers_hold_rank0_results(runs, name):
     """Every follower finished the same sessions under the same ids, with
     the published means rank 0 answered with."""
-    served, _, _, _ = runs
+    served, _, _, _, _ = runs
     results = served[0][name][0]
     for r, res in enumerate(served[1:], start=1):
         got, sids = res[name]
@@ -330,7 +388,7 @@ def test_followers_hold_rank0_results(runs, name):
 def test_bad_submission_refused_on_rank0(runs):
     """A wrong-shaped alive is answered with an error before anything is
     sent; the followers then serve every tenant (the results above)."""
-    served, _, _, _ = runs
+    served, _, _, _, _ = runs
     _, error, errors = served[0]["plain"]
     assert error is not None and f"alive must have shape ({N},)" in error
     assert errors == 0
@@ -340,10 +398,29 @@ def test_failed_step_raises_on_every_rank(runs):
     """A step that raises on rank 2 tears its groups down: every rank
     raises instead of waiting in a collective, and the lead refuses the
     next step."""
-    _, failing, _, _ = runs
+    _, failing, _, _, _ = runs
     assert failing[2] == ["RuntimeError"]
     assert all(len(r) == 1 for r in failing[1:]), failing
     assert len(failing[0]) == 2 and failing[0][1] == "RuntimeError", failing[0]
+
+
+def test_raising_completion_hook_leaves_the_world_up(runs):
+    """The hook's raise comes after the step's last collective: the lead
+    re-raises it once the step is whole, the broker counts it in
+    ``engine_errors`` and steps on, the follower counts it and goes on; both
+    waves' sessions (the second submitted after the raise) are published
+    bit for bit, on rank 0 and on every follower."""
+    hooked = runs[4]
+    results, errors = hooked[0]
+    assert errors == 1
+    want = [_standalone("plain", spec) for spec in _tenants()]
+    for t, got in enumerate(results):
+        np.testing.assert_array_equal(got, want[t], err_msg=str(t))
+    for r, (by_sid, count) in enumerate(hooked[1:], start=1):
+        assert count == (1 if r == HOOK_RANK else 0), (r, count)
+        assert sorted(by_sid) == list(range(S)), (r, sorted(by_sid))
+        for t in range(S):
+            np.testing.assert_array_equal(by_sid[t].numpy(), want[t], err_msg=f"{r} {t}")
 
 
 def test_close_with_unsent_session_ends_every_rank(runs):

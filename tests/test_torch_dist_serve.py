@@ -12,6 +12,14 @@ on the smoke configurations in f32:
   data rank prefilling its 2 rows into its caches of 32 positions and its
   model rank's heads, then 4 decode steps through
   ``make_serve_step(model, grid)``;
+- ``IMB``: the smoke qwen3-moe at a capacity factor of 1 whose routing is
+  imbalanced across the data ranks: 32 rows, data rank 0's tokens routed
+  to experts 0 and 1 and data rank 1's to experts 0 and 2 (two embedding
+  columns and the router's rows on them, ``_imbalance``). The global batch
+  overfills expert 0, so the reference keeps its first C = 256 prompt
+  assignments (16 at decode), all of them data rank 0's, and drops data
+  rank 1's; a rank routing its own rows with its own capacity would keep
+  half of each rank's;
 - the sequence over 'data' (batch 1): gemma3-12b with a 64-slot cache,
   each data rank holding 32 slots of every attention cache (local ring
   buffers and the global cache), prefilled with 40 and with 60 tokens
@@ -22,8 +30,9 @@ Each rank also checks that a decode step writes only the slot its rank
 owns, that ``pmax`` is the ranks' max, and that the log-sum-exp merge
 (``layers._merged_attention``) of its slots equals ``_dense_attention`` of
 the whole cache within ``MERGE_TOL``. This process runs the one-process
-port on the same inputs (a MoE's rows a data rank at a time through its
-expert-parallel routing, which a rank's capacity follows); after the
+port on the same inputs (a MoE's whole batch through its one-process
+routing: the ranks route the global batch as the reference does, and keep
+as many assignments an expert, ``moe.route_stats``); after the
 ranks, one reference subprocess with 4 host devices runs the reference's
 prefill and then ``make_serve_step(model, mesh)`` on a (2, 2) Auto mesh,
 its parameters placed by ``param_pspecs`` and its caches by
@@ -50,12 +59,13 @@ import torch
 from helpers import REPO
 from repro_torch.configs import get_smoke_config
 from repro_torch.dist import collectives, grid, spawn
-from repro_torch.models import Model, layers
+from repro_torch.models import Model, layers, moe
 from repro_torch.serve import make_serve_step
 
 DATA, M, THREADS = 2, 2, 1
 BATCHED = ("internlm2-1.8b", "zamba2-2.7b", "rwkv6-1.6b", "qwen3-moe-235b-a22b")
 B, S0, MAX, STEPS = 4, 16, 32, 4          # batch-sharded: rows, prompt, cache, decode steps
+IMB, IMB_ROWS, IMB_CF = "qwen3-moe-imbalanced", 32, 1.0   # the imbalanced routing's case
 SEQ_ARCH, SEQ_MAX, SEQ_STEPS = "gemma3-12b", 64, 8
 SEQ_PROMPTS = (40, 60)                    # pos in data rank 1's slots; a wrapped ring
 LOGIT_TOL = 2e-4                          # of the step's largest |logit| (3.1e-5 seen)
@@ -93,7 +103,10 @@ def load(arch):
 
 
 def serve(arch, toks, s0, cache_len, steps, batch_sharded):
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(t._arch(arch)), dtype="float32")
+    if arch == t.IMB:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               capacity_factor=t.IMB_CF))
     model = Model(cfg)
     params = load(arch)
     logits, cache = jax.jit(model.prefill)(params, jnp.asarray(toks[:, :s0]),
@@ -114,6 +127,8 @@ def serve(arch, toks, s0, cache_len, steps, batch_sharded):
 out = {}
 for arch in t.BATCHED:
     out[arch] = serve(arch, t._tokens(arch, t.B, t.S0 + t.STEPS), t.S0, t.MAX, t.STEPS, True)
+out[t.IMB] = serve(t.IMB, t._tokens(t.IMB, t.IMB_ROWS, t.S0 + t.STEPS), t.S0, t.MAX, t.STEPS,
+                   True)
 for s0 in t.SEQ_PROMPTS:
     out[f"seq{s0}"] = serve(t.SEQ_ARCH, t._tokens(t.SEQ_ARCH, 1, s0 + t.SEQ_STEPS), s0,
                             t.SEQ_MAX, t.SEQ_STEPS, False)
@@ -122,9 +137,37 @@ print("REF_OK")
 """
 
 
+def _arch(name):
+    return "qwen3-moe-235b-a22b" if name == IMB else name
+
+
 def _cfg(arch):
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(_arch(arch)), dtype="float32")
+    if arch == IMB:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=IMB_CF))
     return cfg
+
+
+def _imbalance(model):
+    """``IMB``'s weights: embedding columns 0 and 1 of a token id below
+    vocab/2 are (1, 1) and of the rest (−1, 1), the router reads only those
+    two rows: expert 0 takes 2·h_1, expert 1 h_0 and expert 2 −h_0, so the
+    first half's tokens go to experts 0 and 1 and the second half's to 0
+    and 2 (the columns dominate the normalised residual through both
+    units). Rank shards take their own vocabulary rows."""
+    cfg = model.cfg
+    with torch.no_grad():
+        lo, hi = model.vocab_span
+        ids = torch.arange(lo, hi)
+        model.embed[:, 0] = torch.where(ids < cfg.vocab // 2, 1.0, -1.0)
+        model.embed[:, 1] = 1.0
+        for block in model.blocks:
+            router = block["moe"]["router"]          # [U, d, E]
+            router.zero_()
+            router[:, 1, 0] = 2.0
+            router[:, 0, 1] = 1.0
+            router[:, 0, 2] = -1.0
+    return model
 
 
 def _ep(cfg):
@@ -133,16 +176,22 @@ def _ep(cfg):
             if cfg.moe is not None else cfg)
 
 
-def _model(arch, tp=None, ring=None, ep=False):
-    """The one-process model from seed 0 (``ep``: with the expert-parallel
-    routing), or rank (ring, tp)'s shards of it."""
-    cfg = _ep(_cfg(arch)) if (ep or ring is not None) else _cfg(arch)
-    return Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0), tp_world=tp,
-                 ep_world=ring if cfg.moe is not None else None)
+def _model(arch, tp=None, ring=None):
+    """The one-process model from seed 0, or rank (ring, tp)'s shards of it."""
+    cfg = _ep(_cfg(arch)) if ring is not None else _cfg(arch)
+    model = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0), tp_world=tp,
+                  ep_world=ring if cfg.moe is not None else None)
+    return _imbalance(model) if arch == IMB else model
 
 
 def _tokens(arch, rows, length):
-    return np.random.RandomState(5).randint(0, _cfg(arch).vocab, (rows, length)).astype(np.int32)
+    vocab = _cfg(arch).vocab
+    toks = np.random.RandomState(5).randint(0, vocab, (rows, length)).astype(np.int32)
+    if arch == IMB:  # data rank 0's rows in the first half of the vocabulary, rank 1's in the second
+        half = rows // DATA
+        toks[:half] %= vocab // 2
+        toks[half:] = vocab // 2 + toks[half:] % (vocab // 2)
+    return toks
 
 
 def _decode(model, step, cache, toks, s0, steps):
@@ -193,14 +242,18 @@ def _rank(world):
     i = g.data.rank
     out = {"pos": (i, g.model.rank)}
     with torch.inference_mode():
-        for arch in BATCHED:
+        for arch, rows_all in [(a, B) for a in BATCHED] + [(IMB, IMB_ROWS)]:
             model = _model(arch, g.model, g.data)
-            rows = _tokens(arch, B, S0 + STEPS)[i * (B // DATA):(i + 1) * (B // DATA)]
-            cache = model.init_cache(B // DATA, MAX, prefilled=False)
+            rows = _tokens(arch, rows_all, S0 + STEPS)[i * (rows_all // DATA):
+                                                      (i + 1) * (rows_all // DATA)]
+            cache = model.init_cache(rows_all // DATA, MAX, prefilled=False)
+            moe.route_stats["kept"] = []
             logits, cache = model.prefill(model.tree(), torch.from_numpy(rows[:, :S0]),
                                           cache=cache)
             steps, _ = _decode(model, make_serve_step(model, g), cache, rows, S0, STEPS)
             out[arch] = torch.stack([logits] + steps)
+            out[f"kept {arch}"] = moe.route_stats["kept"]
+            moe.route_stats["kept"] = None
         model = _model(SEQ_ARCH, g.model)
         step = make_serve_step(model, g, seq_axis="data")
         for s0 in SEQ_PROMPTS:
@@ -223,20 +276,17 @@ def _rank(world):
 def _one_process():
     out = {}
     with torch.inference_mode():
-        for arch in BATCHED:
-            toks = _tokens(arch, B, S0 + STEPS)
-            moe = _cfg(arch).moe is not None
-            parts = ([toks[i * (B // DATA):(i + 1) * (B // DATA)] for i in range(DATA)]
-                     if moe else [toks])
-            runs = []
-            for rows in parts:  # a MoE's rows a data rank at a time: its routing's capacity
-                model = _model(arch, ep=moe)
-                cache = model.init_cache(rows.shape[0], MAX, prefilled=False)
-                logits, cache = model.prefill(model.tree(), torch.from_numpy(rows[:, :S0]),
-                                              cache=cache)
-                steps, _ = _decode(model, make_serve_step(model), cache, rows, S0, STEPS)
-                runs.append(torch.stack([logits] + steps))
-            out[arch] = torch.cat(runs, dim=1)
+        for arch, rows in [(a, B) for a in BATCHED] + [(IMB, IMB_ROWS)]:
+            toks = _tokens(arch, rows, S0 + STEPS)
+            model = _model(arch)  # a MoE's whole batch through the one-process routing
+            cache = model.init_cache(rows, MAX, prefilled=False)
+            moe.route_stats["kept"] = []
+            logits, cache = model.prefill(model.tree(), torch.from_numpy(toks[:, :S0]),
+                                          cache=cache)
+            steps, _ = _decode(model, make_serve_step(model), cache, toks, S0, STEPS)
+            out[arch] = torch.stack([logits] + steps)
+            out[f"kept {arch}"] = moe.route_stats["kept"]
+            moe.route_stats["kept"] = None
         model = _model(SEQ_ARCH)
         for s0 in SEQ_PROMPTS:
             toks = _tokens(SEQ_ARCH, 1, s0 + SEQ_STEPS)
@@ -272,7 +322,7 @@ def _few_threads():
 def runs(tmp_path_factory):
     """The 4 ranks, the one-process port, then the reference."""
     tmp = tmp_path_factory.mktemp("dist_serve")
-    for arch in BATCHED + (SEQ_ARCH,):
+    for arch in BATCHED + (SEQ_ARCH, IMB):
         np.savez(tmp / f"{arch}.npz", **{k.replace(".", "/"): v.numpy() for k, v in
                                          _model(arch).state_dict().items()})
     ranks = [r["result"] for r in spawn(_rank, DATA * M, "cpu", threads=THREADS)]
@@ -306,6 +356,29 @@ def test_batch_sharded_serving_agrees(runs, arch):
         want = runs["one"][arch][:, i * rows:(i + 1) * rows]
         _close(got, want, (arch, "port", r))
         _close(got, runs["ref"][arch][:, i * rows:(i + 1) * rows], (arch, "reference", r))
+
+
+def test_imbalanced_moe_routing_is_the_global_batchs(runs):
+    """``IMB``: each data rank's rows within ``LOGIT_TOL`` of the one-process
+    port's and of the reference's mesh step on the whole batch, and the
+    assignments each expert keeps, summed over the data ranks, equal to
+    one process's in every MoE call (each unit of the prefill and of every
+    decode step): the ranks keep the tokens the global batch's routing
+    keeps, not each rank's own capacity's."""
+    rows = IMB_ROWS // DATA
+    one = runs["one"][f"kept {IMB}"]
+    for res in runs["ranks"]:
+        i = res["pos"][0]
+        want = runs["one"][IMB][:, i * rows:(i + 1) * rows]
+        _close(res[IMB], want, (IMB, "port", res["pos"]))
+        _close(res[IMB], runs["ref"][IMB][:, i * rows:(i + 1) * rows], (IMB, "reference",
+                                                                         res["pos"]))
+    firsts = [res for res in runs["ranks"] if res["pos"][1] == 0]
+    kept = [sum(k) for k in zip(*[res[f"kept {IMB}"] for res in firsts])]
+    assert len(kept) == len(one) == 2 * (1 + STEPS)
+    for got, want in zip(kept, one):
+        assert torch.equal(got, want), (got, want)
+    assert int(one[0][0]) < IMB_ROWS * S0  # the prefill's expert 0 overflows: drops happen
 
 
 @pytest.mark.parametrize("s0", SEQ_PROMPTS)

@@ -36,7 +36,7 @@ from repro_torch.core import make_aggregator
 from repro_torch.data import make_federated_batches
 from repro_torch.dist import World, collectives, grid_worlds, spawn
 from repro_torch.models import Model
-from repro_torch.models.sharding import check_tp, shard_tree, tree_dims
+from repro_torch.models.sharding import check_tp, shard_tree, tree_dims, unit_share
 from repro_torch.optim.adamw import AdamState, FlatAdamW
 from repro_torch.train import make_federated_round, make_train_step, tree_to_flat
 from repro_torch.train.flatten import leaves, leaves_with_paths, shard_layout
@@ -449,8 +449,11 @@ def test_shards_and_layout_match_tree_to_flat(arch, m):
         for (path, x) in leaves_with_paths(rank.tree()):
             assert torch.equal(cut[path.replace("/", ".")], x.detach()), path
     assert bool((seen == 1).all())
-    if arch == "internvl2-1b":  # the odd vocabulary stays replicated, as sanitize_spec does
-        assert dims[[p for p, _ in leaves_with_paths(full.tree())].index("embed")] is None
+    if arch == "internvl2-1b":  # the odd vocabulary splits by whole words, unevenly
+        sp = dims[[p for p, _ in leaves_with_paths(full.tree())].index("embed")]
+        assert [sp.size(m, j) for j in range(m)] == [unit_share(511, m, j)[1]
+                                                     - unit_share(511, m, j)[0]
+                                                     for j in range(m)]
 
 
 def _as_tree(tree):

@@ -319,6 +319,38 @@ def test_production_mesh_record_is_rank_zeros_program(shape, mesh, _fake_group_a
         assert m["collective_bytes"]["pmax"] > 0
 
 
+def test_per_rank_record_keeps_the_logits_vocabulary_sharded(_fake_group_after, monkeypatch):
+    """A smoke-size per-rank train_4k record at m = 4 whose vocabulary
+    dominates (the smoke internlm2-1.8b, one layer, 32,768 words): rank 0's
+    loss is vocabulary-parallel, so its collectives gather no [B, S, V]
+    logits — its all-gather bytes are those of the gathered head (the
+    loss over the whole vocabulary, as the port took it before) less
+    exactly the (m − 1) copies of the rank's [B, S, V/m] logits — and
+    ``pmax`` appears; its temporaries fall against the gathered head's by
+    at least half of 3·(m − 1)/m of the f32 logits' bytes."""
+    from repro_torch.train.loss import next_token_loss
+    m, n, B, S = 4, 3, 4, 512
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), vocab=32768, n_layers=1)
+    kw = dict(shape=dict(seq_len=S, global_batch=n * B, kind="train"), learners=n, batch=B,
+              per_rank=True, model_shards=m)
+    sharded = dryrun.measure(cfg, "train_4k", **kw)
+
+    def gathered(self, params, tokens, prefix_embeds=None):
+        logits, aux = self.apply(params, tokens, prefix_embeds)
+        return next_token_loss(logits, tokens, self.cfg.prefix_embeds), aux
+
+    monkeypatch.setattr(Model, "loss", gathered)
+    whole = dryrun.measure(cfg, "train_4k", **kw)
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    assert (whole["collective_bytes"]["all_gather"] - sharded["collective_bytes"]["all_gather"]
+            == (m - 1) * B * S * (cfg.vocab // m) * elem)
+    assert sharded["collective_bytes"]["pmax"] > 0 and "pmax" not in whole["collective_bytes"]
+    f32_logits = B * S * cfg.vocab * 4
+    fall = (whole["peak_by_category"]["temporaries"]
+            - sharded["peak_by_category"]["temporaries"])
+    assert fall >= 0.5 * 3 * (m - 1) / m * f32_logits, (fall, f32_logits)
+
+
 @pytest.mark.parametrize("mesh", ["pod256", "pod512"])
 def test_production_mesh_records_refuse_what_the_port_refuses(mesh, _fake_group_after):
     """The smoke qwen3-14b's 5 q heads over 16 model ranks, as the full
