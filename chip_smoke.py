@@ -101,8 +101,8 @@ no CPU fallback):
    the same layout for the other block kinds: zamba2-2.7b (one unit, f32),
    rwkv6-1.6b (one layer) and qwen3-moe (one layer, vocabulary 18,992, its
    experts over the learners' rings: ``Model(cfg, tp_world=,
-   ep_world=ring)``), two train steps each and weighted FedAvg rounds for
-   zamba2 and rwkv6 (the pipelined chain); ``pod_tp``, the ('pod', 'data',
+   ep_world=ring)``), two train steps each and a weighted FedAvg round for
+   rwkv6 (the pipelined chain); ``pod_tp``, the ('pod', 'data',
    'model') grid, 2 pods x 3 learners x 2 model shards = 12 ranks
    (``dist.grid``: rank (p·3 + l)·2 + j), internlm2-1.8b at full width and
    1 layer: two train steps (learner 1 of each pod dead in the second) and
@@ -122,7 +122,13 @@ no CPU fallback):
    kv heads, which every rank holds), two train steps (learner 1 dead in
    the second), a weighted FedAvg round and 3 of traffic B's prompts, one a
    data rank, prefilled and decoded 8 steps through
-   ``make_serve_step(model, grid)`` teacher-forced on seeded tokens;
+   ``make_serve_step(model, grid)`` teacher-forced on seeded tokens; in
+   every TP path (tp_dist, tp_zoo, pod_tp, tp_heads) each checkpointed
+   block saves its input as the rank's share of the token rows
+   (``models/transformer.py::sliced_checkpoint``); ``prefill_flash``, after
+   serving: internlm2-1.8b at full width and 6 layers, B = 1 and an
+   8192-token prompt into the global cache ``Model.prefill`` makes, through
+   the blockwise attention;
 5. the answers: sequential clean, failover (dead ranks including the
    elected initiator, NaN in their rows), weighted and rotated; BON clean
    and failover; pipelined clean, failover, weighted and two subgroups;
@@ -202,8 +208,15 @@ no CPU fallback):
    one-card round of the ring's own gradient rows, every rank's ZeRO-1
    part FlatAdamW of its words of the published chunks, the float math
    within tp_dist's bounds (the MoE within moe_dist's), rank 0's first-step
-   peak within DRY_TOL of the dry run's, and each kernel at the path's
-   chunks equal to its plain version; pod_tp: every published chunk of the
+   peak within DRY_TOL of the dry run's, the bytes the forward holds for
+   the backward with the sliced saves less than with the whole inputs
+   saved (``torch.utils.checkpoint``, the form before them) by blocks x
+   (1 - 1/m) x B x S x d x the element size, within DRY_TOL, and each
+   kernel at the path's chunks equal to its plain version; prefill_flash:
+   each attention layer beside the dense form on the same input and a copy
+   of the cache, its cache words ``torch.equal`` and its output within
+   PF_TOL of its largest |word|, the peak within DRY_TOL of the dry run's;
+   pod_tp: every published chunk of the
    second step equal (sha256) to the one-card ``pod_rounds`` of its rows
    (each pod's ring round on the ring's head, then the pods' ``pod_mean``),
    every ZeRO-1 part FlatAdamW of its words of the published chunks, the
@@ -245,8 +258,10 @@ no CPU fallback):
    (prefill ms a request: median and max), the decode step's ms against its
    bytes bound (the weights and the whole KV cache read once), decode and
    end-to-end tokens per second, requests per second, peak memory, and the
-   device's idle share over a few decode steps under torch.profiler; the
-   dry run's peaks by category and matrix-product FLOPs beside the card's;
+   device's idle share over a few decode steps under torch.profiler;
+   prefill_flash's prefill wall and peak beside the dense form's (the
+   parent's path), each once under torch.profiler; the dry run's peaks by
+   category and matrix-product FLOPs beside the card's;
    the dist path's walls per round and per step, the seconds each rank
    spent in collectives (the transport's share), each rank's peak memory,
    and each kernel timed by CUDA events in each rank, one rank at a time;
@@ -424,6 +439,21 @@ SERVE_TOL = 2e-2            # of max |logit|: the reference's own decode bound (
 SERVE_CARD_TOL = 1e-3       # card vs CPU in f32, of max |logit| (tests/test_torch_cuda.py)
 SERVE_PROFILE_STEPS = 4
 SERVE_LAUNCH_TIMEOUT_S = 300
+# A prefill into a cache above FLASH_THRESHOLD (prefill_flash): SERVE_ARCH at
+# full width and PF_LAYERS (at SERVE_LAYERS the path took 16.6 s on an H100
+# 80GB HBM3 at 700 W, 10.2 s of it the dry run's blockwise loops on meta
+# tensors), B = 1 and a PF_S-token prompt (random tokens
+# from seed SEED) into the global cache of PF_S slots Model.prefill makes,
+# through the blockwise attention (4 q blocks of 2048 x 8 k blocks of 1024 a
+# layer). Each attention layer again beside the dense form (the reference's
+# path, and the port's until the prefill with a cache went blockwise) on the
+# same input and a copy of the same cache: the cache words torch.equal (they
+# are written before the attention) and the layer's output within PF_TOL of
+# its largest |word|. bf16: the dense form rounds its probabilities to bf16
+# before they meet v (2^-9 of each at worst), the blockwise form keeps f32, so
+# the two differ by about that share of |v|. The peak within DRY_TOL of the
+# dry run's prefill of the same shape.
+PF_LAYERS, PF_S, PF_TOL = 6, 8192, 2e-2
 
 # The wire paths. The engine's tenants upload over 127.0.0.1 in chunks of
 # the codec's default width (a session is 144 MiB, over one 64 MiB frame).
@@ -527,9 +557,11 @@ TP_LOSS_RTOL, TP_CHANGE_REL = 1e-4, 0.15
 # (PERF.md §6) and the comparison says nothing about the split; f32 adds 0.4
 # GB a rank (the dry run: 6.76 GB against 6.37). Two train steps (learner DIST_DEAD dead
 # in the second) against the one-card step on the same weights and tokens;
-# a weighted FedAvg round for zamba2 (sequential chain) and rwkv6 (the
-# pipelined chain). The MoE's FedAvg round carries every expert on every
-# rank (no expert parallelism in FedAvg): ~26 GB a rank at one layer, which
+# a weighted FedAvg round for rwkv6 (the pipelined chain; zamba2's, on the
+# sequential chain, took 26.5 s of the script's limit on a slow host, and
+# runs in the CPU tests, as tp_dist's round runs that chain). The MoE's
+# FedAvg round carries every expert on every rank (no expert parallelism in
+# FedAvg): ~26 GB a rank at one layer, which
 # eight ranks cannot share one card with, so it runs in the CPU tests only
 # (tests/test_torch_dist_tp_zoo.py). Bounds: zamba2 and rwkv6 tp_dist's,
 # qwen3-moe the moe_dist path's (its expert sums already run in another order).
@@ -538,7 +570,7 @@ TP_ZOO = {
     "rwkv6": ("rwkv6-1.6b", dict(n_layers=1)),
     "moe": (EP_ARCH, dict(EP_CUT, ep_ranks=TP_N)),
 }
-TP_ZOO_FED = {"zamba2": False, "rwkv6": True}   # name -> the FedAvg round pipelined
+TP_ZOO_FED = {"rwkv6": True}   # name -> the FedAvg round pipelined
 # ``--nccl4-tp``: the newly split kinds through the launcher at 2 x 2, BON
 NCCL_TP_ZOO = ("zamba2-2.7b", "rwkv6-1.6b")
 # Pods with model shards (pod_tp): the ('pod', 'data', 'model') grid, POD_P
@@ -689,13 +721,17 @@ def check_kernels(dev, ops_cuda, ref):
                 got = cc.chain_combine(cs, xs, kin, kout, base)
                 want = ref.chain_combine_ref(cs, xs, kin, kout, base)
                 err["chain_combine"] = max(err["chain_combine"], u32_diff(got, want))
-                for m in (1, 2, 36, 300):
+                # 300 keys below the main width only: the plain version
+                # at 2^24 words took ~12 s of the script (the main path's
+                # BON has m = 36)
+                ms = (1, 2, 36, 300) if V < V_MAIN else (1, 2, 36)
+                for m in ms:
                     keys = rng.randint(0, 2**32, (m, 2), dtype=np.uint64).astype(np.uint32)
                     signs = rng.choice([-1, 1], m)
                     got = bm.bon_mask(xs, keys, signs, base)
                     want = ref.bon_mask_ref(xs, keys, signs, base)
                     err["bon_mask"] = max(err["bon_mask"], u32_diff(got, want))
-                checks += 6 + 4
+                checks += 6 + len(ms)
     for S in (1, 8, N):
         for V in (1, 5, 129, 100_001, V_MAIN):
             if S == N and V == V_MAIN:
@@ -2199,6 +2235,136 @@ def serve_paths(dev, launches, smi):
         del holder
     del runs, model, params, step
     torch.cuda.empty_cache()
+
+
+def prefill_flash_path(dev, launches, smi):
+    """A prefill into a cache above FLASH_THRESHOLD (PF_S tokens, B = 1):
+    the peak against the dry run's, each attention layer's cache words and
+    output against the dense form's on the same input, and the prefill's
+    wall. No SAFE kernel is on this path (serving)."""
+    import dataclasses
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model, layers, transformer
+
+    cfg = dataclasses.replace(serve_config(), n_layers=PF_LAYERS)
+    t0 = time.perf_counter()
+    pred = dryrun.measure(cfg, "prefill_32k", shape=dict(seq_len=PF_S, global_batch=1,
+                                                          kind="prefill"))
+    dry_s = time.perf_counter() - t0
+    warm_cublas(dev)
+    sync()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    toks = torch.from_numpy(np.random.RandomState(SEED).randint(0, cfg.vocab, (1, PF_S))
+                            .astype(np.int32)).to(dev)
+    model = Model(cfg, device=dev)  # random weights from seed 0
+    params = model.tree()
+    sync()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, toks)
+    sync()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    counts = dict(build.launches)
+    if any(counts.values()):
+        fail(f"prefill_flash launched SAFE kernels: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+    if not bool(torch.isfinite(logits).all()):
+        fail("prefill_flash: non-finite logits")
+    del logits, cache
+    apply, flash = transformer.attention_apply, layers._flash_attention
+
+    def dense(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind):
+        return layers._dense_attention(qg, k_all, v_all, q_pos, k_pos, None, cfg, base_kind)
+
+    def blockwise_prefill():
+        with torch.inference_mode():
+            model.prefill(params, toks)
+
+    def dense_prefill():  # the parent's path: the dense form in every layer
+        layers._flash_attention = dense
+        try:
+            blockwise_prefill()
+        finally:
+            layers._flash_attention = flash
+
+    def walls_of(fn):
+        out = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    walls = walls_of(blockwise_prefill)
+    dense_prefill()  # its first call
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dense_prefill()
+    sync()
+    dense_peak = torch.cuda.max_memory_allocated(dev) - base
+    dense_walls = walls_of(dense_prefill)
+    busy = {"blockwise": say_profile("prefill_flash blockwise", blockwise_prefill),
+            "dense": say_profile("prefill_flash dense (the parent's path)", dense_prefill)}
+    say(f"phase 6 prefill_flash against the parent's dense path ({smi}): blockwise "
+        f"{walls[-1]:.1f} ms, dense {dense_walls[-1]:.1f} ms a prefill (runs "
+        f"{[round(w, 1) for w in walls]} and {[round(w, 1) for w in dense_walls]} ms); "
+        f"device busy {busy['blockwise']:.1f} and {busy['dense']:.1f} ms; peak "
+        f"{peak / 1e9:.3f} and {dense_peak / 1e9:.3f} GB")
+
+    # each attention layer beside the dense form on the same input
+    checked = []
+
+    def beside_dense(params, x, cfg, kind="global", positions=None, cache=None, tp=None,
+                     seq=None):
+        copy = {k: v.clone() for k, v in cache.items()}
+        layers._flash_attention = dense
+        try:
+            want, wc = apply(params, x, cfg, kind, positions, copy, tp, seq)
+        finally:
+            layers._flash_attention = flash
+        got, gc = apply(params, x, cfg, kind, positions, cache, tp, seq)
+        checked.append((all(torch.equal(gc[k], wc[k]) for k in ("k", "v", "pos")),
+                        float((got.float() - want.float()).abs().max()
+                              / want.float().abs().max())))
+        return got, gc
+
+    transformer.attention_apply = beside_dense
+    try:
+        with torch.inference_mode():
+            model.prefill(params, toks)
+    finally:
+        transformer.attention_apply = apply
+    sync()
+    del model, params, toks
+    torch.cuda.empty_cache()
+
+    p = pred["peak_bytes"]
+    dry = (f"dry run {p / 1e9:.3f} GB against max_memory_allocated {peak / 1e9:.3f} GB, off "
+           f"by {abs(p - peak) / peak:.2%} ({dry_s:.1f} s on meta tensors)")
+    worst = max(e for _, e in checked)
+    say(f"phase 4 main path prefill_flash ({smi}): {SERVE_ARCH} at full width, "
+        f"{cfg.n_layers} layers, B = 1, a {PF_S}-token prompt into a global cache of {PF_S} "
+        f"slots through the blockwise attention: {walls[-1]:.1f} ms a prefill (runs "
+        f"{[round(w, 1) for w in walls]} ms after the first); launches {counts}")
+    if len(checked) != cfg.n_layers or not all(c for c, _ in checked):
+        fail(f"prefill_flash: the cache words differ from the dense form's: {checked}")
+    if worst > PF_TOL:
+        fail(f"prefill_flash: an attention layer {worst:.3e} of its largest |word| from the "
+             f"dense form's, over {PF_TOL}")
+    say(f"phase 5 prefill_flash: every one of the {len(checked)} attention layers' cache "
+        f"words torch.equal to the dense form's on the same input, its output within "
+        f"{worst:.3e} of its largest |word| (bound {PF_TOL}; by layer "
+        f"{[f'{e:.1e}' for _, e in checked]})")
+    if abs(p - peak) / peak > DRY_TOL:
+        fail(f"prefill_flash {dry}, over {DRY_TOL:.0%}")
+    say(f"phase 5 prefill_flash peak: {dry} (<= {DRY_TOL:.0%}; GB by category "
+        f"{json.dumps({k: round(v / 1e9, 3) for k, v in pred['peak_by_category'].items()})})")
 
 
 def say_profile(label, fn):
@@ -4573,6 +4739,9 @@ def _tp_zoo_rank(world):
             launches[k] += v
         build.reset_launches()
         lap("steps")
+        res["held"] = held_for_backward(model, state["params"],
+                                        torch.from_numpy(steps[0][l]).to(dev))
+        lap("saved inputs")
 
         # the second step's chunks against the one-card round on each ring's
         # rows: ring j's rows to its rank 0 (learner 0's shard j), which runs
@@ -4648,6 +4817,35 @@ def _tp_zoo_rank(world):
         dist.barrier()
         lap("barrier")
     out["launches"] = launches
+    return out
+
+
+def held_for_backward(model, params, tokens):
+    """The bytes the model's forward (its loss under autograd, left
+    undifferentiated) holds for the backward, with each block's input saved
+    as this rank's share of the token rows (the port's
+    ``transformer.sliced_checkpoint``) and as the whole input
+    (``torch.utils.checkpoint``, the form before it): {form: bytes}. Every
+    rank of the grid calls it (the forward's collectives)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import transformer
+    from repro_torch.train.flatten import tree_map
+    sliced = transformer.sliced_checkpoint
+    forms = {"sliced": sliced,
+             "whole": lambda fn, x, positions, bp, world: checkpoint(fn, x, positions, bp,
+                                                                     use_reentrant=False)}
+    out = {}
+    try:
+        for form, fn in forms.items():
+            transformer.sliced_checkpoint = fn
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            before = torch.cuda.memory_allocated()
+            loss, aux = model.loss(p, tokens)
+            out[form] = torch.cuda.memory_allocated() - before
+            del loss, aux, p
+    finally:
+        transformer.sliced_checkpoint = sliced
     return out
 
 
@@ -4804,6 +5002,19 @@ def tp_zoo_path(dev, launches, err, smi):
         if abs(p - r) / r > DRY_TOL:
             problems.append(f"tp_zoo {arch} {dry}, over {DRY_TOL:.0%}")
         dry += f"; {gathered_head('tp_zoo ' + name)}"
+        cfg = tpz_config(name)
+        x = TS_B * TS_S * cfg.d_model * (4 if cfg.dtype == "float32" else 2)
+        want = cfg.n_layers * (x - x // TP_M)
+        fall = lead["held"]["whole"] - lead["held"]["sliced"]
+        saved = (f"the forward leaves the backward {lead['held']['sliced'] / 1e6:.3f} MB with "
+                 f"each block's input saved as the rank's 1/{TP_M} of its {TS_B}x{TS_S} token "
+                 f"rows, {lead['held']['whole'] / 1e6:.3f} MB with the whole input saved: "
+                 f"{fall / 1e6:.3f} MB less, against {cfg.n_layers} blocks x (1 - 1/{TP_M}) x "
+                 f"{TS_B * TS_S} x {cfg.d_model} x {x // (TS_B * TS_S * cfg.d_model)} B = "
+                 f"{want / 1e6:.3f} MB")
+        if abs(fall - want) > DRY_TOL * want:
+            problems.append(f"tp_zoo {arch}: {saved}, off by more than {DRY_TOL:.0%}")
+        say(f"phase 5 tp_zoo {arch} saved inputs (rank 0, {smi}): {saved} (<= {DRY_TOL:.0%})")
         say(f"phase 5 tp_zoo {arch} ({cfg_dtype(name)}): each ring's published chunk of the "
             f"second step torch.equal to the one-card round of the ring's own gradient rows, "
             f"the counter base moved to the chunk's start word (which tp_dist shows gives the "
@@ -6144,6 +6355,8 @@ def main():
     timed("examples", examples_path, dev, launches, smi)
     torch.cuda.empty_cache()
     timed("serve", serve_paths, dev, launches, smi)
+    torch.cuda.empty_cache()
+    timed("prefill flash", prefill_flash_path, dev, launches, smi)
     torch.cuda.empty_cache()
     timed("dry run", dryrun_paths, dev, launches, smi)
     torch.cuda.empty_cache()

@@ -19,9 +19,15 @@ Products are ``torch.matmul``/``einsum``, as the reference leaves them to
 XLA; no library attention kernel is used. Constants enter as Python
 scalars, never as tensors made on the card: a host-to-card copy of a
 pageable value makes the host wait for the card's queue to drain. Above
-``FLASH_THRESHOLD`` tokens without a cache, attention is the reference's
-blockwise online softmax (``_flash_attention``), loops over q and k
-blocks in its order.
+``FLASH_THRESHOLD`` tokens, attention is the reference's blockwise online
+softmax (``_flash_attention``), loops over q and k blocks in its order:
+in training, and in a prefill with a cache or without one, where the keys
+are the prompt's own. The reference takes it only without a cache, and a
+prefill into a cache there makes [B, H, S, S] f32 scores; the port's
+blockwise prefill writes the same cache words, and its logits differ from
+the dense path's by the summation order (f32) and, in bf16, by the dense
+path's rounding of its probabilities to bf16 before they meet v, where the
+blockwise path keeps f32, as in training.
 
 Tensor parallelism (``tp``, the model group's ``World``; the reference's
 GSPMD over its 'model' axis, Megatron's layout): each rank holds its
@@ -231,19 +237,21 @@ def _prefill_slots(S: int, S_c: int, base_kind: str, seq) -> tuple:
 
 
 def _block(S: int, target: int) -> int:
-    """The largest divisor of S not above ``target`` (a frontend's prefix
-    makes S a non-power of two, 4096 + 256 for instance)."""
-    for b in range(min(target, S), 0, -1):
-        if S % b == 0:
-            return b
-    return S
+    """The largest divisor of S not above ``target``, as the reference takes
+    it (a frontend's prefix makes S a non-power of two, 4096 + 256 for
+    instance); where that is below half the target, as for a prompt of a
+    prime length, the target itself, the last block short (the reference's
+    divisor would be 1: S² blocks)."""
+    b = next(b for b in range(min(target, S), 0, -1) if S % b == 0)
+    return b if 2 * b >= min(target, S) else target
 
 
 def _flash_attention(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind):
     """Blockwise (FlashAttention-style) online-softmax attention, the
     reference's jnp scan as loops: q blocks outside, k blocks inside, the
     running max, sum and accumulator in f32, so the scores are
-    [*, qb, kb] at a time. Every key is valid (no cache)."""
+    [*, qb, kb] at a time. Every key is valid: the keys are the queries'
+    own tokens (training, or a prefill that fills a cache)."""
     B, Sq, nkv, g, hd = qg.shape
     Sk = k_all.shape[1]
     qb, kb = _block(Sq, FLASH_QBLOCK), _block(Sk, FLASH_KBLOCK)
@@ -251,9 +259,10 @@ def _flash_attention(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind):
     outs = []
     for i in range(0, Sq, qb):
         qi, qpi = qg[:, i:i + qb].float(), q_pos[:, i:i + qb]
-        m = torch.full((B, nkv, g, qb), -1e30, dtype=torch.float32, device=qg.device)
-        l = torch.zeros((B, nkv, g, qb), dtype=torch.float32, device=qg.device)
-        acc = torch.zeros((B, nkv, g, qb, hd), dtype=torch.float32, device=qg.device)
+        n = qi.shape[1]  # qb, or fewer in a short last block
+        m = torch.full((B, nkv, g, n), -1e30, dtype=torch.float32, device=qg.device)
+        l = torch.zeros((B, nkv, g, n), dtype=torch.float32, device=qg.device)
+        acc = torch.zeros((B, nkv, g, n, hd), dtype=torch.float32, device=qg.device)
         for j in range(0, Sk, kb):
             s = torch.einsum("bsngh,btnh->bngst", qi, k_all[:, j:j + kb].float()) * scale
             if cfg.attn_softcap is not None:
@@ -378,7 +387,7 @@ def attention_apply(
         qg = q.reshape(B, S, nh, 1, hd)
     else:
         qg = q.reshape(B, S, nkv, nh // nkv, hd)
-    if cache is None and S > FLASH_THRESHOLD:
+    if S > FLASH_THRESHOLD:  # the keys are the prompt's own, with a cache or without
         out = _flash_attention(qg, k_all, v_all, q_pos, k_pos, cfg, base_kind)
     elif seq is not None and S == 1:
         out = _merged_attention(qg, k_all, v_all, q_pos, k_pos, valid, cfg, base_kind, seq)

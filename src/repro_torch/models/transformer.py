@@ -35,10 +35,12 @@ position's logits only. Decode positions are pattern position 0's, unit
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.autograd.graph import saved_tensors_hooks
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
@@ -48,7 +50,9 @@ from repro_torch.models.layers import (attention_apply, attention_init,
 from repro_torch.models.moe import EP_PREFILL_EXPERTS, moe_apply, moe_init
 from repro_torch.models.ssm import (mamba2_apply, mamba2_init, mamba2_init_cache, rwkv6_apply,
                                     rwkv6_init, rwkv6_init_cache)
-from repro_torch.dist.collectives import copy_to_model, gather_from_model, reduce_from_model
+from repro_torch.dist.collectives import (all_gather, copy_to_model, gather_from_model,
+                                          reduce_from_model)
+from repro_torch.models.sharding import unit_share
 from repro_torch.train.flatten import (leaves_with_paths, shard_layout, tree_map,
                                        tree_map_with_path)
 from repro_torch.train.loss import next_token_loss, vocab_parallel_loss
@@ -178,7 +182,10 @@ class Model(nn.Module):
     block is cut as the dense blocks are and its ``_shared`` placeholder
     stays replicated. With both ``ep_world`` (the
     learners' ring of the grid) and ``tp_world`` a rank holds [E/n, d,
-    f/m] of each expert matrix.
+    f/m] of each expert matrix. With ``cfg.remat`` each block is
+    checkpointed with its input saved as this rank's share of the token
+    rows (``sliced_checkpoint``), where one process keeps the whole input
+    (``torch.utils.checkpoint``).
 
     Serving across ranks: ``init_cache``, ``prefill`` and ``decode_step``
     run on the rank's shards with its part of the reference's cache
@@ -329,7 +336,10 @@ class Model(nn.Module):
         for u in range(cfg.n_units):
             for pos, kind in enumerate(cfg.pattern):
                 bp = params["shared_attn"] if kind == "shared_attn" else units[pos][u]
-                if cfg.remat:
+                if cfg.remat and self.tp_world is not None:
+                    x, a = sliced_checkpoint(_block_fn(cfg, kind, self.ep_world, self.tp_world),
+                                             x, positions, bp, self.tp_world)
+                elif cfg.remat:
                     x, a = checkpoint(_block_fn(cfg, kind, self.ep_world, self.tp_world), x,
                                       positions, bp, use_reentrant=False)
                 else:
@@ -524,3 +534,99 @@ def _block_fn(cfg: ModelConfig, kind: str, ep_world=None, tp_world=None):
                                 tp_world=tp_world)
         return x, aux
     return fn
+
+
+class _Stop(Exception):
+    """Ends a recompute once every tensor the forward saved is made again."""
+
+
+class _Held:
+    """What a block's graph keeps in place of a saved tensor: the tensor
+    itself only once the recompute has made it again."""
+    __slots__ = ("tensor", "__weakref__")
+
+
+class _SlicedFrame:
+    """One checkpointed block: its input as this rank's share of the token
+    rows, and a handle for each tensor its forward saved (see
+    ``sliced_checkpoint``)."""
+
+    def __init__(self, fn, x: torch.Tensor, positions: torch.Tensor, bp: dict, world):
+        B, S, d = x.shape
+        m = world.size
+        lo, hi = unit_share(B * S, m, world.rank)
+        rows = unit_share(B * S, m, 0)[1]  # every rank's share padded to rank 0's
+        part = x.detach().reshape(B * S, d)[lo:hi]
+        self.part = (part.clone() if hi - lo == rows  # not a view: the full x is freed
+                     else torch.cat([part, part.new_zeros((rows - (hi - lo), d))]))
+        self.fn, self.positions, self.bp, self.world = fn, positions, bp, world
+        self.shape, self.requires_grad = x.shape, x.requires_grad
+        self.held, self.recomputed = [], False
+
+    def pack(self, t: torch.Tensor) -> _Held:
+        h = _Held()
+        self.held.append(weakref.ref(h))
+        return h
+
+    def unpack(self, h: _Held) -> torch.Tensor:
+        if not self.recomputed:
+            self._recompute()
+        t = h.tensor
+        del h.tensor  # the graph unpacks each saved tensor once: it is its node's now
+        return t
+
+    def _recompute(self) -> None:
+        """The m shares gathered into x, then the block run again until it
+        has saved as many tensors as the forward did (``checkpoint``'s
+        early stop: the block's trailing ops, which save nothing, and their
+        collectives are not run again)."""
+        B, S, d = self.shape
+        m = self.world.size
+        parts = all_gather(self.part, self.world)  # [m, rows, d], before the block's own
+        if self.part.shape[0] * m == B * S:
+            x = parts.view(B, S, d)
+        else:  # each rank's share trimmed of its padding
+            shares = [unit_share(B * S, m, r) for r in range(m)]
+            x = torch.cat([parts[r, :hi - lo] for r, (lo, hi) in enumerate(shares)])
+            x = x.view(B, S, d)
+        count = 0
+
+        def pack(t):
+            nonlocal count
+            t = t.detach()  # a saved output would hold its own graph node: a cycle
+            h = self.held[count]()
+            count += 1
+            if h is not None:  # None: the graph already let that tensor go
+                h.tensor = t
+            if count == len(self.held):
+                raise _Stop
+            return t
+
+        try:
+            with torch.enable_grad(), saved_tensors_hooks(pack, lambda t: t):
+                self.fn(x.requires_grad_(self.requires_grad), self.positions, self.bp)
+        except _Stop:
+            pass
+        self.recomputed = True
+
+
+def sliced_checkpoint(fn, x: torch.Tensor, positions: torch.Tensor, bp: dict, world):
+    """``fn(x, positions, bp)`` (a block: (x, aux)) checkpointed with its
+    input x saved as model rank j's ``unit_share`` of the B·S token rows
+    of the group of m ranks of ``world``, padded to rank 0's share, where
+    ``torch.utils.checkpoint`` would keep the whole x (it holds its inputs
+    by reference, so a slice of them frees nothing). The block's forward is
+    recorded as usual, but each tensor it saves for the backward is
+    replaced by a handle (``saved_tensors_hooks``, the mechanism
+    ``checkpoint`` is built on); the first handle the backward reads
+    all-gathers the m shares, which rebuild x word for word (x has the same
+    bits on every rank of the group: its psums gather and add in rank
+    order), and reruns the block until it has saved as many tensors as the
+    forward did. So the gradients are ``checkpoint``'s own bits, the
+    recompute issues the collectives ``checkpoint``'s does, on every rank,
+    after the gather, and holds what it holds."""
+    if not torch.is_grad_enabled():
+        return fn(x, positions, bp)
+    frame = _SlicedFrame(fn, x, positions, bp, world)
+    with saved_tensors_hooks(frame.pack, frame.unpack):
+        return fn(x, positions, bp)

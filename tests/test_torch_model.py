@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import repro  # noqa: F401  (installs the jax compatibility shims)
+from _torch_threads import _few_threads  # noqa: F401
 from helpers import REPO
 from repro import configs as jconfigs
 from repro.data import make_federated_batches as j_batches
@@ -148,8 +149,9 @@ def test_unported_kinds_raise(arch):
 
 def test_attention_refuses_cache_and_long_sequences():
     """Attention with a real decode cache, and at S = FLASH_THRESHOLD + 1
-    (the blockwise path, 17 x 17 blocks of 241), returns the reference's
-    output (f32: rtol 1e-5, atol 1e-5)."""
+    (the blockwise path: q blocks of 2048 and k blocks of 1024, the last of
+    each one token, where the reference takes 17 x 17 blocks of 241),
+    returns the reference's output (f32: rtol 1e-5, atol 1e-5)."""
     jm, jp, m = _pair()
     x = np.random.RandomState(5).randn(2, 1, m.cfg.d_model).astype(np.float32)
     for pos in (3, 15):  # a slot in the middle of the cache, and the last

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 import repro  # noqa: F401  (installs the jax compatibility shims)
+from _torch_threads import _few_threads  # noqa: F401
 from helpers import REPO, run_multidevice
 from repro import configs as jconfigs
 from repro.models import Model as JModel
@@ -50,17 +51,6 @@ LOGIT_TOL = 1e-3
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 STATE_RTOL, STATE_ATOL = 1e-4, 1e-4
 LAYER_RTOL, LAYER_ATOL = 1e-5, 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """Two intra-op threads: the suite runs test files in parallel
-    processes, and several processes' full sets of spinning OpenMP threads
-    on the same cores slow every file down many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch, dtype="float32", **kw):
@@ -666,8 +656,10 @@ def test_flash_attention_like_reference(kind):
 @pytest.mark.parametrize("S", [4097, 4352])
 def test_flash_attention_matches_dense(S):
     """Past FLASH_THRESHOLD attention_apply takes the blockwise path; at S =
-    4097 (blocks of 241, 17 x 17) and 4352 (4352 = 17 x 256: q blocks of
-    1088, k blocks of 544) it equals the port's dense attention."""
+    4097 (q blocks of 2048 and k blocks of 1024, the last of each one token:
+    the largest divisor, 241, is under half of each) and 4352 (4352 = 17 x
+    256: q blocks of 1088, k blocks of 544) it equals the port's dense
+    attention."""
     cfg = configs.get_smoke_config("internlm2-1.8b")
     qg, k, v, pos = (torch.from_numpy(a) for a in _qkv(cfg, S, 1, 2, seed=S))
     flash = layers._flash_attention(qg, k, v, pos, pos, cfg, "global")
