@@ -33,7 +33,7 @@ no CPU fallback):
    layers), n = 4 learners of 4 local AdamW steps on 2 x 256 tokens each,
    the deltas (P = 252,450,816 words) averaged by weighted SAFE; then the
    train-step path: three steps of ``make_train_step`` on the same model at
-   6 layers (n = 4, 2 x 256 tokens a learner, one repeated batch), each learner's
+   4 layers (n = 4, 2 x 256 tokens a learner, one repeated batch), each learner's
    gradient a row of f32[4, padded_size] averaged by SAFE, then FlatAdamW
    on the f32 master vector, counters from ``reserve_round``; then the
    rest of the zoo through the same step, three steps each at full width:
@@ -51,7 +51,7 @@ no CPU fallback):
    the port's five examples (``repro_torch.examples``), each ``main`` in
    this process on the card at the SAFE_SMOKE size, the failover and
    kernel demos again on the CPU, line for line the card's; then
-   serving: internlm2-1.8b at full width and 12 of its 24 layers (bf16, random
+   serving: internlm2-1.8b at full width and 6 of its 24 layers (bf16, random
    weights from seed 0) through ``ServeEngine``, traffic A (the reference
    launcher's defaults: 8 requests of 4-31 tokens, 4 slots of 256, 32 new
    tokens each, greedy) and traffic B (16 requests of 1024-3072 tokens, 8
@@ -59,9 +59,9 @@ no CPU fallback):
    repro_torch.launch.serve --arch internlm2-1.8b`` as a subprocess on the
    card; no SAFE kernel runs there, and its launch line says so; last, the
    dry run (``repro_torch.launch.dryrun.measure``, meta tensors): the
-   train-step path's step at 6 and 24 layers and one decode step of
+   train-step path's step at 4 and 24 layers and one decode step of
    traffic B at 24, the most layers of that step that fit the card, then
-   that 6-layer step, that decode step and the step at the most layers
+   that 4-layer step, that decode step and the step at the most layers
    that fit, each for real; then the dist path, one learner a process:
    four ranks spawned by ``repro_torch.dist.spawn`` share the card over
    gloo, each CUDA tensor staged through pinned host buffers
@@ -80,7 +80,12 @@ no CPU fallback):
    four ranks sharing the card, 32 of the 128 experts a rank
    (``Model(cfg, ep_world=world)``, the experts' two all-to-alls), two
    train steps (learner 1 dead in the second), after the same ranks the
-   one-card EP step from the same seed and tokens; ``pod_rounds``, 2 pods x
+   one-card EP step from the same seed and tokens; ``pod_ep``, expert
+   parallelism with pods: the same model with 24 of its 128 experts, 2
+   pods x 3 learners = 6 ranks, 8 experts a rank, each rank's expert
+   gradients summed over its pod group after the exchange, two train steps
+   (learner 1 of each pod dead in the second, each pod's learners on
+   tokens of their own) against the one-process pod EP step; ``pod_rounds``, 2 pods x
    4 learners = 8 ranks on a ('pod', 'data') mesh, the rounds above at
    2^24 words a rank with the pod mean across ranks; ``rank_engine``, the
    multi-session engine one learner a rank on each pod's four ranks (ten
@@ -108,7 +113,7 @@ no CPU fallback):
    1 layer: two train steps (learner 1 of each pod dead in the second) and
    a weighted FedAvg round, each pod's ring j on chunk j and the pods'
    chunks meeting over the pod group; ``serve_dist``, decode and prefill
-   across 4 data x 2 model ranks: (a) internlm2-1.8b at 12 layers, 8 of
+   across 4 data x 2 model ranks: (a) internlm2-1.8b at 6 layers, 8 of
    traffic B's prompts (2 a data rank) prefilled into caches of 4096 and 16
    decode steps teacher-forced on the one-process run's tokens through
    ``make_serve_step(model, grid)``; (b) gemma3-12b at one unit (6 layers)
@@ -126,7 +131,7 @@ no CPU fallback):
    every TP path (tp_dist, tp_zoo, pod_tp, tp_heads) each checkpointed
    block saves its input as the rank's share of the token rows
    (``models/transformer.py::sliced_checkpoint``); ``prefill_flash``, after
-   serving: internlm2-1.8b at full width and 6 layers, B = 1 and an
+   serving: internlm2-1.8b at full width and 4 layers, B = 1 and an
    8192-token prompt into the global cache ``Model.prefill`` makes, through
    the blockwise attention;
 5. the answers: sequential clean, failover (dead ranks including the
@@ -173,7 +178,7 @@ no CPU fallback):
    within 2e-2 of its own full forward (bf16) and within 1e-3 of the port's
    CPU path (f32); the dry run's peak within 1% of
    ``torch.cuda.max_memory_allocated`` over each real call, its verdict
-   that 6 layers of the train step fit the card and 24 do not, the step at
+   that 4 layers of the train step fit the card and 24 do not, the step at
    the most layers it says fit running on the card, and the card holding at
    least ``dryrun.H100_USABLE_BYTES`` for a process to allocate; the
    dist path: every rank's mean, parameters and published delta equal to
@@ -186,7 +191,13 @@ no CPU fallback):
    of the SAFE partition's f32 master and of the bf16 expert shards within
    EP_MASTER_REL and EP_EXPERT_REL of one card's (relative L2), and each
    step's gradient rows of the four ranks, aggregated on one card, giving
-   every rank's published mean word for word; pod_rounds, rank_engine and
+   every rank's published mean word for word; pod_ep: each pod's expert
+   shards and their AdamW m and v equal (sha256) to pod 0's after each
+   step, the ranks' losses equal, the losses and the change of the SAFE
+   master and of the expert shards within the EP bounds of the one-process
+   pod EP step, rank 0's first-step peak within DRY_TOL of the dry run's
+   (``--per-rank`` with 2 pods), mask_add and chain_combine at its
+   padded_size equal to their plain versions; pod_rounds, rank_engine and
    pod_steps: every rank's means, sessions, parameters and published delta
    equal to the same work in this process on the card (sha256);
    rank_broker: every tenant's ``wait_session`` results and every
@@ -265,7 +276,7 @@ no CPU fallback):
    the dist path's walls per round and per step, the seconds each rank
    spent in collectives (the transport's share), each rank's peak memory,
    and each kernel timed by CUDA events in each rank, one rank at a time;
-   the same walls, transport shares and peaks for moe_dist, the pod rounds,
+   the same walls, transport shares and peaks for moe_dist, pod_ep, the pod rounds,
    the per-rank engine's steps, the pod steps, tp_dist, tp_zoo (with
    each tp_zoo rank's seconds by part), pod_tp and tp_heads (with its
    decode step); serve_dist's prefill and
@@ -287,7 +298,12 @@ launcher at the most layers the dry run's per-rank step says fit a card,
 and the smoke MoE resumed from a full-E checkpoint; then the training
 launcher under ``torch.distributed.run`` with internlm2-1.8b at all 24
 layers, a card a rank, and prints each rank's peak memory and the steps'
-walls. ``--nccl4-moe`` runs its MoE part alone. ``--nccl4-tp`` runs the
+walls. Its MoE part, which ``--nccl4-moe`` runs alone, begins with expert
+parallelism with pods: qwen3-moe at the zoo path's cut with all 128
+experts, 2 pods x 2 learners a card a rank (64 experts a rank), two BON
+steps on one batch, the pods' expert state equal word for word after each,
+the losses falling and each rank's peak within DRY_TOL of the dry run's.
+``--nccl4-tp`` runs the
 launcher at 2 learners x 2 model shards, a card a rank, internlm2-1.8b at
 24 layers with BON and INSEC, zamba2-2.7b and rwkv6-1.6b with BON at the
 depth the dry run fits, each rank's steps' peak against the dry run's, and
@@ -372,6 +388,7 @@ PATH_KERNELS = {"round": {"mask_add", "chain_combine"},
                 "rank_broker": {"mask_add", "chain_combine_batched"},
                 "examples": {"mask_add", "chain_combine"},
                 "pod_steps": {"mask_add", "chain_combine"},
+                "pod_ep": {"mask_add", "chain_combine"},
                 "tp_zoo": {"mask_add", "chain_combine", "chain_combine_batched"},
                 "pod_tp": {"mask_add", "chain_combine"},
                 "tp_heads": {"mask_add", "chain_combine"}}
@@ -388,13 +405,13 @@ FED_DEAD = 1                # the failover check's dead learner
 CHUNK = 1 << 26             # words per pass of the float64 reference mean
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet)
 
-# The train-step path: the same model at 6 layers (12 until the script's time
-# limit needed the room for tp_heads), with the reference
+# The train-step path: the same model at 4 layers (12 until the script's time
+# limit needed the room for tp_heads, 6 until pod_ep), with the reference
 # launcher's train-step traffic (src/repro/launch/train.py: 4 learners, batch 2
 # of 256 tokens, lr 1e-3) on one repeated batch, as tests/test_train.py trains;
 # the SAFE-against-INSEC comparison runs at TS_CMP_LAYERS layers, so that its
 # two states fit beside each other.
-TS_ARCH, TS_LAYERS, TS_CMP_LAYERS = FED_ARCH, 6, 2
+TS_ARCH, TS_LAYERS, TS_CMP_LAYERS = FED_ARCH, 4, 2
 TS_N, TS_B, TS_S, TS_LR, TS_STEPS = 4, 2, 256, 1e-3, 3
 # The rest of the zoo through the same train step, with the same traffic, each
 # at the published widths of its configuration and cut in depth (or in
@@ -426,12 +443,12 @@ EXAMPLES_ON_CPU = ("failover_demo", "kernels_demo")
 
 # The serving path: internlm2-1.8b at its published widths and SERVE_LAYERS of
 # its 24 layers (all 24 until the script's time limit needed the room for
-# tp_heads; at 24, 3.40 GB of bf16 weights and a 3.22 GB KV cache at 8 slots x
-# 4096 fit), random weights from seed 0. Traffic A is the reference
+# tp_heads, 12 until pod_ep; at 24, 3.40 GB of bf16 weights and a 3.22 GB KV
+# cache at 8 slots x 4096 fit), random weights from seed 0. Traffic A is the reference
 # launcher's defaults (src/repro/launch/serve.py:14-19, 37-41); traffic B is
 # long context, two waves through the slots. A traffic: (requests, slots,
 # max_seq, max_new, prompt seed, prompt lengths [lo, hi)).
-SERVE_ARCH, SERVE_LAYERS = "internlm2-1.8b", 12
+SERVE_ARCH, SERVE_LAYERS = "internlm2-1.8b", 6
 SERVE_TRAFFIC = {"A": (8, 4, 256, 32, 0, 4, 32),
                  "B": (16, 8, 4096, 64, 1, 1024, 3073)}
 SERVE_GATE_REQUESTS, SERVE_GATE_STEPS = 2, 16   # traffic B's, against the full forward
@@ -440,9 +457,9 @@ SERVE_CARD_TOL = 1e-3       # card vs CPU in f32, of max |logit| (tests/test_tor
 SERVE_PROFILE_STEPS = 4
 SERVE_LAUNCH_TIMEOUT_S = 300
 # A prefill into a cache above FLASH_THRESHOLD (prefill_flash): SERVE_ARCH at
-# full width and PF_LAYERS (at SERVE_LAYERS the path took 16.6 s on an H100
+# full width and PF_LAYERS (at 12 layers the path took 16.6 s on an H100
 # 80GB HBM3 at 700 W, 10.2 s of it the dry run's blockwise loops on meta
-# tensors), B = 1 and a PF_S-token prompt (random tokens
+# tensors; 6 until pod_ep), B = 1 and a PF_S-token prompt (random tokens
 # from seed SEED) into the global cache of PF_S slots Model.prefill makes,
 # through the blockwise attention (4 q blocks of 2048 x 8 k blocks of 1024 a
 # layer). Each attention layer again beside the dense form (the reference's
@@ -453,7 +470,7 @@ SERVE_LAUNCH_TIMEOUT_S = 300
 # before they meet v (2^-9 of each at worst), the blockwise form keeps f32, so
 # the two differ by about that share of |v|. The peak within DRY_TOL of the
 # dry run's prefill of the same shape.
-PF_LAYERS, PF_S, PF_TOL = 6, 8192, 2e-2
+PF_LAYERS, PF_S, PF_TOL = 4, 8192, 2e-2
 
 # The wire paths. The engine's tenants upload over 127.0.0.1 in chunks of
 # the codec's default width (a session is 144 MiB, over one 64 MiB frame).
@@ -521,6 +538,25 @@ EP_LOSS_RTOL, EP_MASTER_REL, EP_EXPERT_REL = 1e-3, 0.25, 0.2
 # which six ranks fit the card (the dry run's --per-rank: 8.58 GB a rank at 1
 # layer, 10.72 at 2, before FedAvg's local copy and six CUDA contexts).
 POD_P, POD_STEP_N, POD_LAYERS = 2, 3, 1
+# Expert parallelism with pods (pod_ep): the EP path's model (qwen3-moe-235b-a22b
+# at its published widths, heads and top_k, EP_CUT: 1 of 94 layers, vocab
+# 151,936 -> 18,992) on the pod steps' grid, POD_P pods x POD_STEP_N learners =
+# 6 ranks sharing the card, each with its E/n experts, which it sums over its
+# pod group after the exchange. One more cut, num_experts 128 -> POD_EP_EXPERTS
+# (8 a rank): the two pods' copies of 128 experts at one layer hold
+# 2 x 2.416e9 words x 12 B (bf16 weight and gradient, f32 m and v) ~ 58 GB,
+# before the SAFE matrix, six CUDA contexts and the one-process comparison. Two
+# SAFE train steps (learner DIST_DEAD of each pod dead in the second), each
+# pod's learners on tokens of their own, a new batch a step, against the one-process pod EP step
+# (every expert local, the f32 sum of the P·n learners' expert gradients)
+# within moe_dist's bounds; each pod's expert shards and their m and v word
+# for word equal across the pods after each step; rank 0's first-step peak
+# within DRY_TOL of the dry run's --per-rank record of the layout.
+POD_EP_EXPERTS = 24
+# ``--nccl4-moe``'s pods: POD_P x NCCL_PE_N ranks, a card each, every expert of the
+# EP path's model (64 a rank: ~14.5 GB of bf16 weights and gradients and f32
+# moments)
+NCCL_PE_N = 2
 ENGINE_RANK_ROUNDS = 2
 # The broker in front of the per-rank engine (rank_broker): pod 0's DIST_N ranks
 # serve the rank engine's sessions over 127.0.0.1, session BROKER_CHUNKED (two
@@ -3945,6 +3981,244 @@ def pod_dist_paths(dev, launches, err, smi):
         f"{[round(r['fedavg_peak'] / 1e9, 2) for r in steps_]} GB")
 
 
+def pe_config(experts=POD_EP_EXPERTS, n=POD_STEP_N):
+    """pod_ep's configuration: the EP path's, its experts over ``n``
+    learners, ``experts`` of them."""
+    import dataclasses
+    cfg = ep_config()
+    return dataclasses.replace(cfg, ep_ranks=n,
+                               moe=dataclasses.replace(cfg.moe, num_experts=experts))
+
+
+def pe_run(dev, cfg, mesh=None, rank=None, on_step=None, on_init=None, mode="safe",
+           repeat=False):
+    """Two pod EP train steps of ``cfg`` from seed SEED (learner DIST_DEAD
+    of each pod dead in the second), each pod's learners on tokens of
+    their own, a new batch a step as moe_dist's or, with ``repeat``, the
+    first step's again (the losses then fall, as the train-step path's
+    do): on one card (``mesh`` None: tokens [P·n, B, S], every expert
+    local) or global rank ``rank``'s step over the ('pod', 'data')
+    ``mesh`` on its E/n experts. ``on_init(state)`` sees the initial state and
+    ``on_step(when, i, state)`` each step's start and end. Returns
+    (losses, state, bundle)."""
+    from repro_torch.core import make_aggregator
+    from repro_torch.data import make_federated_batches
+    from repro_torch.dist import rank_world
+    from repro_torch.models import Model
+    from repro_torch.train import make_train_step
+    n, rows = cfg.ep_ranks, POD_P * cfg.ep_ranks
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),
+                  ep_world=None if mesh is None else rank_world(mesh, "data"))
+    agg = make_aggregator(mode, n, pod_axis="pod", device=dev)
+    bundle = make_train_step(model, agg, mesh, lr=TS_LR, pod_axis="pod")
+    state = bundle.init_state_fn(model.tree())
+    del model
+    if on_init:
+        on_init(state)
+    stream = make_federated_batches(cfg, rows, TS_B, TS_S, seed=SEED)
+    losses = []
+    for i, alive in enumerate((np.ones(n, np.float32), pod_alive(n))):
+        toks = stream.global_batch(0 if repeat else i)["tokens"]
+        toks = torch.from_numpy(toks if mesh is None else toks[rank]).to(dev)
+        counter = agg.reserve_round(bundle.padded_size + 2)
+        if on_step:
+            on_step("start", i, state)
+        state, m = bundle.step_fn(state, toks, counter=counter, alive=alive)
+        losses.append(float(m["loss"]))
+        if on_step:
+            on_step("end", i, state)
+    return losses, state, bundle
+
+
+def pe_state_digest(state):
+    """sha256 of a train state's expert leaves and their AdamW m and v."""
+    from repro_torch.train.flatten import leaves
+    return digest(*ep_experts(state), *leaves(state["ep_opt"].m), *leaves(state["ep_opt"].v))
+
+
+def _pod_ep_rank(world, out_dir):
+    """One of pod_ep's POD_P x POD_STEP_N ranks: its two steps with their
+    collectives timed and, after each, the digest of its expert shards and
+    their m and v; pod 0's ranks write their master slice and expert shards
+    to ``out_dir`` for the parent."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives, rank_world
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_pod_mesh
+    dev = world.device
+    mesh = make_pod_mesh(POD_P, POD_STEP_N)
+    pod = rank_world(mesh, "pod")
+    out = {"step_ms": [], "step_transport_ms": [], "digests": []}
+    clock = {}
+
+    def on_step(when, i, state):
+        sync()
+        if when == "start":
+            dist.barrier()
+            collectives.reset_stats(timed=True)
+            clock["t0"] = time.perf_counter()
+            return
+        out["step_ms"].append((time.perf_counter() - clock["t0"]) * 1e3)
+        out["step_transport_ms"].append(collectives.stats["seconds"] * 1e3)
+        if i == 0:
+            out["step1_peak"] = torch.cuda.max_memory_allocated(dev) - base
+        out["digests"].append(pe_state_digest(state))
+    build.reset_launches()
+    warm_cublas(dev)  # cuBLAS's workspaces
+    sync()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["losses"], state, bundle = pe_run(dev, pe_config(), mesh, world.rank, on_step)
+    collectives.reset_stats()
+    out["launches"] = dict(build.launches)
+    out["peak"] = torch.cuda.max_memory_allocated(dev) - base
+    out["padded_size"], out["master_words"] = bundle.padded_size, state["master"].numel()
+    out["expert_shape"] = [tuple(t.shape) for t in ep_experts(state)]
+    if pod.rank == 0:
+        torch.save({"master": state["master"].cpu(),
+                    "experts": [t.cpu() for t in ep_experts(state)]},
+                   os.path.join(out_dir, f"pe_rank{world.rank}.pt"))
+    del state, bundle
+    sync()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def pe_dryrun(cfg=None, mode="safe"):
+    """The dry run's rank 0 of pod_ep's layout (meta tensors), or of
+    ``cfg``'s (its ``ep_ranks`` learners a pod): its record."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    cfg = cfg or pe_config()
+    n = cfg.ep_ranks
+    try:
+        return dryrun.measure(cfg, "train_4k", shape=dict(
+            seq_len=TS_S, global_batch=POD_P * n * TS_B, kind="train"),
+            learners=n, batch=TS_B, per_rank=True, pods=POD_P, aggregator_mode=mode)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def pod_ep_path(dev, launches, err, smi):
+    """Expert parallelism with pods (pod_ep): POD_P x POD_STEP_N spawned
+    ranks sharing the card, each with its E/n experts summed over its pod
+    group, against the one-process pod EP step from the same seed and
+    tokens; the pods' expert state word for word equal; rank 0's peak
+    against the dry run's; adds the ranks' launches to ``launches``."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import tree_size
+    t0 = time.perf_counter()
+    pred = pe_dryrun()
+    dry_s = time.perf_counter() - t0
+    cfg = pe_config()
+    size = POD_P * POD_STEP_N
+    how = (f"{POD_P} pods x {POD_STEP_N} learners = {size} ranks sharing "
+           f"{torch.cuda.device_count()} card ({smi}), gloo through pinned host buffers")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pe_") as tmp:
+        t0 = time.perf_counter()
+        keep = {}
+
+        def first(state):
+            keep["master0"] = state["master"].to("cpu", copy=True)
+            keep["experts0"] = [t.to("cpu", copy=True) for t in ep_experts(state)]
+        losses, state, bundle = pe_run(dev, cfg, on_init=first)
+        master0, experts0 = keep.pop("master0"), keep.pop("experts0")
+        one_s = time.perf_counter() - t0
+        P = tree_size(state["params"])
+        want_m = state["master"].to("cpu", copy=True)
+        want_e = [t.to("cpu", copy=True) for t in ep_experts(state)]
+        del state, bundle
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_pod_ep_rank, size, (tmp,))
+        ranks_s = time.perf_counter() - t0
+        n_loc = ranks[0]["expert_shape"][0][1]
+        L = ranks[0]["padded_size"] // POD_STEP_N
+        got_m, got_e, ref_m, ref_e, base_m, base_e = [], [], [], [], [], []
+        for r in range(POD_STEP_N):  # pod 0's ranks
+            part = torch.load(os.path.join(tmp, f"pe_rank{r}.pt"))
+            got_m.append(part["master"])
+            ref_m.append(want_m[r * L:(r + 1) * L])
+            base_m.append(master0[r * L:(r + 1) * L])
+            for x, y, z in zip(part["experts"], want_e, experts0):
+                got_e.append(x)
+                ref_e.append(y[:, r * n_loc:(r + 1) * n_loc])
+                base_e.append(z[:, r * n_loc:(r + 1) * n_loc])
+            del part
+        e_master = _rel(got_m, ref_m, base_m, dev)
+        e_experts = _rel(got_e, ref_e, base_e, dev)
+        del got_m, got_e, ref_m, ref_e, base_m, base_e, want_m, want_e, master0, experts0
+        torch.cuda.empty_cache()
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS}
+    padded = ranks[0]["padded_size"]
+    t1 = time.perf_counter()
+    kerr, checks = check_dist_kernels(dev, (padded,), err, rounds=False)
+    full = get_config(EP_ARCH)
+    cut = ", ".join(f"{k} {getattr(full, k)} -> {v}" for k, v in EP_CUT.items()
+                    if k in ("n_layers", "vocab"))
+    say(f"phase 4 main path pod_ep ({how}): {EP_ARCH} at full width, reduced: {cut}, "
+        f"num_experts {full.moe.num_experts} -> {cfg.moe.num_experts} (two pods' copies of "
+        f"{full.moe.num_experts} experts do not fit one card beside the rest); {P} parameters, "
+        f"padded_size {padded}, {n_loc} of {cfg.moe.num_experts} experts a rank (shapes "
+        f"{ranks[0]['expert_shape']}), their gradients summed over the pod group; 2 EP train "
+        f"steps (learner {DIST_DEAD} of each pod dead in the second), {TS_B} x {TS_S} tokens a "
+        f"learner a step, each pod's its own; {ranks_s:.1f} s spawned, {one_s:.1f} s for the "
+        f"one-process pod EP step; launches summed over the ranks {counts}; the kernels at V = "
+        f"padded_size == plain: {checks} comparisons in {time.perf_counter() - t1:.1f} s, max "
+        f"|err| {kerr}")
+    missing = sorted(k for k in PATH_KERNELS["pod_ep"] if counts[k] <= 0)
+    if missing:
+        fail(f"path pod_ep never launched {missing} in its ranks: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    problems = []
+    rank_losses = ranks[0]["losses"]
+    if any(r["losses"] != rank_losses for r in ranks):
+        problems.append(f"pod_ep: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    same = [all(ranks[l]["digests"][i] == ranks[p * POD_STEP_N + l]["digests"][i]
+                for l in range(POD_STEP_N) for p in range(1, POD_P)) for i in range(2)]
+    if not all(same):
+        problems.append(f"pod_ep: a pod's expert shards or their m and v differ from pod 0's "
+                        f"(after each step: {same})")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(rank_losses, losses))
+    floats = (f"losses {[round(x, 5) for x in rank_losses]} against the one-process pod EP "
+              f"step's {[round(x, 5) for x in losses]} (relative {loss_err:.3g}, bound "
+              f"{EP_LOSS_RTOL}); relative L2 of the change over 2 steps: the SAFE partition's "
+              f"f32 master {e_master:.3g} (bound {EP_MASTER_REL}), the bf16 expert shards "
+              f"{e_experts:.3g} (bound {EP_EXPERT_REL})")
+    if not (np.isfinite(rank_losses).all() and loss_err <= EP_LOSS_RTOL
+            and e_master <= EP_MASTER_REL and e_experts <= EP_EXPERT_REL):
+        problems.append(f"pod_ep: against the one-process pod EP step: {floats}")
+    if any(r["master_words"] * POD_STEP_N != padded for r in ranks):
+        problems.append("pod_ep: a rank's master vector is not padded_size / n words")
+    p, r = pred["peak_bytes"], ranks[0]["step1_peak"]
+    dry = (f"rank 0's first step: dry run (--per-rank, {POD_P} pods) {p / 1e9:.3f} GB against "
+           f"max_memory_allocated {r / 1e9:.3f} GB, off by {abs(p - r) / r:.2%}")
+    if abs(p - r) / r > DRY_TOL:
+        problems.append(f"pod_ep {dry}, over {DRY_TOL:.0%}")
+    say(f"phase 5 pod_ep: each pod's expert shards and their AdamW m and v torch.equal (sha256) "
+        f"to pod 0's after each step: {same}; {floats}; {dry} (bound {DRY_TOL:.0%}, "
+        f"{dry_s:.1f} s on meta tensors)")
+    for i in range(2):
+        walls = [x["step_ms"][i] for x in ranks]
+        tr = [x["step_transport_ms"][i] for x in ranks]
+        say(f"phase 6 pod_ep train step {i + 1} ({how}): wall {max(walls):.1f} ms; in "
+            f"collectives {[round(t, 1) for t in tr]} ms, transport share "
+            f"{[f'{t / w:.0%}' for t, w in zip(tr, walls)]}")
+    say(f"phase 6 pod_ep peak memory ({how}): {[round(x['peak'] / 1e9, 2) for x in ranks]} GB a "
+        f"rank allocated (the dry run's rank 0 {p / 1e9:.2f} GB, by category "
+        f"{json.dumps({k: round(v / 1e9, 3) for k, v in pred['peak_by_category'].items()})})")
+    if problems:
+        fail(" | ".join(problems))
+
+
 def nccl_rounds_rank():
     """One rank of ``--nccl4``'s rounds under ``torch.distributed.run``, a
     card each over NCCL: each round of DIST_ROUNDS through
@@ -4051,6 +4325,93 @@ def nccl_pod_rank():
     close_world()
 
 
+def nccl_pod_ep_rank():
+    """One rank of ``--nccl4-moe``'s expert parallelism with pods under
+    ``torch.distributed.run``, a card each over NCCL: POD_P pods x
+    NCCL_PE_N learners, BON (a ring of two learners runs no SAFE), the EP
+    path's model with all its experts (E/n a rank), two steps on the
+    first step's tokens (learner DIST_DEAD of each pod dead in the
+    second). Prints one JSON line: the losses, the digest of its expert
+    shards and their m and v after each step, its peaks and step walls."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import close_world, init_world
+    from repro_torch.launch.mesh import make_pod_mesh
+    world = init_world()
+    dev, r = world.device, world.rank
+    mesh = make_pod_mesh(POD_P, NCCL_PE_N)
+    out = {"rank": r, "step_ms": [], "digests": []}
+    clock = {}
+
+    def on_step(when, i, state):
+        sync()
+        if when == "start":
+            dist.barrier()
+            clock["t0"] = time.perf_counter()
+            return
+        out["step_ms"].append(round((time.perf_counter() - clock["t0"]) * 1e3, 1))
+        if i == 0:
+            out["step1_peak"] = torch.cuda.max_memory_allocated(dev) - base
+        out["digests"].append(pe_state_digest(state))
+    warm_cublas(dev)  # cuBLAS's workspaces
+    sync()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = pe_config(ep_config().moe.num_experts, NCCL_PE_N)
+    out["losses"], state, _ = pe_run(dev, cfg, mesh, r, on_step, mode="bon", repeat=True)
+    out["peak"] = torch.cuda.max_memory_allocated(dev) - base
+    out["expert_shape"] = [tuple(t.shape) for t in ep_experts(state)]
+    del state
+    say("nccl pod ep rank " + json.dumps(out))
+    close_world()
+
+
+def nccl_pod_ep(run, env, smi, cards):
+    """``--nccl4-moe``'s expert parallelism with pods: ``nccl_pod_ep_rank``
+    on four cards; the pods' expert state word for word equal after each
+    step, the losses falling, each rank's first-step peak within DRY_TOL
+    of the dry run's record of the layout."""
+    t0 = time.perf_counter()
+    cfg = pe_config(ep_config().moe.num_experts, NCCL_PE_N)
+    pred = pe_dryrun(cfg, "bon")
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(run + [os.path.join(ROOT, "chip_smoke.py"), "--nccl-pod-ep-rank"],
+                          env=dict(env, PYTORCH_CUDA_ALLOC_CONF=DIST_ALLOC_CONF),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"nccl pod ep: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    tag = "nccl pod ep rank "
+    ranks = sorted((json.loads(line[len(tag):]) for line in proc.stdout.splitlines()
+                    if line.startswith(tag)), key=lambda x: x["rank"])
+    if len(ranks) != POD_P * NCCL_PE_N:
+        fail(f"nccl pod ep: {len(ranks)} ranks reported")
+    same = [all(ranks[l]["digests"][i] == ranks[p * NCCL_PE_N + l]["digests"][i]
+                for l in range(NCCL_PE_N) for p in range(1, POD_P)) for i in range(2)]
+    losses = ranks[0]["losses"]
+    p = pred["peak_bytes"]
+    off = [abs(p - x["step1_peak"]) / x["step1_peak"] for x in ranks]
+    line = (f"nccl pod ep ({smi.splitlines()[0]} x{cards}, nccl, a card a rank): {EP_ARCH} at "
+            f"full width, {cfg.n_layers} layer, vocab {cfg.vocab}, all {cfg.moe.num_experts} "
+            f"experts ({ranks[0]['expert_shape'][0][1]} a rank, shapes "
+            f"{ranks[0]['expert_shape']}), BON, {POD_P} pods x {NCCL_PE_N} learners, 2 steps on "
+            f"one batch (learner {DIST_DEAD} of each pod dead in the second) in {wall:.1f} s "
+            f"with start-up; step walls {[x['step_ms'] for x in ranks]} ms; losses "
+            f"{[round(x, 5) for x in losses]}; the pods' expert shards and their m and v "
+            f"torch.equal (sha256) after each step: {same}; first-step peaks "
+            f"{[round(x['step1_peak'] / 1e9, 3) for x in ranks]} GB a rank against the dry "
+            f"run's rank 0 {p / 1e9:.3f} GB ({dry_s:.1f} s on meta tensors), off by "
+            f"{[f'{o:.2%}' for o in off]}; peaks {[round(x['peak'] / 1e9, 2) for x in ranks]} GB")
+    say(line)
+    if any(x["losses"] != losses for x in ranks):
+        fail(f"nccl pod ep: the ranks' losses differ: {[x['losses'] for x in ranks]}")
+    if not all(same) or not losses[1] < losses[0] or not np.isfinite(losses).all():
+        fail(f"nccl pod ep: the pods' expert state differs, or the losses do not fall: {line}")
+    if max(off) > DRY_TOL:
+        fail(f"nccl pod ep: a rank's peak is off the dry run's by more than {DRY_TOL:.0%}")
+
+
 def nccl_moe_layers():
     """The most layers of qwen3-moe (full vocabulary) whose per-rank step the
     dry run says fits a card, one learner a rank of DIST_N: (layers, the
@@ -4127,7 +4488,8 @@ def nccl_paths():
 
 
 def nccl_moe(run, env, smi, cards):
-    """``--nccl4``'s MoE: the smoke MoE through the launcher with a
+    """``--nccl4``'s MoE: expert parallelism with pods (``nccl_pod_ep``);
+    the smoke MoE through the launcher with a
     checkpoint every step and a run resumed from step 1, whose step-2
     checkpoint must equal the uninterrupted run's word for word; then
     qwen3-moe with its full vocabulary, a card a rank, at the most layers
@@ -4138,6 +4500,7 @@ def nccl_moe(run, env, smi, cards):
     import tempfile
 
     from repro_torch.launch.dryrun import H100_USABLE_BYTES
+    nccl_pod_ep(run, env, smi, cards)
     with tempfile.TemporaryDirectory() as tmp:
         smoke = ["-m", "repro_torch.launch.train", "--arch", EP_ARCH, "--smoke", "--steps", "2",
                  "--model-shards", "1", "--ckpt-every", "1", "--ckpt-dir"]
@@ -6292,6 +6655,8 @@ def main():
         return dist_depth([int(a) for a in sys.argv[sys.argv.index("--dist-depth") + 1:]])
     if "--nccl-rank" in sys.argv:
         return nccl_rounds_rank()
+    if "--nccl-pod-ep-rank" in sys.argv:
+        return nccl_pod_ep_rank()
     if "--nccl4" in sys.argv:
         return nccl_paths()
     if "--nccl4-tp" in sys.argv:
@@ -6364,6 +6729,8 @@ def main():
     timed("dist", dist_paths, dev, launches, err, smi)
     torch.cuda.empty_cache()
     timed("moe dist", ep_dist_path, dev, launches, err, smi)
+    torch.cuda.empty_cache()
+    timed("pod ep", pod_ep_path, dev, launches, err, smi)  # starts the pod steps' 6 ranks
     torch.cuda.empty_cache()
     timed("pod dist", pod_dist_paths, dev, launches, err, smi)
     torch.cuda.empty_cache()

@@ -58,10 +58,8 @@ memory and cost analyses. Here, per combination and mesh:
   ranks (``MESH_GRIDS``; the specs' ``per_rank``: every rank of the grid
   runs the same program on shards of the same shapes): the train step of the ('pod',
   'data', 'model') grid, or its serving step, measured as above, with the
-  bytes its collectives would send by op. Where the port refuses a layout
-  that the reference's GSPMD runs (a split that cuts a head; expert
-  parallelism with pods) the record says ``status: "refused"`` with the
-  port's message.
+  bytes its collectives would send by op (a MoE's pod512 train step
+  counts its experts' f32 gradient sum over the pods under ``psum``).
 
 The reference's ``_shape_bytes`` and ``parse_collectives`` read XLA's HLO
 text and have no counterpart here. Records go to
@@ -246,10 +244,6 @@ def max_units_that_fit(cfg, shape_name: str, cap: int, peak_at_depth: int, *, sh
 #: the production meshes' grids: the reference's 16 x 16 mesh, and two pods of it
 MESH_GRIDS = {"pod256": dict(learners=16, model_shards=16, pods=1),
               "pod512": dict(learners=16, model_shards=16, pods=2)}
-#: the port's refusal of a layout the reference's mesh step runs: expert
-#: parallelism with pods, whose reference result keeps a per-pod copy of the
-#: experts under a replicated out_spec (ROADMAP Queue 3)
-REFUSALS = ("expert parallelism with a pod axis",)
 
 
 def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str = "safe",
@@ -292,14 +286,7 @@ def run_one(arch: str, shape_name: str, mesh: str = "one", aggregator_mode: str 
                           f"{arch} is pure global attention (DESIGN.md §5)")}
     if mesh != "one":
         spec_kw.update(per_rank=True, **MESH_GRIDS[mesh])
-    try:
-        m = measure(cfg, shape_name, **spec_kw)
-    except ValueError as e:
-        if not any(r in str(e) for r in REFUSALS):
-            raise
-        record.update(status="refused", reason=str(e))
-        print(f"[dryrun] {arch} {shape_name} {mesh}: refused ({e})", flush=True)
-        return record
+    m = measure(cfg, shape_name, **spec_kw)
     if m is None:
         record.update(skipped)
         return record

@@ -29,9 +29,14 @@ expert is local, so the step sums the learners' expert gradients in f32
 (dead learners included: ``alive`` only touches SAFE), casts the sum once
 to the parameters' dtype and updates them with a tree ``AdamW`` without
 clipping, whose state is ``state["ep_opt"]``; ``sec_size`` counts the
-SAFE partition alone. The reference's step without ``ep_axis`` drops
-the expert leaves from the parameters it returns; this step refuses a
-model with expert leaves and no ``ep_axis`` (``ValueError``).
+SAFE partition alone. With pods the sum runs over all P·n learners, and
+so it does across ranks (below): one copy of the experts, the
+replicated array the reference's ``out_specs`` declare, where the
+reference's step updates each pod's copy with its own pod's sum and so
+keeps P copies that differ from the second step on. The reference's
+step without ``ep_axis`` drops the expert leaves from the parameters it
+returns; this step refuses a model with expert leaves and no
+``ep_axis`` (``ValueError``).
 
 ``leafwise`` aggregates each parameter tensor of the SAFE partition in its
 own round (key domain leaf index + 1, the step's counter in every domain)
@@ -56,7 +61,12 @@ one-card step, not word for word). With the aggregator's pod axis the
 mesh is ('pod', 'data') (``launch/mesh.py::make_pod_mesh``): the round
 publishes the mean over pods and the gathered vector and the loss are
 ``pmean``'d over the pods, as the reference's ``per_rank_step`` does; its
-parameters are the one-card pod step's word for word.
+parameters are the one-card pod step's word for word. A MoE with pods
+sums each rank's expert gradients (its pod's sum, from the exchange)
+over its pod group, the ranks holding the same experts in every pod, in
+f32 a slice at a time, before the expert update: the one-card pod
+step's sum over P·n learners, within a bound of it, and the pods' expert
+shards and their moments equal word for word.
 
 Model shards: a model built with ``tp_world`` (``Model(cfg,
 tp_world=model)``, the model group of a ('data', 'model') grid from
@@ -84,7 +94,9 @@ both publish the same words, so here it is accepted and the model's
 ``tp_world`` decides. A MoE there takes both splits (``Model(cfg,
 tp_world=model, ep_world=ring)``): its experts stay out of the SAFE
 partition, spread over ring j's learners, each rank holding [E/n, d, f/m]
-of every expert matrix, and ``ep_opt`` updates those shards. A ``mesh``
+of every expert matrix, and ``ep_opt`` updates those shards; with pods
+their gradients are first summed over the pod group (·, l, j), which
+holds the same shard in every pod. A ``mesh``
 on a fake group (the dry run's) and the
 reference's Megatron output anchors change no arithmetic. The reference's buffer
 donation becomes in-place updates: with ``donate`` the step writes the new
@@ -112,9 +124,6 @@ if TYPE_CHECKING:  # the model package imports this package's flatten
     from repro_torch.models.transformer import Model
 
 LEAFWISE_BYTES = 8e9  # flat f32 vectors above this aggregate leaf by leaf
-_EP_PODS = ("{}: expert parallelism with a pod axis: the reference keeps a copy of each "
-            "pod's experts that its step never reconciles across pods (no pmean over 'pod' "
-            "of the expert update); train pods on a model without experts, or one pod")
 
 
 @dataclasses.dataclass
@@ -220,6 +229,26 @@ def _ep_update(opt: AdamW, ep_sum: list, state: AdamState, ep_params: Any,
     for g, p, m, v in zip(ep_sum, leaves(ep_params), leaves(state.m), leaves(state.v)):
         opt.update_([g.to(p.dtype)], AdamState(step, [m], [v]), [p])
     return ep_params, AdamState(torch.tensor(step + 1, dtype=torch.int32), state.m, state.v)
+
+
+def _pod_sum(ep_g: list, pod_world) -> list:
+    """The expert gradients ``ep_g`` summed over the pod group, in place:
+    ``collectives.MODEL_SLICE`` elements of a leaf's flat order at a time,
+    each slice upcast to f32, ``psum``'d (all-gathered and added in pod
+    rank order) and cast once to the gradient's dtype, so the step holds
+    one slice's gather beside the gradients, not an f32 copy of a leaf.
+    After the exchange's sum over the pod's learners, this is the sum over
+    all P·n learners that the one-card step applies (``_learner_grads``)."""
+    out = []
+    with torch.no_grad():
+        for g in ep_g:
+            g = g.contiguous()  # autograd's gradients are: no copy
+            flat = g.view(-1)
+            for lo in range(0, flat.numel(), collectives.MODEL_SLICE):
+                part = flat[lo:lo + collectives.MODEL_SLICE]
+                part.copy_(collectives.psum(part.float(), pod_world))
+            out.append(g)
+    return out
 
 
 def _learner_grads(model: Model, params: Any, tokens: torch.Tensor, prefix, mark,
@@ -334,8 +363,6 @@ def make_train_step(
         aggregator.check_world(world, pod_world)
         if use_ep:
             _check_ep_world(model, world)
-            if pod_world is not None:
-                raise ValueError(_EP_PODS.format(cfg.arch_id))
         sec_size = sum(sh.numel for sh in model.shard_layout(_in_safe))
         if leafwise is None:
             leafwise = sec_size * 4 > LEAFWISE_BYTES
@@ -352,8 +379,6 @@ def make_train_step(
         aggregator.check_world(world, pod_world)
         if use_ep and world.size > 1:
             _check_ep_world(model, world)
-            if pod_world is not None:
-                raise ValueError(_EP_PODS.format(cfg.arch_id))
         return _rank_step(model, aggregator, world, pod_world, flat_opt, sec_opt, ep_opt,
                           sec_size, padded_size, leafwise, donate, use_ep)
 
@@ -460,7 +485,9 @@ def _rank_step(model: Model, aggregator: SecureAggregator, world, pod_world,
     Pods (``pod_world``, one rank a pod for this learner): the round
     publishes the mean over pods (``aggregate_rank``), the gathered vector
     is ``pmean``'d over the pods as the reference does, and so is the loss
-    after its mean over the learners.
+    after its mean over the learners. With experts, each expert gradient
+    is summed over the pod group before the update (``_pod_sum``), so
+    every pod applies the sum over all P·n learners to the same shard.
 
     ``step_fn(state, tokens, prefix=None, weights=None, counter=0,
     alive=None, mark=None)``: ``tokens`` this learner's int[B, S],
@@ -530,6 +557,8 @@ def _rank_step(model: Model, aggregator: SecureAggregator, world, pod_world,
             del flat
         ep_state = None
         if use_ep:  # the experts' gradients, summed by the exchange's transpose
+            if pod_world is not None:  # and over the pods
+                ep_g = _pod_sum(ep_g, pod_world)
             new_ep, ep_state = _ep_update(ep_opt, ep_g, state["ep_opt"], ep_p, donate)
             del ep_g
             mark("expert_optimizer")
@@ -611,7 +640,8 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, pod_world,
     runs chunk j's round in pod p and the pods' chunks meet over the pod
     group (``aggregate_rank``); ZeRO-1 runs over the n·m ranks of each
     pod; the rebuilt flat vector takes the reference's ``pmean`` over
-    'pod', and so does the loss.
+    'pod', and so does the loss; the expert shards' gradients are summed
+    over the pod group (``_pod_sum``) before ``ep_opt`` applies them.
 
     ``step_fn(state, tokens, prefix=None, weights=None, counter=0,
     alive=None, mark=None)`` as ``_rank_step``'s: ``tokens`` this learner's
@@ -742,6 +772,8 @@ def _tp_step(model: Model, aggregator: SecureAggregator, world, tp, pod_world,
             del flat
         ep_state = None
         if use_ep:  # the experts' gradients, summed over ring j by the exchange's transpose
+            if pod_world is not None:  # and over the pods
+                ep_g = _pod_sum(ep_g, pod_world)
             new_ep, ep_state = _ep_update(ep_opt, ep_g, state["ep_opt"], ep_p, donate)
             mark("expert_optimizer")
         del ep_g

@@ -21,7 +21,14 @@ members). Each rank runs, on its row:
   two rounds through two slots, rotated, one with a dead learner), every
   session-round bit for bit the one-card engine's;
 - a tiled ``all_to_all`` over all six ranks under autograd, whose input
-  gradient must equal the transpose computed in one process.
+  gradient must equal the transpose computed in one process;
+- two SAFE train steps of the f32 smoke qwen3-moe with 6 experts by
+  expert parallelism with pods (the second with learner 1 dead), each
+  rank holding its two experts: within the EP bounds of
+  ``tests/test_torch_dist_ep.py`` of the one-card pod step, which sums the
+  expert gradients of all P·n learners; the pods' expert shards and their
+  moments equal word for word, and each SAFE round the one-card round of
+  the rows the ranks sent.
 
 The one-card FedAvg round with ``pod_axis`` (the reference's argument,
 missing from the port before) is held to the reference's
@@ -45,6 +52,7 @@ from repro_torch.dist import collectives, spawn
 from repro_torch.models import Model
 from repro_torch.serve.agg_engine import AggregationEngine
 from repro_torch.train import make_federated_round, make_train_step, tree_to_flat
+from repro_torch.train.flatten import is_expert_path, leaves, leaves_with_paths
 
 P, N, V, THREADS = 2, 3, 37, 2
 COUNTER = 2**32 - 5        # the pads wrap the 32-bit counter
@@ -66,6 +74,11 @@ ENGINE_S, ENGINE_ROUNDS = 2, 2
 # each ~1e-4 from the reference's as in tests/test_torch_federated.py), the
 # loss within 1e-5; the bounds sit 2.5x above.
 FED_REL, FED_LOSS_RTOL = 3e-4, 1e-5
+# Expert parallelism with pods against the one-card pod step, f32: the
+# bounds of tests/test_torch_dist_ep.py (losses 1e-6 relative, the SAFE
+# partition's change 5e-3 and the experts' 5e-4 relative L2).
+EP_LOSS_RTOL, EP_REL_SEC, EP_REL_EP = 1e-6, 5e-3, 5e-4
+EP_EXPERTS, EP_SEED = 6, 5
 
 
 def _cell(name):
@@ -141,6 +154,52 @@ def _step(mesh=None, rank=None):
     return losses, tree_to_flat(state["params"])
 
 
+def _moe_cfg():
+    """The f32 smoke qwen3-moe with EP_EXPERTS experts over a pod's N
+    learners (two a rank)."""
+    cfg = get_smoke_config("qwen3-moe-235b-a22b")
+    return dataclasses.replace(cfg, dtype="float32", ep_axis="data", ep_ranks=N,
+                               moe=dataclasses.replace(cfg.moe, num_experts=EP_EXPERTS))
+
+
+def _moe_step(mesh=None, rank=None):
+    """Two SAFE pod EP train steps of ``_moe_cfg`` from seed 0, each pod's
+    learners on tokens of their own: the one-card step on [P·n, B, S]
+    (``rank`` None, every expert local), or global rank ``rank``'s step
+    over the ('pod', 'data') ``mesh`` on its E/n experts, recording each
+    round's (row sent, mean published, counter, alive, rotate). Returns
+    the losses, the final parameters by path, the expert AdamW's m and v
+    and the rounds."""
+    from repro_torch.dist import rank_world
+    data = None if mesh is None else rank_world(mesh, "data")
+    model = Model(_moe_cfg(), device="cpu", ep_world=data)
+    agg = make_aggregator("safe", N, pod_axis="pod", device="cpu")
+    rounds = []
+    if mesh is not None:
+        inner = agg.aggregate_rank
+
+        def spy(values, counter_base=0, **kw):
+            out = inner(values, counter_base, **kw)
+            rounds.append((values.clone(), out.clone(), counter_base, kw["alive"],
+                           kw["rotate"]))
+            return out
+        agg.aggregate_rank = spy
+    bundle = make_train_step(model, agg, mesh, lr=LR, pod_axis="pod")
+    state = bundle.init_state_fn(model.tree())
+    stream = make_federated_batches(_moe_cfg(), P * N, B, S, seed=EP_SEED)
+    losses = []
+    for i, alive in enumerate(STEP_ALIVE):
+        toks = stream.global_batch(i)["tokens"]
+        state, m = bundle.step_fn(state, torch.from_numpy(toks if rank is None else toks[rank]),
+                                  counter=agg.reserve_round(bundle.padded_size + 2),
+                                  alive=alive)
+        losses.append(float(m["loss"]))
+    return {"losses": losses,
+            "final": {p: t.detach().clone() for p, t in leaves_with_paths(state["params"])},
+            "m": [t.clone() for t in leaves(state["ep_opt"].m)],
+            "v": [t.clone() for t in leaves(state["ep_opt"].v)], "rounds": rounds}
+
+
 def _fed(model, mesh=None, rank=None):
     """One weighted FedAvg round with pods: (published delta, new flat
     parameters, local loss, delta norm)."""
@@ -176,6 +235,7 @@ def _rank(world):
         .aggregate_sharded(mesh, torch.from_numpy(vals), COUNTER, alive=kw["alive"], weights=w)
     out["step"] = _step(mesh, world.rank)
     out["fed"] = _fed(Model(_cfg(), device="cpu"), mesh, world.rank)
+    out["moe"] = _moe_step(mesh, world.rank)
     out["engine"] = {name: _engine(name, world if ENGINES[name][0] == P * N else data)
                      for name in ENGINES}
     x = _exchange_input(world.rank).requires_grad_(True)
@@ -374,3 +434,61 @@ def test_all_to_all_gradient_is_its_transpose(ranks):
         assert torch.equal(y, ys[r].detach()), r
         assert torch.equal(g, xs[r].grad), r
 
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_pod_ep_step_near_one_card(ranks):
+    """Expert parallelism with pods: each pod's experts, gathered from its
+    ranks' shards, and the SAFE partition change over the two steps within
+    the EP bounds of the one-card pod step's, which sums every learner's
+    expert gradients in f32; the losses within 1e-6."""
+    one = _moe_step()
+    init = {p: t for p, t in leaves_with_paths(Model(_moe_cfg(), device="cpu").tree())}
+    ep = [p for p in init if is_expert_path(p)]
+    sec = [p for p in init if not is_expert_path(p)]
+    assert len(ep) == 3 * len(_moe_cfg().pattern) and sec
+
+    def change(final, paths):
+        return np.concatenate([(final[p] - init[p]).detach().numpy().ravel() for p in paths])
+    want_sec, want_ep = change(one["final"], sec), change(one["final"], ep)
+    for pod in range(P):
+        res = [ranks[pod * N + l]["moe"] for l in range(N)]
+        for r in res:
+            np.testing.assert_allclose(r["losses"], one["losses"], rtol=EP_LOSS_RTOL)
+            assert all(torch.equal(r["final"][p], res[0]["final"][p]) for p in sec)
+        full = {p: torch.cat([r["final"][p] for r in res], dim=1) for p in ep}
+        assert _rel_l2(change(res[0]["final"], sec), want_sec) <= EP_REL_SEC, pod
+        assert _rel_l2(change(full, ep), want_ep) <= EP_REL_EP, pod
+
+
+def test_pod_ep_experts_equal_across_pods(ranks):
+    """Learner l's expert shards, and their AdamW m and v, are the same
+    words in every pod after the two steps (each pod applies the sum over
+    every pod's learners)."""
+    for l in range(N):
+        a = ranks[l]["moe"]
+        for pod in range(1, P):
+            b = ranks[pod * N + l]["moe"]
+            for p, t in a["final"].items():
+                if is_expert_path(p):
+                    assert torch.equal(t, b["final"][p]), (l, pod, p)
+            for key in ("m", "v"):
+                assert all(torch.equal(x, y) for x, y in zip(a[key], b[key])), (l, pod, key)
+
+
+@pytest.mark.parametrize("step", range(len(STEP_ALIVE)))
+def test_pod_ep_safe_round_is_one_card_round_of_the_rows_sent(ranks, step):
+    """Each SAFE round of the EP step with pods publishes, word for word,
+    the one-card pod round of the [P, n, V] rows the ranks sent (the rows
+    differ from the one-card step's by the exchange's float order)."""
+    rows = torch.stack([ranks[r]["moe"]["rounds"][step][0] for r in range(P * N)])
+    _, _, counter, alive, rotate = ranks[0]["moe"]["rounds"][step]
+    want = make_aggregator("safe", N, pod_axis="pod", device="cpu").aggregate(
+        rows.view(P, N, -1), counter, alive=alive, rotate=rotate)
+    for r, res in enumerate(ranks):
+        assert res["moe"]["rounds"][step][2:4] == (counter, alive), r
+        np.testing.assert_array_equal(res["moe"]["rounds"][step][1].numpy(), want.numpy())

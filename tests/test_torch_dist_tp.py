@@ -494,10 +494,10 @@ def test_a_split_that_cuts_a_head_raises_where_the_reference_cuts():
 def test_refusals():
     """No split is refused (a head m does not divide splits whole, unevenly;
     the MoE, Mamba2, RWKV6 and zamba2 split: tests/test_torch_dist_tp_zoo.py),
-    only a model axis of no rank; expert parallelism with pods
-    on a model split over model ranks (pods with model shards now run:
-    tests/test_torch_dist_pod_tp.py), and a WORLD_SIZE that is not
-    learners x model shards."""
+    only a model axis of no rank, and a WORLD_SIZE that is not learners x
+    model shards. Expert parallelism with pods on a model split over model
+    ranks, once refused, builds its step (it runs in
+    tests/test_torch_dist_pod_tp.py)."""
     from repro_torch.dist import Grid
     from repro_torch.launch.train import parse_args, run
     two = World(rank=0, size=2, device=torch.device("cpu"), transport="gloo")
@@ -513,9 +513,9 @@ def test_refusals():
     agg = make_aggregator("safe", N, pod_axis="pod", device="cpu")
     moe = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"), ep_axis="data",
                               ep_ranks=N)
-    with pytest.raises(ValueError, match="expert parallelism with a pod axis"):
-        make_train_step(Model(moe, device="meta", tp_world=two, ep_world=data), agg,
-                        Grid(data=data, model=two, pod=pod), pod_axis="pod")
+    bundle = make_train_step(Model(moe, device="meta", tp_world=two, ep_world=data), agg,
+                             Grid(data=data, model=two, pod=pod), pod_axis="pod")
+    assert bundle.padded_size % (2 * N * 2) == 0
     with pytest.raises(ValueError, match="the per-rank round needs the pod World"):
         make_train_step(Model(_cfg(), device="cpu", tp_world=two), agg, data, pod_axis="pod")
     with pytest.raises(ValueError, match="even length"):

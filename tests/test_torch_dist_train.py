@@ -277,8 +277,8 @@ def test_moe_experts_must_divide_the_ranks():
 
 def test_pod_world_must_match_the_pods():
     """What stays refused with pods across ranks: weights of more pods than
-    the pod World has ranks, a pod axis without a pod World, a pod World
-    without a pod axis, and expert parallelism with pods."""
+    the pod World has ranks, a pod axis without a pod World, and a pod
+    World without a pod axis."""
     cpu = torch.device("cpu")
     data = World(rank=0, size=N, device=cpu, transport="gloo")
     pod = World(rank=0, size=2, device=cpu, transport="gloo")

@@ -27,7 +27,7 @@ from helpers import REPO
 from torch.distributed._tools.mem_tracker import MemTracker
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import all_arch_ids, get_smoke_config
+from repro_torch.configs import all_arch_ids, get_config, get_smoke_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.input_specs import INPUT_SHAPES, build_spec
 from repro_torch.launch.mesh import make_test_mesh, start_fake_world
@@ -352,11 +352,15 @@ def test_per_rank_record_keeps_the_logits_vocabulary_sharded(_fake_group_after, 
 
 
 @pytest.mark.parametrize("mesh", ["pod256", "pod512"])
-def test_production_mesh_records_refuse_what_the_port_refuses(mesh, _fake_group_after):
+def test_production_mesh_records_run_what_the_port_once_refused(mesh, _fake_group_after):
     """The smoke qwen3-14b's 5 q heads over 16 model ranks, as the full
     configuration's 40 are, once refused: now ``ok``, from rank 0's program,
     which holds one q head (ranks 5-15 hold none) and the kv head every rank
-    keeps. Expert parallelism with pods stays refused, with its message."""
+    keeps. Expert parallelism with pods, once refused too: qwen3-moe's
+    pod512 train_4k at one layer is ``ok`` and fits, and its ``psum`` bytes
+    exceed the same layout's with one pod (the same B_l) by exactly the
+    rank's expert gradients in f32, summed over the other pod, and the
+    loss's pmean over the pods (one f32 word)."""
     rec = dryrun.run_one("qwen3-14b", "decode_32k", mesh, smoke=True)
     assert rec["status"] == "ok", rec.get("reason")
     assert "rank 0 of n=16 m=16" in rec["description"]
@@ -365,9 +369,16 @@ def test_production_mesh_records_refuse_what_the_port_refuses(mesh, _fake_group_
     assert rec["status"] == "skipped"
     if mesh == "pod512":
         # the full configuration (the smoke one's 4 experts do not shard over 16)
-        rec = dryrun.run_one("qwen3-moe-235b-a22b", "train_4k", mesh)
-        assert rec["status"] == "refused"
-        assert "expert parallelism with a pod axis" in rec["reason"]
+        arch = "qwen3-moe-235b-a22b"
+        rec = dryrun.run_one(arch, "train_4k", mesh, n_layers=1)
+        assert rec["status"] == "ok" and rec["fits"], rec
+        assert rec["description"].startswith("train_step rank 0 of n=16 m=16 pods=2 B_l=8")
+        one_pod = dryrun.run_one(arch, "train_4k", "pod256", n_layers=1, batch=8)
+        assert "pods=1 B_l=8" in one_pod["description"]
+        moe = get_config(arch).moe
+        words = 3 * (moe.num_experts // 16) * get_config(arch).d_model * (moe.expert_d_ff // 16)
+        psum = rec["collectives"]["by_op"]["psum"] - one_pod["collectives"]["by_op"]["psum"]
+        assert psum == words * 4 + 4, (psum, words * 4)
 
 
 # last: the sweep runs in its subprocess while the tests above run
