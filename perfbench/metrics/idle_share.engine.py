@@ -1,0 +1,2 @@
+"""Share of the traced window with no device op (the engine's cells)."""
+from perfbench.readings import idle_share as read  # noqa: F401
